@@ -31,10 +31,17 @@
 // masked fill, and total==0 -> 1 for fully masked rows.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC  (qmann_tpu_torch/ops/cuda/hop_chain.py does it).
+//        -Xcompiler -fPIC -I csrc  (qmann_tpu_torch/ops/cuda/_build.py does it).
 #include <cuda_runtime.h>
 
+#include "qformat.cuh"
+
 namespace {
+
+using qmann::QFmt;
+using qmann::fq;
+using qmann::warp_max;
+using qmann::warp_sum;
 
 constexpr int kMaxHops = 8;
 constexpr int kMaxMem = 64;    // the softmax keeps two rows per lane
@@ -43,48 +50,9 @@ constexpr int kThreads = 128;  // one thread per embedding column at D<=128
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 3 * kMaxHops + 1;  // w[K], att[K], act[K], bin
 
-struct QFmt {
-  float maxf;       // saturation bound (2^(iwl+frac)-1)/2^frac in float
-  float scale;      // 2^frac
-  float inv_scale;  // 2^-frac
-  int mode;         // 0 floor, 1 ceil, 2 round-half-even, 3 truncate
-  int binary;       // iwl+frac == 0: sign with 0 -> +1
-  int full31;       // iwl+frac == 31: the INT_MIN magnitude wrap
-};
-
 struct ChainFormats {
   QFmt f[kSlots];
 };
-
-// float_quant of qmann_tpu/numerics/fixed.py, element by element.
-__device__ __forceinline__ float fq(float x, const QFmt& f) {
-  if (f.binary) return x >= 0.f ? 1.f : -1.f;
-  const float scaled = x * f.scale;
-  float q;
-  switch (f.mode) {
-    case 0: q = floorf(scaled); break;
-    case 1: q = ceilf(scaled); break;
-    case 2: q = rintf(scaled); break;
-    default: q = truncf(scaled); break;
-  }
-  // saturating float->int32 conversion
-  q = q < -2147483648.f ? -2147483648.f : (q > 2147483648.f ? 2147483648.f : q);
-  float deq = q * f.inv_scale;
-  if (f.full31 && scaled <= -2147483648.f) deq = 0.f;
-  // saturation is decided on the pre-conversion value
-  return x > f.maxf ? f.maxf : (x < -f.maxf ? -f.maxf : deq);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __global__ void __launch_bounds__(kThreads)
 hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
@@ -212,20 +180,10 @@ extern "C" int qmann_hop_chain(const float* flat, const float* u,
       K > kMaxHops)
     return (int)cudaErrorInvalidValue;
   ChainFormats formats = {};
-  for (int i = 0; i < 3 * K + 1; ++i) {
-    const int iwl = fmts[3 * i], frac = fmts[3 * i + 1], mode = fmts[3 * i + 2];
-    if (iwl < 0 || frac < 0 || iwl + frac > 31 || mode < 0 || mode > 3)
+  for (int i = 0; i < 3 * K + 1; ++i)
+    if (!qmann::make_qfmt(fmts[3 * i], fmts[3 * i + 1], fmts[3 * i + 2],
+                          &formats.f[i]))
       return (int)cudaErrorInvalidValue;
-    const int n = iwl + frac;
-    QFmt& q = formats.f[i];
-    // the same float32 arithmetic as numerics.fixed_max_float
-    q.maxf = (float)((1u << n) - 1u) / (float)(1u << frac);
-    q.scale = (float)(1u << frac);
-    q.inv_scale = 1.f / q.scale;  // exact: a power of two
-    q.mode = mode;
-    q.binary = n == 0;
-    q.full31 = n == 31;
-  }
   hop_chain_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
       flat, u, hmats, mask, u_out, p_out, s_out, B, M, D, K, linear_mapping,
       non_linearity, formats);

@@ -1,3 +1,8 @@
-from qmann_tpu_torch.data.babi import DataDims, Dictionary, synthetic_batch
+from qmann_tpu_torch.data.babi import (
+    DataDims, Dictionary, Sample, TaskData, VectorizedSplit, compute_dims,
+    synthetic_batch, synthetic_samples, synthetic_task, vectorize,
+)
 
-__all__ = ["DataDims", "Dictionary", "synthetic_batch"]
+__all__ = ["DataDims", "Dictionary", "Sample", "TaskData", "VectorizedSplit",
+           "compute_dims", "synthetic_batch", "synthetic_samples",
+           "synthetic_task", "vectorize"]

@@ -1,5 +1,5 @@
-"""MemN2N forward and serving-prepared forward on torch tensors
-(counterpart of ``qmann_tpu/models/memn2n.py``; forward only).
+"""MemN2N forward, loss and serving-prepared forward on torch tensors
+(counterpart of ``qmann_tpu/models/memn2n.py``).
 
 The parameter layout is the JAX package's (float32 master weights):
 
@@ -12,6 +12,14 @@ The parameter layout is the JAX package's (float32 master weights):
 
 ``params_from_jax`` / ``params_to_jax`` carry weights across, so the port
 computes exactly what JAX computes on the same weights.
+
+The forward is differentiable: every quantized op is an
+``autograd.Function`` with the reference's raw-float backward
+(``ops/qlinear.py``).  ``cfg.use_pallas`` selects the kernel backend: the
+quantized embeddings and linear maps go through the lattice kernel
+(``ops/cuda/qmatvec.py``) and each hop's read through the fused read
+(``ops/fused.py``, kernel ``ops/cuda/attention_read.py``), as the JAX
+package's Pallas backend does.
 
 Ported: attention modes 1 and 2 with no feature head.  Mode 3 (Hamming),
 EN_SC_ATT, maxout, cosine similarity, shift-based and exp_plan softmax,
@@ -26,12 +34,15 @@ import numpy as np
 import torch
 
 from qmann_tpu_torch.config import QmannConfig
+from qmann_tpu_torch.device import resolve_device
 from qmann_tpu_torch.numerics import (fixed_max_float, float_quant,
                                       float_quant_blocks)
-from qmann_tpu_torch.ops import (activation, exact_matmul, qembed_mat_multi,
-                                 qmatvec, qscore, qsum, qweighted_sum,
-                                 softmax)
+from qmann_tpu_torch.ops import (CEMetrics, activation, exact_matmul,
+                                 qembed_mat_multi, qmatvec, qscore, qsum,
+                                 qweighted_sum, softmax)
 from qmann_tpu_torch.ops.cuda import fused_hop_chain
+from qmann_tpu_torch.ops.fused import fused_attention_read
+from qmann_tpu_torch.ops.losses import argmax_last
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,21 +87,23 @@ def param_shapes(cfg: QmannConfig, dim_input: int) -> Dict[str, tuple]:
 
 
 def init_params(cfg: QmannConfig, dims, generator: torch.Generator,
-                device="cpu") -> Params:
+                device="cuda") -> Params:
     """Gaussian(0, 0.1) init of every weight matrix, drawn from
     ``generator`` (a CPU generator) and moved to ``device``.  The draws
     differ from jax.random's; tests carry JAX weights over with
     ``params_from_jax``."""
     _check_supported(cfg)
+    dev = resolve_device(device)
     return {k: (0.1 * torch.randn(shape, generator=generator,
-                                  dtype=torch.float32)).to(device)
+                                  dtype=torch.float32)).to(dev)
             for k, shape in param_shapes(cfg, dims.dim_input).items()}
 
 
 def params_from_jax(params: Mapping[str, np.ndarray], cfg: QmannConfig,
-                    device="cpu") -> Params:
+                    device="cuda") -> Params:
     """JAX-layout parameters (numpy arrays) -> float32 tensors on
-    ``device``; keys and shapes are checked against ``cfg``."""
+    ``device``, copied (the trainer updates its tensors in place); keys and
+    shapes are checked against ``cfg``."""
     if "A" in params:
         dim_input = np.shape(params["A"])[1]
     elif "E" in params:
@@ -105,7 +118,8 @@ def params_from_jax(params: Mapping[str, np.ndarray], cfg: QmannConfig,
         if tuple(np.shape(params[k])) != shape:
             raise ValueError(f"parameter {k!r} has shape "
                              f"{tuple(np.shape(params[k]))}, expected {shape}")
-    return {k: torch.as_tensor(np.asarray(params[k], np.float32)).to(device)
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(params[k], np.float32), device=dev)
             for k in want}
 
 
@@ -136,7 +150,7 @@ def _output_weight(params: Params, cfg: QmannConfig):
 def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
             mask: torch.Tensor, cfg: QmannConfig,
             remove_softmax: bool = False) -> ForwardResult:
-    """Batched K-hop forward on the lattice route.
+    """Batched K-hop forward on the lattice route (differentiable).
 
     memory [B, M, dim_input] bag-of-words rows; question [B, dim_input];
     mask [B, M] bool validity of memory rows."""
@@ -147,18 +161,19 @@ def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
     _check_supported(cfg)
     q = cfg.en_fixed_point
     fmt_w = cfg.fmt_w
+    backend = "kernel" if cfg.use_pallas else "plain"
     K = cfg.num_hops
     u = qmatvec(_query_weight(params, cfg), question, fmt_w[0], fmt_w[0],
-                quantized=q)
+                quantized=q, backend=backend)
     hop_w = [_hop_weights(params, cfg, h) for h in range(K)]
     embeds = qembed_mat_multi(
         memory, [w[0] for w in hop_w] + [w[1] for w in hop_w],
-        [fmt_w[h] for h in range(K)] * 2, quantized=q)
-    return _hop_stack(params, cfg, u, embeds, mask)
+        [fmt_w[h] for h in range(K)] * 2, quantized=q, backend=backend)
+    return _hop_stack(params, cfg, u, embeds, mask, backend)
 
 
 def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
-               mask: torch.Tensor) -> ForwardResult:
+               mask: torch.Tensor, backend: str = "plain") -> ForwardResult:
     """The K-hop controller loop given the query embedding u and the 2K
     memory embeddings (A_0..A_{K-1}, C_0..C_{K-1})."""
     q = cfg.en_fixed_point
@@ -166,28 +181,80 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
     mask = mask.to(torch.bool)
     mask_f = mask.to(torch.float32)
     K = cfg.num_hops
+    # the dot_mat_vec family's quantization rules (QmannConfig's dispatch
+    # properties)
+    gq = cfg.grad_quant_backward
+    wsum_q = cfg.wsum_quantized
+    wsum_gq = cfg.wsum_grad_quantized
+    # the fused read covers the plain mode-1/2/3 hop chain; feature heads,
+    # softmax variants and the EN_GRAD_QUANT backward placement (the fused
+    # backward is raw-float) keep the unfused chain.  The guard of
+    # qmann_tpu/models/memn2n.py; its linear-start term is vacuous here
+    # (forward refuses remove_softmax) and mode 3 is refused earlier.
+    use_fused = (backend == "kernel" and cfg.attention_mode in (1, 2, 3)
+                 and not gq
+                 and cfg.att_score_mod == "none"
+                 and not (cfg.en_sc_att or cfg.test_maxout
+                          or cfg.en_cosine_sim or cfg.en_shift_based_sm
+                          or cfg.en_exp_table_based))
     attn, scores_all = [], []
     for h in range(K):
         _, _, h_w = _hop_weights(params, cfg, h)
         m, c = embeds[h], embeds[K + h]
-        scores = qscore(m, u, fmt_att[h], cfg.fmt_bin,
-                        quantized=cfg.attention_mode == 2)
-        p = softmax(scores, mask)
-        o = qweighted_sum(c, p, mask_f, fmt_act[h],
-                          quantized=cfg.wsum_quantized)
+        if use_fused:
+            o, p, scores = fused_attention_read(
+                m, c, u, mask_f, fmt_att[h], cfg.fmt_bin, fmt_act[h],
+                score_quantized=cfg.attention_mode == 2,
+                sum_quantized=wsum_q, attention_mode=cfg.attention_mode,
+                sum_grad_quantized=wsum_gq)
+        else:
+            scores = qscore(m, u, fmt_att[h], cfg.fmt_bin,
+                            quantized=cfg.attention_mode == 2,
+                            grad_quantized=gq)
+            p = softmax(scores, mask)
+            o = qweighted_sum(c, p, mask_f, fmt_act[h], quantized=wsum_q,
+                              grad_quantized=wsum_gq)
         if cfg.en_linear_mapping:
-            u_mapped = qmatvec(h_w, u, fmt_w[h], cfg.fmt_bin, quantized=q)
+            u_mapped = qmatvec(h_w, u, fmt_w[h], cfg.fmt_bin, quantized=q,
+                               backend=backend)
         else:
             u_mapped = u
         u = qsum(u_mapped, o, fmt_act[h], quantized=q)
         if cfg.en_non_linearity:
-            u = activation(u, "RELU", fmt_act[h], q)
+            u = activation(u, "RELU", fmt_act[h], q, grad_quantized=gq)
         attn.append(p)
         scores_all.append(scores)
     # the output layer runs float
     logits = qmatvec(_output_weight(params, cfg), u, cfg.fmt_ds_ans,
                      cfg.fmt_ds_ans, quantized=False)
     return ForwardResult(logits, torch.stack(attn), torch.stack(scores_all))
+
+
+def loss_and_metrics(params: Params, memory: torch.Tensor,
+                     question: torch.Tensor, answer: torch.Tensor,
+                     mask: torch.Tensor, sample_mask: Optional[torch.Tensor],
+                     cfg: QmannConfig, remove_softmax: bool = False):
+    """Total (summed) loss over the valid samples of a batch and the
+    reference's metrics.  sample_mask [B] (1 valid / 0 padding) covers the
+    final partial batch; the cost is taken on detached probabilities and
+    the prediction ties to the last index.  Returns (loss, CEMetrics)."""
+    out = forward(params, memory, question, mask, cfg, remove_softmax)
+    logp = torch.log_softmax(out.logits, dim=-1)
+    per_sample = -(answer * logp).sum(-1)
+    probs = torch.exp(logp.detach())
+    pred = argmax_last(out.logits.detach(), dim=-1)
+    hit = torch.gather(answer, -1, pred[..., None])[..., 0]
+    hits = (hit == 1.0).to(torch.float32)
+    if sample_mask is None:
+        loss = per_sample.sum()
+        cost = -(answer * probs).sum()
+        matches = hits.sum()
+    else:
+        loss = (per_sample * sample_mask).sum()
+        cost = -((answer * probs).sum(-1) * sample_mask).sum()
+        matches = (hits * sample_mask).sum()
+    return loss, CEMetrics(loss=loss, cost=cost,
+                           matches=matches.to(torch.int32), pred=pred)
 
 
 # ---------------------------------------------------------------------------
@@ -285,4 +352,5 @@ def forward_prepared(prep: PreparedInference, memory: torch.Tensor,
     flatq = float_quant_blocks(
         flat, tuple(fmt_w[i % K] for i in range(2 * K)), (D,) * (2 * K))
     embeds = torch.split(flatq, D, dim=-1)
-    return _hop_stack(prep.raw, cfg, u, embeds, mask)
+    return _hop_stack(prep.raw, cfg, u, embeds, mask,
+                      "kernel" if cfg.use_pallas else "plain")

@@ -1,7 +1,15 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
 PyTorch version.  Sources live in ``qmann_tpu_torch/csrc/``."""
+from qmann_tpu_torch.ops.cuda.attention_read import (
+    fused_read, fused_read_reference,
+)
 from qmann_tpu_torch.ops.cuda.hop_chain import (
     fused_hop_chain, fused_hop_chain_reference,
 )
+from qmann_tpu_torch.ops.cuda.qmatvec import (
+    quantized_matvec, quantized_matvec_reference,
+)
 
-__all__ = ["fused_hop_chain", "fused_hop_chain_reference"]
+__all__ = ["fused_hop_chain", "fused_hop_chain_reference", "fused_read",
+           "fused_read_reference", "quantized_matvec",
+           "quantized_matvec_reference"]

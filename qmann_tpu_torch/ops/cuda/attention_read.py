@@ -1,0 +1,130 @@
+"""One hop's attention read (score -> masked softmax -> weighted sum): a
+hand-written CUDA kernel for Hopper and its plain PyTorch version.
+
+Replaces the TPU kernel ``fused_attention_read_pallas``
+(``_fused_read_kernel``, ``qmann_tpu/ops/pallas/qkernels.py``), which the
+training forward runs once per hop under ``use_pallas``
+(``ops.fused.fused_attention_read``).  Attention modes 1 and 2; the mode-3
+Hamming score is not ported yet.
+
+The kernel source is ``qmann_tpu_torch/csrc/attention_read.cu``; its header
+says what bounds it on the card and what the design does about that.  It
+is built with nvcc at first use (``ops/cuda/_build.py``) and bound with
+ctypes.
+
+``fused_read`` dispatches on the device of ``m``: a CPU tensor takes
+``fused_read_reference``; a CUDA tensor launches the kernel or raises.
+``fused_read.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+from typing import Tuple
+
+import torch
+
+from qmann_tpu_torch.numerics import QFormat
+from qmann_tpu_torch.ops.cuda import _build
+from qmann_tpu_torch.ops.qlinear import qscore_forward, qweighted_sum_forward
+from qmann_tpu_torch.ops.softmax import masked_softmax
+
+SOURCE = _build.CSRC / "attention_read.cu"
+
+# bound of the kernel (csrc/attention_read.cu: kMaxMem)
+MAX_MEM = 64
+
+
+def build() -> Tuple[Path, str]:
+    """Compile the kernel library unless it is built (see ``_build``)."""
+    return _build.build(SOURCE)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    return _build.load(SOURCE, "qmann_attention_read",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+
+
+def _check_mode(attention_mode: int) -> None:
+    if attention_mode not in (1, 2):
+        raise NotImplementedError(
+            f"the attention read covers modes 1 and 2; mode "
+            f"{attention_mode} (the Hamming score) is not ported yet "
+            "(ROADMAP.md, Queue 2 item 3)")
+
+
+def fused_read_reference(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
+                         mask: torch.Tensor, fmt_att: QFormat,
+                         fmt_bin: QFormat, fmt_act: QFormat,
+                         score_quantized: bool = True,
+                         sum_quantized: bool = True, attention_mode: int = 2):
+    """The read in plain PyTorch, from the ported forwards.
+
+    m, c [B, M, D]; u [B, D]; mask [B, M] (nonzero live) ->
+    (o [B, D], p [B, M], scores [B, M]); the scores are returned raw
+    (before the mask), as the unfused path reports them."""
+    _check_mode(attention_mode)
+    live = mask != 0
+    scores = qscore_forward(m, u, fmt_att, fmt_bin, score_quantized)
+    p = masked_softmax(scores, live)
+    o = qweighted_sum_forward(c, p, live.to(torch.float32), fmt_act,
+                              sum_quantized)
+    return o, p, scores
+
+
+def fused_read(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
+               mask: torch.Tensor, fmt_att: QFormat, fmt_bin: QFormat,
+               fmt_act: QFormat, score_quantized: bool = True,
+               sum_quantized: bool = True, attention_mode: int = 2):
+    """The read (same arguments and results as ``fused_read_reference``):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    _check_mode(attention_mode)
+    if m.device.type == "cpu":
+        return fused_read_reference(m, c, u, mask, fmt_att, fmt_bin,
+                                    fmt_act, score_quantized, sum_quantized)
+    if m.device.type != "cuda":
+        raise ValueError(f"fused_read: unsupported device {m.device}")
+    if m.dim() != 3:
+        raise ValueError(f"fused_read: m has shape {tuple(m.shape)}, "
+                         "expected [B, M, D]")
+    B, M, D = m.shape
+    if c.shape != m.shape or u.shape != (B, D) or mask.shape != (B, M):
+        raise ValueError(
+            f"fused_read: shapes m {tuple(m.shape)}, c {tuple(c.shape)}, "
+            f"u {tuple(u.shape)}, mask {tuple(mask.shape)} do not form one "
+            "read")
+    if not (B >= 1 and 1 <= M <= MAX_MEM and D >= 1):
+        raise ValueError(f"fused_read: B={B}, M={M}, D={D} outside the "
+                         f"kernel's bounds M<={MAX_MEM}")
+    for t in (c, u, mask):
+        if t.device != m.device:
+            raise ValueError("fused_read: inputs on different devices")
+    for t in (m, c, u):
+        if t.dtype != torch.float32:
+            raise TypeError("fused_read: float32 inputs expected")
+    m, c, u = m.contiguous(), c.contiguous(), u.contiguous()
+    mask_f = mask.to(torch.float32).contiguous()
+    o = torch.empty((B, D), dtype=torch.float32, device=m.device)
+    p = torch.empty((B, M), dtype=torch.float32, device=m.device)
+    s = torch.empty((B, M), dtype=torch.float32, device=m.device)
+    fmts = (ctypes.c_int * 9)(*[v for f in (fmt_att, fmt_bin, fmt_act)
+                                for v in (f.iwl, f.frac, f.mode)])
+    lib = load_library()
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream(m.device).cuda_stream
+        rc = lib.qmann_attention_read(
+            m.data_ptr(), c.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
+            o.data_ptr(), p.data_ptr(), s.data_ptr(), B, M, D, fmts,
+            int(score_quantized), int(sum_quantized), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"attention_read kernel launch failed: CUDA error {rc}")
+    fused_read.launches += 1
+    return o, p, s
+
+
+fused_read.launches = 0

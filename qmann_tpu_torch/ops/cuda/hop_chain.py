@@ -9,8 +9,8 @@ mode 2 only; the mode-3 in-chain Hamming score is not ported yet.
 The kernel source is ``qmann_tpu_torch/csrc/hop_chain.cu``; its header says
 what bounds it on the card and what the design does about that.  It is
 compiled with nvcc into a shared library with a plain C interface at first
-use, into ``qmann_tpu_torch/_build/`` (keyed by a hash of the source and
-flags), and bound with ctypes.
+use, into ``qmann_tpu_torch/_build/`` (``ops/cuda/_build.py``), and bound
+with ctypes.
 
 ``fused_hop_chain`` dispatches on the device of ``flat``: a CPU tensor takes
 ``fused_hop_chain_reference``; a CUDA tensor launches the kernel or raises.
@@ -20,64 +20,34 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 from typing import Sequence, Tuple
 
 import torch
 
 from qmann_tpu_torch.numerics import QFormat, float_quant
+from qmann_tpu_torch.ops.cuda import _build
 from qmann_tpu_torch.ops.elementwise import activation, qsum
 from qmann_tpu_torch.ops.qlinear import qmatvec, qscore, qweighted_sum
 from qmann_tpu_torch.ops.softmax import softmax
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "hop_chain.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "hop_chain.cu"
 
 # bounds of the kernel (csrc/hop_chain.cu: kMaxHops, kMaxMem, kMaxDim)
 MAX_HOPS, MAX_MEM, MAX_DIM = 8, 64, 128
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found: the chain kernel needs nvcc")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def build() -> Tuple[Path, str]:
-    """Compile the kernel library unless a build of the same source and
-    flags exists.  Returns the library path and the compiler's log ("" when
-    the library was already built)."""
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libhop_chain_{key}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: concurrent builders race harmlessly
-    return lib, proc.stdout + proc.stderr
+    """Compile the kernel library unless it is built (see ``_build``)."""
+    return _build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    lib.qmann_hop_chain.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    lib.qmann_hop_chain.restype = ctypes.c_int
-    return lib
+    return _build.load(SOURCE, "qmann_hop_chain",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
 
 
 def fused_hop_chain_reference(flat: torch.Tensor, u: torch.Tensor,

@@ -1,5 +1,6 @@
-"""Element-wise forwards (counterpart of ``qmann_tpu/ops/elementwise.py``):
-the hop residual sum and the NULL/RELU activation."""
+"""Element-wise ops with the reference's backwards (counterpart of
+``qmann_tpu/ops/elementwise.py``): the hop residual sum and the
+NULL/SIGMOID/RELU activation."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,25 +10,70 @@ import torch
 from qmann_tpu_torch.numerics import QFormat, float_quant
 
 
+class _QSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, fmt, quantized):
+        if not quantized:
+            return a + b
+        return float_quant(float_quant(a, fmt) + float_quant(b, fmt), fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        # sum_vec_bwd passes the gradient to both inputs unchanged
+        return g, g, None, None
+
+
 def qsum(a: torch.Tensor, b: torch.Tensor, fmt: QFormat,
          quantized: bool = True) -> torch.Tensor:
-    """sum_vec forward: Q(Q(a)+Q(b)) when fixed, a+b otherwise."""
-    if not quantized:
-        return a + b
-    return float_quant(float_quant(a, fmt) + float_quant(b, fmt), fmt)
+    """sum_vec: Q(Q(a)+Q(b)) when fixed, a+b otherwise; the backward
+    passes the gradient through to both inputs."""
+    return _QSum.apply(a, b, fmt, quantized)
 
 
-def activation(x: torch.Tensor, kind: str, fmt: Optional[QFormat],
-               quantized: bool = False) -> torch.Tensor:
-    """'NULL' (bypass) or 'RELU'; when quantized the output is requantized
-    (the bypass quantizes too).  SIGMOID is not ported yet."""
-    if kind == "RELU":
+def _activation_forward(x: torch.Tensor, kind: str, fmt: Optional[QFormat],
+                        quantized: bool) -> torch.Tensor:
+    if kind == "SIGMOID":
+        out = torch.sigmoid(x)
+    elif kind == "RELU":
         out = torch.clamp_min(x, 0.0)
     elif kind == "NULL":
         out = x
     else:
-        raise NotImplementedError(
-            f"activation {kind!r} is not ported yet (ROADMAP.md, Queue 1)")
+        raise ValueError(f"unknown activation {kind!r}")
     if quantized and fmt is not None:
-        out = float_quant(out, fmt)
+        out = float_quant(out, fmt)   # the bypass quantizes too
     return out
+
+
+class _Activation(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, kind, fmt, quantized, grad_quantized):
+        out = _activation_forward(x, kind, fmt, quantized)
+        ctx.save_for_backward(out)
+        ctx.kind, ctx.fmt, ctx.grad_quantized = kind, fmt, grad_quantized
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        kind, fmt = ctx.kind, ctx.fmt
+        # the derivative is taken on the OUTPUT
+        if kind == "SIGMOID":
+            dg = g * out * (1.0 - out)
+        elif kind == "RELU":
+            dg = torch.where(out > 0.0, g, 0.0)
+        else:
+            dg = g
+        if ctx.grad_quantized and fmt is not None and kind != "NULL":
+            dg = float_quant(dg, fmt)
+        return dg, None, None, None, None
+
+
+def activation(x: torch.Tensor, kind: str, fmt: Optional[QFormat],
+               quantized: bool = False,
+               grad_quantized: bool = False) -> torch.Tensor:
+    """'NULL' (bypass), 'SIGMOID' or 'RELU'; when quantized the output is
+    requantized (the bypass quantizes too).  The backward derivative is
+    quantized only under grad_quantized (EN_GRAD_QUANT): without it the
+    derivative stays float even in a fixed-point run."""
+    return _Activation.apply(x, kind, fmt, quantized, grad_quantized)

@@ -1,0 +1,76 @@
+"""The fused attention read as a differentiable op (counterpart of
+``qmann_tpu/ops/fused.py``).
+
+Forward: ``ops/cuda/attention_read.py`` — one hand-written CUDA kernel for
+the whole hop read (score -> masked softmax -> weighted sum) on CUDA
+tensors, its plain PyTorch version on CPU tensors.
+
+Backward: the raw-float composition of the three ops' reference backwards,
+in plain PyTorch as in JAX (no kernel is owed: the TPU package has none):
+the weighted-sum backward (float, or the quantized contractions under
+``sum_grad_quantized``), then the softmax backward p*(dp - sum(p*dp)),
+then the qscore backward on the raw m and u.  So training through the
+kernel is gradient-identical to the unfused op chain.  The mode-3 Hamming
+surrogate is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from qmann_tpu_torch.numerics import QFormat
+from qmann_tpu_torch.ops.cuda.attention_read import fused_read
+from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
+from qmann_tpu_torch.ops.softmax import softmax_backward
+
+
+class _FusedAttentionRead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m, c, u, mask_f, fmt_att, fmt_bin, fmt_act,
+                score_quantized, sum_quantized, attention_mode,
+                sum_grad_quantized):
+        o, p, scores = fused_read(m, c, u, mask_f, fmt_att, fmt_bin, fmt_act,
+                                  score_quantized, sum_quantized,
+                                  attention_mode)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(m, c, u, mask_f, p)
+        ctx.fmt_act, ctx.sum_grad_quantized = fmt_act, sum_grad_quantized
+        return o, p, scores
+
+    @staticmethod
+    def backward(ctx, do, dp_in, ds_in):
+        # cotangents of unused outputs arrive as None
+        m, c, u, mask_f, p = ctx.saved_tensors
+        dm = dc = du = None
+        dp = dp_in
+        if do is not None:
+            dc, dp_o = qweighted_sum_backward(c, p, mask_f, do, ctx.fmt_act,
+                                              ctx.sum_grad_quantized)
+            dp = dp_o if dp is None else dp_o + dp
+        ds = ds_in
+        if dp is not None:
+            ds_p = softmax_backward(p, dp)   # padded entries have p == 0
+            ds = ds_p if ds is None else ds_p + ds
+        if ds is not None:
+            # the float qscore backward on the raw m, u (the fused read's
+            # VJP is raw-float: EN_GRAD_QUANT keeps the unfused chain)
+            dm = ds[..., :, None] * u[..., None, :]
+            du = torch.einsum("...md,...m->...d", m, ds)
+        return (dm, dc, du) + (None,) * 8
+
+
+def fused_attention_read(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
+                         mask_f: torch.Tensor, fmt_att: QFormat,
+                         fmt_bin: QFormat, fmt_act: QFormat,
+                         score_quantized: bool = True,
+                         sum_quantized: bool = True,
+                         attention_mode: int = 2,
+                         sum_grad_quantized: bool = False):
+    """m, c: [B, M, D]; u: [B, D]; mask_f: [B, M] float (1 live / 0 pad)
+    -> (o [B, D], p [B, M], scores [B, M]).
+
+    Equal to qscore -> softmax -> qweighted_sum (scores raw, before the
+    mask, as the unfused path reports them); sum_grad_quantized selects
+    the weighted sum's quantized backward contractions."""
+    return _FusedAttentionRead.apply(m, c, u, mask_f, fmt_att, fmt_bin,
+                                     fmt_act, score_quantized, sum_quantized,
+                                     attention_mode, sum_grad_quantized)

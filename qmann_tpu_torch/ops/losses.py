@@ -1,9 +1,12 @@
-"""Cross-entropy metrics and the ties-to-last argmax (counterpart of
-``qmann_tpu/ops/losses.py``; forward only).
+"""Cross-entropy loss, the reference's metrics and the ties-to-last argmax
+(counterpart of ``qmann_tpu/ops/losses.py``).
 
-The reference's prediction is the argmax with ties going to the LAST
-maximal index.  ``torch.argmax`` returns the first maximal index, so
-``argmax_last`` flips the axis first.
+The loss is the standard -sum(y * log_softmax(logits)), whose gradient is
+the reference's h - y injected at the output softmax's input.  The
+reported cost is the reference's -sum(p[y]) on the *probabilities*, with no
+gradient.  The reference's prediction is the argmax with ties going to the
+LAST maximal index; ``torch.argmax`` returns the first, so ``argmax_last``
+flips the axis first.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ def cross_entropy(logits: torch.Tensor, y_onehot: torch.Tensor) -> CEMetrics:
     """logits, y_onehot: [..., K]."""
     logp = torch.log_softmax(logits, dim=-1)
     loss = -(y_onehot * logp).sum()
-    cost = -(y_onehot * torch.exp(logp)).sum()
+    cost = -(y_onehot * torch.exp(logp.detach())).sum()
     pred = argmax_last(logits.detach(), dim=-1)
     hit = torch.gather(y_onehot, -1, pred[..., None])[..., 0]
     matches = (hit == 1.0).sum().to(torch.int32)

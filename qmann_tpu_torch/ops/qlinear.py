@@ -1,4 +1,5 @@
-"""Quantized linear-algebra forwards (counterpart of ``qmann_tpu/ops/qlinear.py``).
+"""Quantized linear-algebra ops with the reference's raw-float backwards
+(counterpart of ``qmann_tpu/ops/qlinear.py``).
 
 Forward semantics (f_fixed=true): each operand is fake-quantized in its own
 Q-format, each *product* is re-quantized to the first operand's format,
@@ -7,12 +8,25 @@ output format.  The quantized products lie on the 2^-frac grid and the
 partial sums stay under 2^24 grid units, so every lattice sum here is exact
 in float32 and independent of summation order.
 
-The JAX ops decide their exact-GEMM fast paths per call with ``lax.cond``;
-here the forwards always take the lattice route, and the exact GEMM is a
-host-side decision made once against frozen weights
-(``models.memn2n.prepare_inference``).  Both routes give the same result.
+Backward semantics: a straight-through estimator *through the whole op*.
+The backward products use the raw ``w``, ``x``, ``m``, ``u``, ``c``, ``p``,
+not their quantized values, so every op is a ``torch.autograd.Function``:
+left as plain torch code, the ``trunc``/``round`` inside ``float_quant``
+would give zero gradients.  Under EN_GRAD_QUANT's "backward" placement the
+score and weighted-sum backwards quantize their contractions and requant
+the outputs at (1, iwl+frac-1) (``_grad_out_fmt``).  The backward products
+are plain float32 einsums (TF32 off, ``qmann_tpu_torch._numerics_settings``),
+as JAX runs them at HIGHEST precision outside any kernel.
 
-Forward only: the raw-float custom backwards come with training.
+``backend="kernel"`` (``QmannConfig.use_pallas``) routes the quantized
+forwards of ``qmatvec``, ``qembed_mat`` and ``qembed_mat_multi`` through
+the lattice kernel (``ops/cuda/qmatvec.py``); ``"plain"`` is the PyTorch
+lattice.  Both give the same result and the same backward.  The JAX ops'
+runtime exact-GEMM fast paths are not ported on this route: the serving
+path decides its exact GEMM once in ``models.memn2n.prepare_inference``.
+
+``qscore_partial_sum`` / ``qweighted_partial_sum`` (memory-sharded
+execution) are not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -22,6 +36,14 @@ import torch
 
 from qmann_tpu_torch.numerics import QFormat, float_quant
 
+BACKENDS = ("plain", "kernel")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+
 
 def _qproducts(a: torch.Tensor, b: torch.Tensor, fmt_a: QFormat,
                fmt_b: QFormat, fmt_prod: QFormat) -> torch.Tensor:
@@ -29,6 +51,13 @@ def _qproducts(a: torch.Tensor, b: torch.Tensor, fmt_a: QFormat,
     on broadcast-compatible operands."""
     return float_quant(float_quant(a, fmt_a) * float_quant(b, fmt_b),
                        fmt_prod)
+
+
+def _grad_out_fmt(fmt: QFormat) -> QFormat:
+    """Output format of the EN_GRAD_QUANT backward contractions: the
+    reference's (1, iwl+frac-1), the same word length shifted to one
+    integer bit."""
+    return QFormat(1, fmt.iwl + fmt.frac - 1, fmt.mode)
 
 
 def exact_matmul(x: torch.Tensor, wq_t: torch.Tensor) -> torch.Tensor:
@@ -42,59 +71,259 @@ def exact_matmul(x: torch.Tensor, wq_t: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), wq_t.to(torch.float32))
 
 
-def qmatvec(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
-            fmt_x: QFormat, quantized: bool = True) -> torch.Tensor:
-    """out[..., o] = Q(sum_i Q(Q(w[o,i]) * Q(x[..., i])));  w [O, I],
-    x [..., I] -> [..., O].  quantized=False is the plain float product
-    (the float output layer, attention mode 1).  A binary weight format
-    applies the XNOR-net scale sum(w)/(O*I) (raw sum, no abs)."""
+def _lattice_rows(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
+                  fmt_x: QFormat, backend: str) -> torch.Tensor:
+    """Q(sum_i Q(Q(w[o,i], fmt_w) * Q(x[..., i], fmt_x), fmt_w), fmt_w)
+    over any leading dims of x: the kernel backend flattens them into the
+    kernel's rows."""
+    _check_backend(backend)
+    if backend == "kernel":
+        from qmann_tpu_torch.ops.cuda.qmatvec import quantized_matvec
+        lead = x.shape[:-1]
+        out = quantized_matvec(w, x.reshape(-1, x.shape[-1]), fmt_w, fmt_x)
+        return out.reshape(*lead, w.shape[0])
+    prod = _qproducts(w, x[..., None, :], fmt_w, fmt_x, fmt_w)
+    return float_quant(prod.sum(-1), fmt_w)
+
+
+# ---------------------------------------------------------------------------
+# qmatvec: out = W @ x   (dense layer)
+# ---------------------------------------------------------------------------
+
+def qmatvec_forward(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
+                    fmt_x: QFormat, quantized: bool = True,
+                    backend: str = "plain") -> torch.Tensor:
+    """qmatvec's forward without autograd (see ``qmatvec``)."""
     if not quantized:
         return torch.matmul(x, w.transpose(0, 1))
-    prod = _qproducts(w, x[..., None, :], fmt_w, fmt_x, fmt_w)
-    out = float_quant(prod.sum(-1), fmt_w)
+    out = _lattice_rows(w, x, fmt_w, fmt_x, backend)
     if fmt_w.is_binary:
         out = out * (w.sum() / float(w.shape[0] * w.shape[1]))
     return out
 
 
-def qembed_mat(s: torch.Tensor, a: torch.Tensor, fmt: QFormat,
-               quantized: bool = True) -> torch.Tensor:
-    """Memory embedding s [..., M, I] x a [D, I] -> [..., M, D] with one
-    Q-format for both operands, each product and the output."""
+class _QMatVec(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, x, fmt_w, fmt_x, quantized, backend):
+        ctx.save_for_backward(w, x)
+        return qmatvec_forward(w, x, fmt_w, fmt_x, quantized, backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        # raw-float gradients, float under every EN_GRAD_QUANT placement:
+        # w_del += g x^T ; grad_x = W^T g
+        w, x = ctx.saved_tensors
+        dw = torch.einsum("...o,...i->oi", g, x) \
+            if ctx.needs_input_grad[0] else None
+        dx = torch.einsum("oi,...o->...i", w, g) \
+            if ctx.needs_input_grad[1] else None
+        return dw, dx, None, None, None, None
+
+
+def qmatvec(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
+            fmt_x: QFormat, quantized: bool = True,
+            backend: str = "plain") -> torch.Tensor:
+    """out[..., o] = Q(sum_i Q(Q(w[o,i]) * Q(x[..., i])));  w [O, I],
+    x [..., I] -> [..., O].  quantized=False is the plain float product
+    (the float output layer, attention mode 1).  A binary weight format
+    applies the XNOR-net scale sum(w)/(O*I) (raw sum, no abs)."""
+    return _QMatVec.apply(w, x, fmt_w, fmt_x, quantized, backend)
+
+
+# ---------------------------------------------------------------------------
+# qembed_mat: M = S @ A^T  (memory embedding)
+# ---------------------------------------------------------------------------
+
+def qembed_mat_forward(s: torch.Tensor, a: torch.Tensor, fmt: QFormat,
+                       quantized: bool = True,
+                       backend: str = "plain") -> torch.Tensor:
+    """qembed_mat's forward without autograd (see ``qembed_mat``)."""
     if not quantized:
         return torch.matmul(s, a.transpose(0, 1))
-    prod = _qproducts(s[..., :, None, :], a, fmt, fmt, fmt)   # [..., M, D, I]
-    return float_quant(prod.sum(-1), fmt)
+    # Q(Q(a)Q(s)) == Q(Q(s)Q(a)): the lattice with a as the weight
+    return _lattice_rows(a, s, fmt, fmt, backend)
+
+
+def _qembed_grads(ctx, g, s, a, s_slot, a_slot):
+    da = torch.einsum("...md,...mi->di", g, s) \
+        if ctx.needs_input_grad[a_slot] else None
+    ds = torch.einsum("...md,di->...mi", g, a) \
+        if ctx.needs_input_grad[s_slot] else None
+    return ds, da
+
+
+class _QEmbedMat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, a, fmt, quantized, backend):
+        ctx.save_for_backward(s, a)
+        return qembed_mat_forward(s, a, fmt, quantized, backend)
+
+    @staticmethod
+    def backward(ctx, g):
+        # dense_mat_bwd in float: A_del += grad^T S ; grad_S = grad A
+        s, a = ctx.saved_tensors
+        ds, da = _qembed_grads(ctx, g, s, a, 0, 1)
+        return ds, da, None, None, None
+
+
+def qembed_mat(s: torch.Tensor, a: torch.Tensor, fmt: QFormat,
+               quantized: bool = True, backend: str = "plain") -> torch.Tensor:
+    """Memory embedding s [..., M, I] x a [D, I] -> [..., M, D] with one
+    Q-format for both operands, each product and the output."""
+    return _QEmbedMat.apply(s, a, fmt, quantized, backend)
+
+
+class _QEmbedMatMulti(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, fmts, quantized, backend, *weights):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(s, *weights)
+        return tuple(qembed_mat_forward(s, w, f, quantized, backend)
+                     for w, f in zip(weights, fmts))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        # per-entry raw-float VJPs; the input gradients are summed, and a
+        # weight in several slots (tying type 2) has its slots summed by
+        # autograd
+        s, *weights = ctx.saved_tensors
+        dws, ds = [], None
+        for k, (g, w) in enumerate(zip(gs, weights)):
+            if g is None:
+                dws.append(None)
+                continue
+            dsk, dw = _qembed_grads(ctx, g, s, w, 0, 4 + k)
+            dws.append(dw)
+            if dsk is not None:
+                ds = dsk if ds is None else ds + dsk
+        return (ds, None, None, None, *dws)
 
 
 def qembed_mat_multi(s: torch.Tensor, weights: Sequence[torch.Tensor],
-                     fmts: Sequence[QFormat],
-                     quantized: bool = True) -> Tuple[torch.Tensor, ...]:
-    """K qembed_mat calls sharing one input, one per (weight, fmt) pair.
-    The stacked exact GEMM that JAX takes when its bounds hold is the
-    serving route of ``models.memn2n.forward_prepared``."""
-    assert len(weights) == len(fmts)
-    return tuple(qembed_mat(s, w, f, quantized) for w, f in zip(weights, fmts))
+                     fmts: Sequence[QFormat], quantized: bool = True,
+                     backend: str = "plain") -> Tuple[torch.Tensor, ...]:
+    """K qembed_mat calls sharing one input, one per (weight, fmt) pair, as
+    one autograd node.  The stacked exact GEMM that JAX takes when its
+    bounds hold is the serving route of ``models.memn2n.forward_prepared``."""
+    if len(weights) != len(fmts):
+        raise ValueError("qembed_mat_multi: one format per weight expected")
+    return _QEmbedMatMulti.apply(s, tuple(fmts), quantized, backend,
+                                 *weights)
 
 
-def qscore(m: torch.Tensor, u: torch.Tensor, fmt_m: QFormat, fmt_u: QFormat,
-           quantized: bool = True) -> torch.Tensor:
-    """Attention score m [..., M, D] x u [..., D] -> [..., M]: per-product
-    requant to fmt_m, row-sum requant to fmt_m (mode 2); the float dot
-    product when quantized=False (mode 1).  Only score_mod="none"."""
+# ---------------------------------------------------------------------------
+# qscore: scores = M @ u  (attention modes 1/2)
+# ---------------------------------------------------------------------------
+
+def qscore_forward(m: torch.Tensor, u: torch.Tensor, fmt_m: QFormat,
+                   fmt_u: QFormat, quantized: bool = True) -> torch.Tensor:
+    """qscore's forward without autograd (see ``qscore``)."""
     if not quantized:
         return torch.einsum("...md,...d->...m", m, u)
     prod = _qproducts(m, u[..., None, :], fmt_m, fmt_u, fmt_m)
     return float_quant(prod.sum(-1), fmt_m)
 
 
-def qweighted_sum(c: torch.Tensor, p: torch.Tensor, row_mask: torch.Tensor,
-                  fmt: QFormat, quantized: bool = True) -> torch.Tensor:
-    """Weighted memory sum c [..., M, D] x p [..., M] -> [..., D].  row_mask
-    [..., M] (1 live / 0 padded) zeroes padded rows after the per-product
-    quantization (the binary format maps 0 to +1)."""
+def qscore_backward(m: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
+                    fmt_m: QFormat, grad_quantized: bool = False):
+    """(dm, du) of the score on the raw m, u.  The gate is grad_quantized
+    alone: the reference's backward f_fixed is the layer's flag, whatever
+    the forward dispatch (a mode-1 float forward still quantizes its
+    EN_GRAD_QUANT backward when the layer is fixed)."""
+    if grad_quantized:
+        # per-product requant at (fmt_m, fmt_m), outputs at (1, iwl+frac-1)
+        fo = _grad_out_fmt(fmt_m)
+        dm = float_quant(_qproducts(g[..., :, None], u[..., None, :], fmt_m,
+                                    fmt_m, fmt_m), fo)
+        du = float_quant(_qproducts(g[..., :, None], m, fmt_m, fmt_m,
+                                    fmt_m).sum(-2), fo)
+        return dm, du
+    # float: grad_M = g (x) u ; grad_u = M^T g
+    dm = g[..., :, None] * u[..., None, :]
+    du = torch.einsum("...md,...m->...d", m, g)
+    return dm, du
+
+
+class _QScore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m, u, fmt_m, fmt_u, quantized, grad_quantized):
+        ctx.save_for_backward(m, u)
+        ctx.fmt_m, ctx.grad_quantized = fmt_m, grad_quantized
+        return qscore_forward(m, u, fmt_m, fmt_u, quantized)
+
+    @staticmethod
+    def backward(ctx, g):
+        m, u = ctx.saved_tensors
+        dm, du = qscore_backward(m, u, g, ctx.fmt_m, ctx.grad_quantized)
+        return dm, du, None, None, None, None
+
+
+def qscore(m: torch.Tensor, u: torch.Tensor, fmt_m: QFormat, fmt_u: QFormat,
+           quantized: bool = True, grad_quantized: bool = False
+           ) -> torch.Tensor:
+    """Attention score m [..., M, D] x u [..., D] -> [..., M]: per-product
+    requant to fmt_m, row-sum requant to fmt_m (mode 2); the float dot
+    product when quantized=False (mode 1).  Only score_mod="none" is
+    ported.  grad_quantized selects the EN_GRAD_QUANT backward."""
+    return _QScore.apply(m, u, fmt_m, fmt_u, quantized, grad_quantized)
+
+
+# ---------------------------------------------------------------------------
+# qweighted_sum: o = C^T p  (memory read)
+# ---------------------------------------------------------------------------
+
+def qweighted_sum_forward(c: torch.Tensor, p: torch.Tensor,
+                          row_mask: torch.Tensor, fmt: QFormat,
+                          quantized: bool = True) -> torch.Tensor:
+    """qweighted_sum's forward without autograd (see ``qweighted_sum``)."""
     if not quantized:
         return torch.einsum("...md,...m->...d", c, p * row_mask)
     prod = _qproducts(p[..., :, None], c, fmt, fmt, fmt)
     prod = prod * row_mask[..., :, None]
     return float_quant(prod.sum(-2), fmt)
+
+
+def qweighted_sum_backward(c: torch.Tensor, p: torch.Tensor,
+                           row_mask: torch.Tensor, g: torch.Tensor,
+                           fmt: QFormat, grad_quantized: bool = False):
+    """(dc, dp) of the weighted sum on the raw c, p; the padded-row mask is
+    applied after, as in the forward."""
+    if grad_quantized:
+        # grad_C[r,d] = Q(FIXED_MUL(p_r, g_d)); grad_p[r] =
+        # Q(sum_d FIXED_MUL(C_rd, g_d)), both at (1, iwl+frac-1)
+        fo = _grad_out_fmt(fmt)
+        dc = float_quant(_qproducts(p[..., :, None], g[..., None, :], fmt,
+                                    fmt, fmt), fo) * row_mask[..., :, None]
+        dp = float_quant(_qproducts(c, g[..., None, :], fmt, fmt,
+                                    fmt).sum(-1), fo) * row_mask
+        return dc, dp
+    # float: grad_C = p (x) g ; grad_p = C g
+    dc = (p * row_mask)[..., :, None] * g[..., None, :]
+    dp = torch.einsum("...md,...d->...m", c, g) * row_mask
+    return dc, dp
+
+
+class _QWeightedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, c, p, row_mask, fmt, quantized, grad_quantized):
+        ctx.save_for_backward(c, p, row_mask)
+        ctx.fmt, ctx.grad_quantized = fmt, grad_quantized
+        return qweighted_sum_forward(c, p, row_mask, fmt, quantized)
+
+    @staticmethod
+    def backward(ctx, g):
+        c, p, row_mask = ctx.saved_tensors
+        dc, dp = qweighted_sum_backward(c, p, row_mask, g, ctx.fmt,
+                                        ctx.grad_quantized)
+        return dc, dp, None, None, None, None
+
+
+def qweighted_sum(c: torch.Tensor, p: torch.Tensor, row_mask: torch.Tensor,
+                  fmt: QFormat, quantized: bool = True,
+                  grad_quantized: bool = False) -> torch.Tensor:
+    """Weighted memory sum c [..., M, D] x p [..., M] -> [..., D].  row_mask
+    [..., M] float (1 live / 0 padded) zeroes padded rows after the
+    per-product quantization (the binary format maps 0 to +1).
+    grad_quantized selects the quantized backward contractions (the
+    EN_GRAD_QUANT placement, and always in fixed-point mode 3)."""
+    return _QWeightedSum.apply(c, p, row_mask, fmt, quantized, grad_quantized)

@@ -8,7 +8,8 @@
     device, then ``argmax_last`` and a copy of the predictions to the host;
   * answers (dictionary indices) resolve each request's future.
 
-The prepared weights are frozen onto the engine's device once.  The packet
+The prepared weights are frozen onto the engine's device once; the engine
+runs on the card unless the caller passes ``device="cpu"``.  The packet
 front end (``serve/packet.py``, ``server.py``, ``client.py``) is not ported
 yet.
 """
@@ -26,6 +27,7 @@ import torch
 
 from qmann_tpu_torch.config import QmannConfig
 from qmann_tpu_torch.data import DataDims, Dictionary
+from qmann_tpu_torch.device import resolve_device
 from qmann_tpu_torch.models import memn2n
 from qmann_tpu_torch.ops import argmax_last
 
@@ -54,13 +56,13 @@ class InferenceEngine:
     def __init__(self, params: Mapping[str, torch.Tensor], cfg: QmannConfig,
                  dims: DataDims, dictionary: Dictionary,
                  batch_size: int = 64, max_wait_ms: float = 2.0,
-                 device="cpu"):
+                 device="cuda"):
         self.cfg = cfg
         self.dims = dims
         self.dictionary = dictionary
         self.batch_size = batch_size
         self.max_wait = max_wait_ms / 1000.0
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.params = {k: torch.as_tensor(v, dtype=torch.float32)
                        .to(self.device) for k, v in params.items()}
         self._queue: "queue.Queue[Optional[Request]]" = queue.Queue()

@@ -50,8 +50,9 @@ def test_engine_answers_match_jax_forward():
     pj = {k: np.asarray(v) * np.float32(4.0) for k, v in jmodel.init_params(
         JaxConfig(**kw), dims, jax.random.PRNGKey(0)).items()}
     cfg = QmannConfig(**kw)
-    engine = InferenceEngine(memn2n.params_from_jax(pj, cfg), cfg, dims,
-                             dictionary, batch_size=8).start()
+    engine = InferenceEngine(memn2n.params_from_jax(pj, cfg, device="cpu"),
+                             cfg, dims, dictionary, batch_size=8,
+                             device="cpu").start()
     assert engine.prepared.fast
     stories = _stories(dictionary, 20, rng, dims.max_line, dims.max_word)
     try:
@@ -154,11 +155,18 @@ def test_port_never_imports_jax():
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m == 'qmann_tpu' or m.startswith('qmann_tpu.')\n"
         "               for m in sys.modules), 'qmann_tpu was imported'\n"
-        "print(len(names))\n")
+        "print(*names, len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 12
+    names = set(proc.stdout.split()[:-1])
+    assert int(proc.stdout.split()[-1]) == len(names) >= 20
+    assert {"qmann_tpu_torch.device", "qmann_tpu_torch.ops.fused",
+            "qmann_tpu_torch.ops.cuda._build",
+            "qmann_tpu_torch.ops.cuda.qmatvec",
+            "qmann_tpu_torch.ops.cuda.attention_read",
+            "qmann_tpu_torch.train.optim",
+            "qmann_tpu_torch.train.trainer"} <= names
     roots = _imported_roots(REPO / "chip_smoke.py")
     assert "qmann_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "qmann_tpu"}

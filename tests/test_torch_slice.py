@@ -41,7 +41,7 @@ def _compare(cfg_kw, B, seed, prepared=True, expect_fast=None):
     dims, mem, que, mask = qa1_batch(B, seed)
     jcfg, tcfg = JaxConfig(**cfg_kw), QmannConfig(**cfg_kw)
     pj = jax_params(cfg_kw, dims, seed)
-    pt = memn2n.params_from_jax(pj, tcfg)
+    pt = memn2n.params_from_jax(pj, tcfg, device="cpu")
     bounds = dict(max_count=float(mem.max()),
                   max_rowsum=float(mem.sum(-1).max()))
     targs = (torch.from_numpy(mem), torch.from_numpy(que),
@@ -103,7 +103,8 @@ def test_chain_and_unfused_routes_agree():
     forward_prepared give the same answers on the same batch."""
     kw = dict(dim_emb=16, verbose=False)
     dims, mem, que, mask = qa1_batch(40, 3)
-    pt = memn2n.params_from_jax(jax_params(kw, dims, 3), QmannConfig(**kw))
+    pt = memn2n.params_from_jax(jax_params(kw, dims, 3), QmannConfig(**kw),
+                                device="cpu")
     args = (torch.from_numpy(mem), torch.from_numpy(que),
             torch.from_numpy(mask))
     outs = []
@@ -123,7 +124,7 @@ def test_params_round_trip_and_checks():
     for tying in (1, 2):
         cfg_kw = dict(kw, type_weight_tying=tying)
         pj = jax_params(cfg_kw, dims, scale=1.0)
-        pt = memn2n.params_from_jax(pj, QmannConfig(**cfg_kw))
+        pt = memn2n.params_from_jax(pj, QmannConfig(**cfg_kw), device="cpu")
         back = memn2n.params_to_jax(pt)
         assert set(back) == set(pj)
         for k in pj:
@@ -131,20 +132,24 @@ def test_params_round_trip_and_checks():
     pj = jax_params(kw, dims, scale=1.0)
     with pytest.raises(ValueError, match="keys"):
         memn2n.params_from_jax({k: v for k, v in pj.items() if k != "H"},
-                               QmannConfig(**kw))
+                               QmannConfig(**kw), device="cpu")
     with pytest.raises(ValueError, match="shape"):
-        memn2n.params_from_jax(dict(pj, W=pj["W"][:, :4]), QmannConfig(**kw))
+        memn2n.params_from_jax(dict(pj, W=pj["W"][:, :4]), QmannConfig(**kw),
+                               device="cpu")
     with pytest.raises(ValueError, match="keys"):
-        memn2n.params_from_jax(pj, QmannConfig(type_weight_tying=1, **kw))
+        memn2n.params_from_jax(pj, QmannConfig(type_weight_tying=1, **kw),
+                               device="cpu")
 
 
 def test_init_params_layout():
     cfg = QmannConfig(dim_emb=8, verbose=False)
     dims = DataDims(V, M, W, W + 1, V + M)
-    p = memn2n.init_params(cfg, dims, torch.Generator().manual_seed(0))
+    p = memn2n.init_params(cfg, dims, torch.Generator().manual_seed(0),
+                           device="cpu")
     assert {k: tuple(v.shape) for k, v in p.items()} == \
         memn2n.param_shapes(cfg, dims.dim_input)
-    again = memn2n.init_params(cfg, dims, torch.Generator().manual_seed(0))
+    again = memn2n.init_params(cfg, dims, torch.Generator().manual_seed(0),
+                               device="cpu")
     for k in p:
         assert torch.equal(p[k], again[k])
     assert 0.05 < float(p["A"].std()) < 0.15
@@ -161,7 +166,7 @@ def test_unported_features_raise(kw):
     dims, mem, que, mask = qa1_batch(4, 0)
     pt = memn2n.params_from_jax(
         jax_params(dict(dim_emb=8, verbose=False), dims, scale=1.0),
-        QmannConfig(dim_emb=8, verbose=False))
+        QmannConfig(dim_emb=8, verbose=False), device="cpu")
     args = (torch.from_numpy(mem), torch.from_numpy(que),
             torch.from_numpy(mask))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
