@@ -7,7 +7,7 @@ NVIDIA GPU.
 Phases, one line each; any failure exits non-zero:
   1. device  — a CUDA device is required (no CPU fallback); prints
                nvidia-smi's name and power limit
-  2. build   — compiles the three kernels from qmann_tpu_torch/csrc, one
+  2. build   — compiles the four kernels from qmann_tpu_torch/csrc, one
                nvcc per source, all started together
   3. kernel  — the hop-chain kernel against its plain PyTorch version, both
                on the card, at the flagship shape (B=1000, M=10, I=29, D=60,
@@ -35,6 +35,31 @@ Phases, one line each; any failure exits non-zero:
                each route, each new kernel and its plain version at B=32 and
                B=1024 (CUDA events, median of 7), and the profiler's device
                busy time and idle share of a step
+Attention mode 3 (the Hamming attention):
+  9. mode3-kernels — the Hamming score kernel against its plain version at
+               B=32 and B=1024 (M=10, D=60) and the wide layout (M=50), at
+               iwl 0/1/5 in its weighted, weight_para -1 and unweighted
+               variants, on inputs that hold the encode's edge list; the
+               read kernel in mode 3 at iwl 1 at the training, eval-chunk
+               and wide shapes with padded samples; the chain kernel in
+               mode 3 at iwl 5, B=1000, flagship and wide
+ 10. mode3-serve — an engine at iwl 5 with use_fused_chain answers ~100
+               requests through the chain kernel; an engine at iwl 1 with
+               use_pallas leaves the exact route and runs 10 qmatvec and 3
+               mode-3 read launches per wave; both give the plain route's
+               answers
+ 11. mode3-train — train_task at iwl 1, mode 3, use_pallas=True for 2 epochs
+               on the same synthetic_task (10 qmatvec and 3 read launches
+               per step and eval chunk, costs finite); one SGD step equal
+               across the kernel and plain routes (a full and the partial
+               batch), a non-zero gradient on A; one step under
+               use_pallas_hamming launches the Hamming kernel 3 times and
+               equals the plain step
+ 12. mode3-times — the Hamming kernel alone at B=32 and B=1024, the mode-3
+               read at B=32, the mode-3 chain at B=1000, forward_prepared at
+               B=1000 on both routes and one train step on both routes
+               (CUDA events, median of 7; the profiler's device time, busy
+               time and idle share)
 Then one JSON line of kernels, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}.
 
@@ -45,12 +70,19 @@ most 1 query per comparison in which a Q(p, act) requant flipped, every
 other query bit-identical.  qmatvec: bit-identical (every lattice sum is
 exact).  Mode-1 attention read: rtol 1e-5, atol 1e-6 (float sums in
 another order).  SGD step: parameters within rtol 1e-5, atol 1e-6.
+Hamming score kernel: bit-identical (integer work and exact sums).  Mode-3
+read and chain: as mode 2.
 
 bound_ms is the larger of the bytes the call must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 67 TFLOP/s (float32 outside the tensor cores; H100 SXM data sheet at
 700 W), counting 4 operations per float_quant (scale, convert, rescale,
-saturate), 1 per multiply or add and 4 per softmax element.
+saturate), 1 per multiply or add and 4 per softmax element.  The Hamming
+score's integer work (per element pair: two encodes of 6 operations, the
+preprocess of 8, 3 per compared bit, 4 for the sign, the scale and the row
+sum, and the term's requant) is counted against the int32 rate, half the
+float32 rate (an SM has half as many int32 lanes as float32 lanes):
+33.5 TOP/s.
 """
 import json
 import math
@@ -67,7 +99,10 @@ BATCH = 1000
 TRAIN_BATCH, EVAL_CHUNK = 32, 1024
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
 Q_OPS = 4     # operations counted per float_quant
+HAM_IWLS = (0, 1, 5)
+HAM_VARIANTS = ((0, True), (-1, True), (0, False))   # weight_para, weighted
 
 
 def fail(msg):
@@ -120,9 +155,11 @@ def compare_chain(cfg, got, want):
     return diffs, int(flipped.sum()), good
 
 
-def _bound(nbytes, nops):
-    """(least ms, what bounds it) for a call moving nbytes and doing nops."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+def _bound(nbytes, nops, int_ops=0):
+    """(least ms, what bounds it) for a call moving nbytes and doing nops
+    float and int_ops integer operations (the two pipes may overlap)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(nops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -139,30 +176,49 @@ def qmatvec_bound(w, x):
     return _bound(_nbytes(w, x) + 4 * B * O, ops)
 
 
-def _read_ops(B, M, D):
-    """One mode-2 attention read: quantize m, c and u; the score lattice
-    and its requant; the softmax and Q(p); the weighted-sum lattice and
-    the output requant."""
-    return (Q_OPS * (2 * B * M * D + B * D) + B * M * D * (2 + Q_OPS)
-            + B * M * (2 * Q_OPS + 4) + B * M * D * (2 + Q_OPS)
-            + B * D * Q_OPS)
+def ham_score_ops(B, M, D, num_bit):
+    """Integer operations of one Hamming score: per element pair two
+    encodes, the preprocess, the bit loop, the sign, the scale, the sum
+    and the term's requant; the row sums' requant."""
+    pair = 2 * 6 + 8 + 3 * (num_bit - 1) + 4 + Q_OPS
+    return B * M * (D * pair + Q_OPS)
 
 
-def attention_read_bound(m, c, u, mask):
+def hamming_bound(m, u, num_bit):
+    B, M, D = m.shape
+    return _bound(_nbytes(m, u) + 4 * B * M, 0,
+                  ham_score_ops(B, M, D, num_bit))
+
+
+def _read_ops(B, M, D, num_bit=None):
+    """(float, integer) operations of one attention read: the score (mode
+    2, num_bit None: quantize m and u, the lattice and its requant; mode 3:
+    the Hamming score on the raw m and u); the softmax and Q(p); Q(c), the
+    weighted-sum lattice and the output requant."""
+    wsum = (Q_OPS * B * M * D + B * M * (Q_OPS + 4)
+            + B * M * D * (2 + Q_OPS) + B * D * Q_OPS)
+    if num_bit is None:
+        return (Q_OPS * (B * M * D + B * D) + B * M * D * (2 + Q_OPS)
+                + B * M * Q_OPS + wsum, 0)
+    return wsum, ham_score_ops(B, M, D, num_bit)
+
+
+def attention_read_bound(m, c, u, mask, num_bit=None):
     B, M, D = m.shape
     return _bound(_nbytes(m, c, u, mask) + 4 * (B * D + 2 * B * M),
-                  _read_ops(B, M, D))
+                  *_read_ops(B, M, D, num_bit))
 
 
-def chain_bound(flat, u, hmats, mask):
+def chain_bound(flat, u, hmats, mask, num_bit=None):
     """Per hop: the requant of the hop's A and C slices, one read, the lin
     map lattice (Q(H) once) and the residual (3 requants per element)."""
     B, M, _ = flat.shape
     K, D = hmats.shape[0], u.shape[1]
-    per_hop = (Q_OPS * 2 * B * M * D + _read_ops(B, M, D)
+    read_f, read_i = _read_ops(B, M, D, num_bit)
+    per_hop = (Q_OPS * 2 * B * M * D + read_f
                + Q_OPS * D * D + B * D * D * (2 + Q_OPS) + 3 * Q_OPS * B * D)
     return _bound(_nbytes(flat, u, hmats, mask) + 4 * (B * D + 2 * K * B * M),
-                  K * per_hop)
+                  K * per_hop, K * read_i)
 
 
 def cuda_ms(fn, n_iter=20, samples=7):
@@ -207,6 +263,181 @@ def device_ms(fn, n_iter=20):
             and ev.self_device_time_total > 0}
 
 
+def ham_inputs(rng, iwl, B, M, D):
+    """Gaussian m [B, M, D], u [B, D] across the range of (iwl, 31-iwl);
+    sample 0 pairs the encode's edge list (0, -0.0, +-2^iwl, the next
+    float above it, +-1e30, a value whose low half carries under ROUND_UP,
+    tiny values) with its negation, shifted by one place per memory row."""
+    import numpy as np
+    m = rng.normal(0.0, 0.6 * 2.0 ** iwl, (B, M, D)).astype(np.float32)
+    u = rng.normal(0.0, 0.6 * 2.0 ** iwl, (B, D)).astype(np.float32)
+    top = np.float32(2.0 ** iwl)
+    above = np.nextafter(top, np.float32(np.inf))
+    carry = np.float32(65535.5 * 2.0 ** -(31 - iwl))
+    edge = np.array([0.0, -0.0, top, -top, above, -above, 1e30, -1e30,
+                     carry, -carry, 1e-7, -3e-9], np.float32)[:D]
+    for r in range(min(M, len(edge))):
+        m[0, r, :len(edge)] = np.roll(edge, r)
+    u[0, :len(edge)] = -edge
+    return m, u
+
+
+def check_read(got, want, fmt_act, quantized):
+    """The read's tolerances (module docstring) and the padded samples'
+    soundness (the last 3 have no live row: p = 0, o = Q(0), finite).
+    Returns (max |diff| per output, flipped queries, good, sound)."""
+    import torch
+    from qmann_tpu_torch.numerics import float_quant
+    diffs = {k: float((a - b).abs().max())
+             for k, a, b in zip(("o", "p", "scores"), got, want)}
+    o_pad = float_quant(torch.zeros_like(got[0][-3:]), fmt_act) \
+        if quantized else torch.zeros_like(got[0][-3:])
+    sound = (all(bool(torch.isfinite(t).all()) for t in got)
+             and bool((got[1][-3:] == 0).all())
+             and torch.equal(got[0][-3:], o_pad))
+    if not quantized:
+        return diffs, 0, all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                             for a, b in zip(got, want)), sound
+    flipped = (float_quant(got[1], fmt_act)
+               != float_quant(want[1], fmt_act)).any(-1)
+    good = (torch.equal(got[2], want[2]) and diffs["p"] <= 1e-6
+            and torch.equal(got[0][~flipped], want[0][~flipped])
+            and int(flipped.sum()) <= 1)
+    return diffs, int(flipped.sum()), good, sound
+
+
+def serve_requests(params, cfg, cfg_plain, dims, dictionary, stories, dev,
+                   counters):
+    """Answer `stories` with an engine on cfg on the card (the launch counts
+    of `counters` set to 0 just before and read just after), and with
+    cfg_plain's route wave by wave.  Returns (engine, answers, the plain
+    route's answers, launches, whether every logit is finite and of the
+    expected shape)."""
+    import torch
+    from qmann_tpu_torch.models import memn2n
+    from qmann_tpu_torch.serve import InferenceEngine, Request
+    engine = InferenceEngine(params, cfg, dims, dictionary, batch_size=32,
+                             device=dev)
+    for fn in counters:
+        fn.launches = 0
+    engine.start()
+    try:
+        futures = [engine.submit(s, q) for s, q in stories]
+        answers = [f.result(timeout=300) for f in futures]
+    finally:
+        engine.stop()
+    launches = [fn.launches for fn in counters]
+    plain = InferenceEngine(params, cfg_plain, dims, dictionary,
+                            batch_size=32, device=dev)
+    want, logits_ok = [], True
+    for i in range(0, len(stories), 32):
+        reqs = [Request(s, q) for s, q in stories[i:i + 32]]
+        batch = plain._vectorize(reqs)
+        want.extend(plain.infer(*batch)[:len(reqs)].tolist())
+        out = memn2n.forward_prepared(
+            engine.prepared, *(torch.from_numpy(a).to(dev) for a in batch),
+            cfg)
+        logits_ok &= (tuple(out.logits.shape) == (32, dims.dim_input)
+                      and bool(torch.isfinite(out.logits).all()))
+    return engine, answers, want, launches, logits_ok
+
+
+def train_route(cfg, data, dev, tag, route):
+    """train_task on the card; prints the history; returns the result and
+    whether every cost is finite."""
+    from qmann_tpu_torch.train import train_task
+    res = train_task(cfg, data, device=dev)
+    finite = math.isfinite(res.cost_test)
+    for e, h in enumerate(res.history):
+        print(f"[{tag}] {route} route epoch {e}: cost_train "
+              f"{h.cost_train:.6f}, err_train {h.err_train:.4f}, "
+              f"cost_valid {h.cost_valid:.6f}, err_valid "
+              f"{h.err_valid:.4f}, lr {h.lr}", flush=True)
+        finite &= math.isfinite(h.cost_train) and math.isfinite(h.cost_valid)
+    print(f"[{tag}] {route} route: test cost {res.cost_test:.6f}, err "
+          f"{res.err_test:.4f}; {res.time_train:.3f} s for {cfg.num_itr} "
+          "epochs", flush=True)
+    return res, finite
+
+
+def n_forwards(cfg, data):
+    """Training steps and evaluation chunks of a train_task run."""
+    steps = cfg.num_itr * math.ceil(len(data.train) / cfg.size_batch)
+    chunks = (cfg.num_itr * math.ceil(len(data.valid) / EVAL_CHUNK)
+              + math.ceil(len(data.test) / EVAL_CHUNK))
+    return steps, chunks
+
+
+def sgd_steps_agree(routes, base, batches_np, dev, tag):
+    """One SGD step from `base` on a full batch and on the last (partial)
+    one, on each route of `routes` (the first is the reference); fails
+    unless they agree within rtol 1e-5, atol 1e-6."""
+    import torch
+    from qmann_tpu_torch.train import train_step
+    lr_t = torch.tensor(routes[0].learning_rate, dtype=torch.float32,
+                        device=dev)
+    n_batches = batches_np["memory"].shape[0]
+    for label, i in (("full batch", 0), ("partial batch", n_batches - 1)):
+        batch = {k: torch.as_tensor(v[i]).to(dev)
+                 for k, v in batches_np.items()}
+        after = []
+        for route_cfg in routes:
+            stepped = {k: v.clone() for k, v in base.items()}
+            train_step(stepped, batch, lr_t, route_cfg)
+            after.append(stepped)
+        for other in after[1:]:
+            diff = max(float((other[k] - after[0][k]).abs().max())
+                       for k in base)
+            moved = max(float((other[k] - base[k]).abs().max())
+                        for k in base)
+            print(f"[{tag}] one SGD step, {label} ({int(batch['size_b'])} "
+                  f"live samples, weights x4): max |difference between "
+                  f"routes| {diff:.3g}, largest update {moved:.3g}",
+                  flush=True)
+            if not all(torch.allclose(other[k], after[0][k], rtol=1e-5,
+                                      atol=1e-6) for k in base):
+                fail(f"one SGD step differs between the routes ({tag}, "
+                     f"{label})")
+
+
+def time_steps(steps, tag):
+    """Event time and device busy time per call of each step; prints the
+    busy time, launches and idle share (the rest of the event time is the
+    device waiting on the host).  Returns {name: event ms}."""
+    t_steps = {name: cuda_ms(fn) for name, fn in steps.items()}
+    busy = {name: device_ms(fn) for name, fn in steps.items()}
+    for name, kernels in busy.items():
+        total = sum(ms for ms, _ in kernels.values())
+        n_launch = sum(n for _, n in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
+        print(f"[{tag}] {name}: event {t_steps[name]:.4f} ms; "
+              + (f"busy {total:.4f} ms over {n_launch:.0f} launches of "
+                 f"{len(kernels)} kernels, idle share "
+                 f"{1.0 - total / t_steps[name]:.3f}; top "
+                 + "; ".join(f"{k[:48]} {v:.4f} ({n:.0f}x)"
+                             for k, (v, n) in top)
+                 if kernels else
+                 "busy not measured (profiler saw no device time)"),
+              flush=True)
+    return t_steps
+
+
+def time_kernels(pairs):
+    """{key: (kernel fn, plain fn)} -> {key: (kernel event ms, plain event
+    ms, kernel device ms)}: event times of the wrapper (its host-side
+    launch cost included) and the profiler's device time of the kernel
+    itself."""
+    import torch
+    out = {}
+    with torch.inference_mode():
+        for key, (kernel_fn, plain_fn) in pairs.items():
+            busy = device_ms(kernel_fn)
+            out[key] = (cuda_ms(kernel_fn), cuda_ms(plain_fn),
+                        max((ms for ms, _ in busy.values()),
+                            default=float("nan")))
+    return out
+
+
 def main():
     try:
         import torch
@@ -224,9 +455,9 @@ def main():
     from qmann_tpu_torch.numerics import float_quant
     from qmann_tpu_torch.ops import exact_matmul
     from qmann_tpu_torch.ops.cuda import attention_read as ar
+    from qmann_tpu_torch.ops.cuda import hamming as ham
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
-    from qmann_tpu_torch.serve import InferenceEngine, Request
 
     # 1. device
     dev = torch.device(DEVICE)
@@ -237,7 +468,7 @@ def main():
 
     # 2. build: one nvcc per source, all started together
     kernel_mods = {"hop_chain": hop_chain, "qmatvec": qmv,
-                   "attention_read": ar}
+                   "attention_read": ar, "hamming": ham}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernel_mods)) as pool:
         built = dict(zip(kernel_mods, pool.map(lambda m: m.build(),
@@ -256,16 +487,21 @@ def main():
     cfg = QmannConfig(use_fused_chain=True)
     rng = np.random.default_rng(SEED)
     shapes = {"flagship": (19, 10, 6), "wide": (64, 50, 7)}
-    max_err, chain_args = 0.0, None
-    for name, (V, M, W) in shapes.items():
+
+    def chain_inputs(cfg_c, V, M, W):
+        """The chain's inputs as forward_prepared makes them at B=1000."""
         dims, mem, que, mask = synthetic_batch(rng, BATCH, V, M, W)
-        scale, _, prep = scaled_prepared(cfg, dims, mem, dev)
+        scale, _, prep = scaled_prepared(cfg_c, dims, mem, dev)
         mem_t, que_t, mask_t = (torch.from_numpy(a).to(dev)
                                 for a in (mem, que, mask))
         flat = exact_matmul(mem_t, prep.embed_wt)
-        u = float_quant(exact_matmul(que_t, prep.query_wt), cfg.fmt_w[0])
-        args = (flat, u, prep.hmats, mask_t, cfg.fmt_w, cfg.fmt_att,
-                cfg.fmt_bin, cfg.fmt_act)
+        u = float_quant(exact_matmul(que_t, prep.query_wt), cfg_c.fmt_w[0])
+        return scale, (flat, u, prep.hmats, mask_t, cfg_c.fmt_w,
+                       cfg_c.fmt_att, cfg_c.fmt_bin, cfg_c.fmt_act)
+
+    max_err, chain_args = 0.0, None
+    for name, (V, M, W) in shapes.items():
+        scale, args = chain_inputs(cfg, V, M, W)
         got = hop_chain.fused_hop_chain(*args)
         want = hop_chain.fused_hop_chain_reference(*args)
         torch.cuda.synchronize()
@@ -292,32 +528,14 @@ def main():
                 [words[i] for i in rng.integers(0, len(words), 4)])
                for _ in range(100)]
     dims, mem0, _, _ = synthetic_batch(rng, 8, V, M, W)
+    serve_dims = dims
     scale, params, _ = scaled_prepared(cfg, dims, mem0, dev)
-    engine = InferenceEngine(params, cfg, dims, dictionary, batch_size=32,
-                             device=dev)
+    engine, answers, want, (launches,), logits_ok = serve_requests(
+        params, cfg, cfg.replace(use_fused_chain=False), dims, dictionary,
+        stories, dev, [hop_chain.fused_hop_chain])
+    stats = engine.stats
     if not engine.prepared.fast:
         fail("the engine's prepared forward left the exact route")
-    hop_chain.fused_hop_chain.launches = 0
-    engine.start()
-    try:
-        futures = [engine.submit(s, q) for s, q in stories]
-        answers = [f.result(timeout=300) for f in futures]
-    finally:
-        engine.stop()
-    launches = hop_chain.fused_hop_chain.launches
-    stats = engine.stats
-    plain = InferenceEngine(params, cfg.replace(use_fused_chain=False), dims,
-                            dictionary, batch_size=32, device=dev)
-    want, logits_ok = [], True
-    for i in range(0, len(stories), 32):
-        reqs = [Request(s, q) for s, q in stories[i:i + 32]]
-        batch = plain._vectorize(reqs)
-        want.extend(plain.infer(*batch)[:len(reqs)].tolist())
-        out = memn2n.forward_prepared(
-            engine.prepared, *(torch.from_numpy(a).to(dev) for a in batch),
-            cfg)
-        logits_ok &= (tuple(out.logits.shape) == (32, V + M)
-                      and bool(torch.isfinite(out.logits).all()))
     print(f"[4 slice] {len(answers)} answers over {stats.waves} waves, "
           f"failed_waves {stats.failed_waves}, chain launches {launches}, "
           f"weights x{scale}, distinct answers {len(set(answers))}, "
@@ -334,39 +552,24 @@ def main():
     batch = tuple(torch.from_numpy(a).to(dev) for a in (mem, que, mask))
     prep_k = engine.prepared
     cfg_plain = cfg.replace(use_fused_chain=False)
+    print(f"[5 times] {card} | forward_prepared B={BATCH}", flush=True)
     with torch.inference_mode():
-        t_route = cuda_ms(lambda: memn2n.forward_prepared(prep_k, *batch, cfg))
-        t_plain = cuda_ms(lambda: memn2n.forward_prepared(prep_k, *batch,
-                                                          cfg_plain))
-        t_kern = cuda_ms(lambda: hop_chain.fused_hop_chain(*chain_args))
-        t_ref = cuda_ms(lambda: hop_chain.fused_hop_chain_reference(
-            *chain_args))
-        busy = {name: device_ms(fn) for name, fn in (
-            ("kernel route", lambda: memn2n.forward_prepared(
-                prep_k, *batch, cfg)),
-            ("plain route", lambda: memn2n.forward_prepared(
-                prep_k, *batch, cfg_plain)),
-            ("chain kernel", lambda: hop_chain.fused_hop_chain(*chain_args)))}
-    print(f"[5 times] {card} | forward_prepared B={BATCH}: kernel route "
-          f"{t_route:.4f} ms, plain route {t_plain:.4f} ms | chain alone: "
-          f"kernel {t_kern:.4f} ms, plain {t_ref:.4f} ms", flush=True)
-    # device busy time per call (profiler); the rest of the event time is
-    # the device waiting on the host
-    for name, kernels in busy.items():
-        total = sum(ms for ms, _ in kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
-        print(f"[5 device] {name}: busy "
-              + (f"{total:.4f} ms/call over {len(kernels)} kernels; top "
-                 + "; ".join(f"{k[:48]} {v:.4f}" for k, (v, _) in top)
-                 if kernels else "not measured (profiler saw no device time)"),
-              flush=True)
+        time_steps({"kernel route": lambda: memn2n.forward_prepared(
+                        prep_k, *batch, cfg),
+                    "plain route": lambda: memn2n.forward_prepared(
+                        prep_k, *batch, cfg_plain)}, "5 times")
+    t_kern, t_ref, t_kdev = time_kernels({"chain": (
+        lambda: hop_chain.fused_hop_chain(*chain_args),
+        lambda: hop_chain.fused_hop_chain_reference(*chain_args))})["chain"]
+    print(f"[5 times] chain alone: kernel {t_kern:.4f} ms (device "
+          f"{t_kdev:.4f} ms), plain {t_ref:.4f} ms", flush=True)
 
     # 6. the training kernels against their plain versions, on the card
     from qmann_tpu_torch.data import synthetic_task
     from qmann_tpu_torch.numerics import QFormat
     from qmann_tpu_torch.ops.qlinear import (qembed_mat_forward,
                                              qmatvec_forward)
-    from qmann_tpu_torch.train import (sgd_update, train_step, train_task,
+    from qmann_tpu_torch.train import (sgd_update, train_step,
                                        zero_null_columns)
     from qmann_tpu_torch.train.trainer import _batched_arrays
 
@@ -376,18 +579,29 @@ def main():
     train_shapes = {"train": (TRAIN_BATCH, 19, 10, 6),
                     "eval": (EVAL_CHUNK, 19, 10, 6),
                     "wide": (TRAIN_BATCH, 64, 50, 7)}
-    qmv_err, ar_err, qmv_args, read_args = 0.0, 0.0, {}, {}
-    for name, (B, V, M, W) in train_shapes.items():
+
+    def read_inputs(cfg_r, B, V, M, W):
+        """The read's inputs as the training forward makes them (weights
+        x4); the last 3 samples have no live row, as padded samples."""
         dims, mem, que, mask = synthetic_batch(rng, B, V, M, W)
         for a in (mem, que, mask):
-            a[-3:] = 0      # padded samples: no live memory row
+            a[-3:] = 0
         params = {k: 4.0 * v for k, v in memn2n.init_params(
-            cfg_t, dims, torch.Generator().manual_seed(SEED),
+            cfg_r, dims, torch.Generator().manual_seed(SEED),
             device=dev).items()}
         mem_t, que_t, mask_t = (torch.from_numpy(a).to(dev)
                                 for a in (mem, que, mask))
+        f0 = cfg_r.fmt_w[0]
+        u = qmatvec_forward(params["B"], que_t, f0, f0)
+        m = qembed_mat_forward(mem_t, params["A"], f0)
+        c = qembed_mat_forward(mem_t, params["C"], f0)
+        return dims, params, mem_t, que_t, mask_t, (m, c, u)
+
+    qmv_err, ar_err, qmv_args, read_args = 0.0, 0.0, {}, {}
+    for name, (B, V, M, W) in train_shapes.items():
+        dims, params, mem_t, que_t, mask_t, (m, c, u) = read_inputs(
+            cfg_t, B, V, M, W)
         rows = mem_t.reshape(-1, dims.dim_input)
-        u = qmatvec_forward(params["B"], que_t, fw[0], fw[0])
         cases = ([("query", params["B"], que_t, fw[0], fw[0])]
                  + [(f"embed {w}{h}", params[w], rows, fw[h], fw[h])
                     for w in "AC" for h in range(K)]
@@ -411,8 +625,6 @@ def main():
             fail(f"qmatvec kernel differs from its plain version ({name})")
 
         mask_f = mask_t.to(torch.float32)
-        m = qembed_mat_forward(mem_t, params["A"], fw[0])
-        c = qembed_mat_forward(mem_t, params["C"], fw[0])
         for mode in (2, 1):
             q = mode == 2
             args = (m, c, u, mask_f, cfg_t.fmt_att[0], cfg_t.fmt_bin,
@@ -420,24 +632,7 @@ def main():
             got = ar.fused_read(*args)
             want = ar.fused_read_reference(*args)
             torch.cuda.synchronize()
-            diffs = {k: float((a - b).abs().max())
-                     for k, a, b in zip(("o", "p", "scores"), got, want)}
-            o_pad = float_quant(torch.zeros_like(got[0][-3:]), fmt_act) \
-                if q else torch.zeros_like(got[0][-3:])
-            sound = (all(bool(torch.isfinite(t).all()) for t in got)
-                     and bool((got[1][-3:] == 0).all())
-                     and torch.equal(got[0][-3:], o_pad))
-            flips = 0
-            if q:
-                flipped = (float_quant(got[1], fmt_act)
-                           != float_quant(want[1], fmt_act)).any(-1)
-                flips = int(flipped.sum())
-                good = (torch.equal(got[2], want[2]) and diffs["p"] <= 1e-6
-                        and torch.equal(got[0][~flipped], want[0][~flipped])
-                        and flips <= 1)
-            else:
-                good = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
-                           for a, b in zip(got, want))
+            diffs, flips, good, sound = check_read(got, want, fmt_act, q)
             ar_err = max(ar_err, *diffs.values())
             print(f"[6 train-kernels] attention_read {name} mode {mode}: "
                   f"B={B} M={M} D={cfg_t.dim_emb}: max|diff| "
@@ -457,75 +652,41 @@ def main():
                           19, 10, 6)
     cfg7 = QmannConfig(use_pallas=True, num_itr=2, verbose=False)
     cfg7_plain = cfg7.replace(use_pallas=False)
-    n_batches = math.ceil(len(data.train) / cfg7.size_batch)
-    n_calls = (cfg7.num_itr * n_batches
-               + cfg7.num_itr * math.ceil(len(data.valid) / EVAL_CHUNK)
-               + math.ceil(len(data.test) / EVAL_CHUNK))
+    n_steps, n_chunks = n_forwards(cfg7, data)
+    n_calls = n_steps + n_chunks
     qmv.quantized_matvec.launches = 0
     ar.fused_read.launches = 0
-    res_k = train_task(cfg7, data, device=dev)
+    _, finite = train_route(cfg7, data, dev, "7 train", "kernel")
     qmv_launches = qmv.quantized_matvec.launches
     ar_launches = ar.fused_read.launches
-    res_p = train_task(cfg7_plain, data, device=dev)
-    finite = True
-    for route, res in (("kernel", res_k), ("plain", res_p)):
-        for e, h in enumerate(res.history):
-            print(f"[7 train] {route} route epoch {e}: cost_train "
-                  f"{h.cost_train:.6f}, err_train {h.err_train:.4f}, "
-                  f"cost_valid {h.cost_valid:.6f}, err_valid "
-                  f"{h.err_valid:.4f}, lr {h.lr}", flush=True)
-            finite &= math.isfinite(h.cost_train) and math.isfinite(
-                h.cost_valid)
-        finite &= math.isfinite(res.cost_test)
-        print(f"[7 train] {route} route: test cost {res.cost_test:.6f}, "
-              f"err {res.err_test:.4f}; {res.time_train:.3f} s for "
-              f"{cfg7.num_itr} epochs", flush=True)
-    print(f"[7 train] {n_calls} forwards ({cfg7.num_itr * n_batches} steps "
-          f"+ {n_calls - cfg7.num_itr * n_batches} eval chunks): qmatvec "
-          f"launches {qmv_launches} (want {10 * n_calls}), attention_read "
-          f"launches {ar_launches} (want {3 * n_calls})", flush=True)
+    _, finite_p = train_route(cfg7_plain, data, dev, "7 train", "plain")
+    print(f"[7 train] {n_calls} forwards ({n_steps} steps + {n_chunks} eval "
+          f"chunks): qmatvec launches {qmv_launches} (want {10 * n_calls}), "
+          f"attention_read launches {ar_launches} (want {3 * n_calls})",
+          flush=True)
     if qmv_launches != 10 * n_calls or ar_launches != 3 * n_calls:
         fail("the training path did not launch each kernel as expected")
-    if not finite:
+    if not (finite and finite_p):
         fail("a training or evaluation cost is not finite")
 
     batches_np = _batched_arrays(data.train, cfg7.size_batch)
     base = {k: 4.0 * v for k, v in memn2n.init_params(
         cfg7, data.dims, torch.Generator().manual_seed(SEED),
         device=dev).items()}
-    lr_t = torch.tensor(cfg7.learning_rate, dtype=torch.float32, device=dev)
-    for label, i in (("full batch", 0), ("partial batch", n_batches - 1)):
-        batch = {k: torch.as_tensor(v[i]).to(dev)
-                 for k, v in batches_np.items()}
-        after = []
-        for route_cfg in (cfg7, cfg7_plain):
-            stepped = {k: v.clone() for k, v in base.items()}
-            train_step(stepped, batch, lr_t, route_cfg)
-            after.append(stepped)
-        diff = max(float((after[0][k] - after[1][k]).abs().max())
-                   for k in base)
-        moved = max(float((after[0][k] - base[k]).abs().max()) for k in base)
-        close = all(torch.allclose(after[0][k], after[1][k], rtol=1e-5,
-                                   atol=1e-6) for k in base)
-        print(f"[7 train] one SGD step, {label} "
-              f"({int(batch['size_b'])} live samples, weights x4): max "
-              f"|kernel route - plain route| {diff:.3g}, largest update "
-              f"{moved:.3g}", flush=True)
-        if not close:
-            fail(f"one SGD step differs between the routes ({label})")
+    sgd_steps_agree((cfg7_plain, cfg7), base, batches_np, dev, "7 train")
 
     # 8. training times at B=32, and each kernel alone
+    lr_t = torch.tensor(cfg7.learning_rate, dtype=torch.float32, device=dev)
     batch0 = {k: torch.as_tensor(v[0]).to(dev) for k, v in batches_np.items()}
-    p_k = {k: v.clone() for k, v in base.items()}
-    p_p = {k: v.clone() for k, v in base.items()}
-    steps = {"kernel route": lambda: train_step(p_k, batch0, lr_t, cfg7),
-             "plain route": lambda: train_step(p_p, batch0, lr_t,
-                                               cfg7_plain)}
-    t_steps = {name: cuda_ms(fn) for name, fn in steps.items()}
-    busy_steps = {name: device_ms(fn) for name, fn in steps.items()}
-    print(f"[8 train-times] {card} | train step B={TRAIN_BATCH}: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in t_steps.items()),
-          flush=True)
+
+    def step_fns(cfg_k, cfg_p, base):
+        p_k = {k: v.clone() for k, v in base.items()}
+        p_p = {k: v.clone() for k, v in base.items()}
+        return {"kernel route": lambda: train_step(p_k, batch0, lr_t, cfg_k),
+                "plain route": lambda: train_step(p_p, batch0, lr_t, cfg_p)}
+
+    print(f"[8 train-times] {card} | train step B={TRAIN_BATCH}", flush=True)
+    time_steps(step_fns(cfg7, cfg7_plain, base), "8 train-times")
     # the step's parts: forward (with the autograd graph), forward +
     # backward, and the in-place update
     for name, route_cfg in (("kernel route", cfg7), ("plain route",
@@ -552,35 +713,15 @@ def main():
         print(f"[8 train-times] step parts, {name}: "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()),
               flush=True)
-    for name, kernels in busy_steps.items():
-        total = sum(ms for ms, _ in kernels.values())
-        n_launch = sum(n for _, n in kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
-        print(f"[8 device] train step, {name}: "
-              + (f"busy {total:.4f} ms/step over {n_launch:.0f} launches of "
-                 f"{len(kernels)} kernels, idle share "
-                 f"{1.0 - total / t_steps[name]:.3f}; top "
-                 + "; ".join(f"{k[:48]} {v:.4f} ({n:.0f}x)"
-                             for k, (v, n) in top)
-                 if kernels else
-                 "not measured (profiler saw no device time)"), flush=True)
-    k_times = {}
-    with torch.inference_mode():
-        for shape, a in qmv_args.items():
-            k_times["qmatvec", shape] = (
-                lambda a=a: qmv.quantized_matvec(*a),
-                lambda a=a: qmv.quantized_matvec_reference(*a))
-        for shape, a in read_args.items():
-            k_times["attention_read", shape] = (
-                lambda a=a: ar.fused_read(*a),
-                lambda a=a: ar.fused_read_reference(*a))
-        for key, (kernel_fn, plain_fn) in k_times.items():
-            # event times of the wrapper (host issue included) and the
-            # profiler's device time of the kernel itself
-            busy = device_ms(kernel_fn)
-            k_times[key] = (cuda_ms(kernel_fn), cuda_ms(plain_fn),
-                            max((ms for ms, _ in busy.values()),
-                                default=float("nan")))
+    k_times = time_kernels(
+        {**{("qmatvec", shape): (lambda a=a: qmv.quantized_matvec(*a),
+                                 lambda a=a: qmv.quantized_matvec_reference(
+                                     *a))
+            for shape, a in qmv_args.items()},
+         **{("attention_read", shape): (
+             lambda a=a: ar.fused_read(*a),
+             lambda a=a: ar.fused_read_reference(*a))
+            for shape, a in read_args.items()}})
     for (kname, shape), (t_k, t_p, t_dev) in k_times.items():
         print(f"[8 train-times] {kname} alone, {shape} shape (B="
               f"{TRAIN_BATCH if shape == 'train' else EVAL_CHUNK}): kernel "
@@ -590,30 +731,251 @@ def main():
           "attention read or the chain: each product is requantized before "
           "the sum, so library_ms is null", flush=True)
 
+    # 9. attention mode 3: the Hamming kernel, and the mode-3 branches of
+    # the read and chain kernels, against their plain versions on the card
+    ham_err, ham_shapes = 0.0, {"train": (TRAIN_BATCH, 10, 60),
+                                "eval": (EVAL_CHUNK, 10, 60),
+                                "wide": (TRAIN_BATCH, 50, 60)}
+    for name, (B, M, D) in ham_shapes.items():
+        unequal, n_cmp = [], 0
+        for iwl in HAM_IWLS:
+            m, u = (torch.from_numpy(a).to(dev)
+                    for a in ham_inputs(rng, iwl, B, M, D))
+            for round_mode in (3, 1):
+                for para, weighted in HAM_VARIANTS:
+                    args = (m, u, iwl, 8, -3, round_mode, para, weighted)
+                    got = ham.hamming_score_kernel(*args)
+                    want = ham.hamming_score_reference(*args)
+                    ham_err = max(ham_err, float((got - want).abs().max()))
+                    n_cmp += 1
+                    if not torch.equal(got, want):
+                        unequal.append(f"iwl {iwl} round {round_mode} para "
+                                       f"{para} weighted {weighted}")
+        torch.cuda.synchronize()
+        print(f"[9 mode3-kernels] hamming {name} B={B} M={M} D={D}: "
+              f"{n_cmp} calls (iwl {HAM_IWLS}, edge list in sample 0); not "
+              f"bit-identical: {', '.join(unequal) or 'none'}", flush=True)
+        if unequal:
+            fail(f"hamming kernel differs from its plain version ({name})")
+
+    cfg3 = QmannConfig(iwl=1, attention_mode=3, use_pallas=True,
+                       verbose=False)
+    fmt3 = cfg3.fmt_act[0]
+    nb3 = cfg3.num_bits_attention
+    ar3_err, read3_args, ham_args = 0.0, {}, {}
+    for name, (B, V, M, W) in train_shapes.items():
+        _, _, _, _, mask_t, (m, c, u) = read_inputs(cfg3, B, V, M, W)
+        args = (m, c, u, mask_t.to(torch.float32), cfg3.fmt_att[0],
+                cfg3.fmt_bin, fmt3, False, True, 3, nb3)
+        got = ar.fused_read(*args)
+        want = ar.fused_read_reference(*args)
+        torch.cuda.synchronize()
+        diffs, flips, good, sound = check_read(got, want, fmt3, True)
+        ar3_err = max(ar3_err, *diffs.values())
+        print(f"[9 mode3-kernels] attention_read {name} mode 3 iwl 1: B={B} "
+              f"M={M} D={cfg3.dim_emb}: max|diff| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+              + f"; flipped Q(p, act) queries {flips}; padded samples p=0, "
+              f"o=Q(0), finite: {sound}", flush=True)
+        if not (good and sound):
+            fail(f"attention_read kernel disagrees with its plain version "
+                 f"({name}, mode 3)")
+        if name != "wide":
+            read3_args[name] = args
+            ham_args[name] = (m, u, cfg3.fmt_att[0].iwl, nb3, -3,
+                              cfg3.fmt_att[0].mode)
+
+    cfg_c3 = QmannConfig(use_fused_chain=True, attention_mode=3)
+    ham_kw = dict(attention_mode=3, ham_num_bit=cfg_c3.num_bits_attention)
+    chain3_err, chain3_args = 0.0, None
+    for name, (V, M, W) in shapes.items():
+        scale, args = chain_inputs(cfg_c3, V, M, W)
+        got = hop_chain.fused_hop_chain(*args, **ham_kw)
+        want = hop_chain.fused_hop_chain_reference(*args, **ham_kw)
+        torch.cuda.synchronize()
+        diffs, flips, good = compare_chain(cfg_c3, got, want)
+        print(f"[9 mode3-kernels] chain {name} mode 3 iwl 5 B={BATCH} M={M} "
+              f"I={V + M} weights x{scale}: max|diff| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+              + f"; queries with a flipped Q(p, act): {flips}", flush=True)
+        if not good:
+            fail(f"chain kernel disagrees with the plain version ({name}, "
+                 "mode 3)")
+        chain3_err = max(chain3_err, *diffs.values())
+        if name == "flagship":
+            chain3_args = args
+
+    # 10. mode-3 serving: the chain at iwl 5; the forward at iwl 1
+    _, params_c3, _ = scaled_prepared(cfg_c3, serve_dims, mem0, dev)
+    engine3, answers, want, (chain3_launches,), logits_ok = serve_requests(
+        params_c3, cfg_c3, cfg_c3.replace(use_fused_chain=False), serve_dims,
+        dictionary, stories, dev, [hop_chain.fused_hop_chain])
+    st = engine3.stats
+    print(f"[10 mode3-serve] iwl 5, use_fused_chain: {len(answers)} answers "
+          f"over {st.waves} waves, failed_waves {st.failed_waves}, exact "
+          f"route {engine3.prepared.fast}, chain launches {chain3_launches}, "
+          f"distinct answers {len(set(answers))}, equal to plain route: "
+          f"{answers == want}", flush=True)
+    if (st.failed_waves or st.requests != len(stories)
+            or not engine3.prepared.fast or chain3_launches < 1):
+        fail("the mode-3 engine at iwl 5 failed waves, left the exact route "
+             "or never launched the chain kernel")
+    if answers != want or not logits_ok:
+        fail("mode-3 engine answers (iwl 5) differ from the plain route")
+
+    cfg_s1 = QmannConfig(iwl=1, attention_mode=3, use_pallas=True,
+                         use_fused_chain=True, verbose=False)
+    params_s1 = {k: 4.0 * v for k, v in memn2n.init_params(
+        cfg_s1, serve_dims, torch.Generator().manual_seed(SEED),
+        device=dev).items()}
+    engine1, answers, want, (l_qmv, l_ar), logits_ok = serve_requests(
+        params_s1, cfg_s1, cfg_s1.replace(use_pallas=False), serve_dims,
+        dictionary, stories, dev, [qmv.quantized_matvec, ar.fused_read])
+    st = engine1.stats
+    print(f"[10 mode3-serve] iwl 1, use_pallas: {len(answers)} answers over "
+          f"{st.waves} waves, failed_waves {st.failed_waves}, exact route "
+          f"{engine1.prepared.fast}, qmatvec launches {l_qmv} (want "
+          f"{10 * st.waves}), attention_read launches {l_ar} (want "
+          f"{3 * st.waves}), distinct answers {len(set(answers))}, equal to "
+          f"plain route: {answers == want}", flush=True)
+    if (st.failed_waves or st.requests != len(stories)
+            or engine1.prepared.fast
+            or (l_qmv, l_ar) != (10 * st.waves, 3 * st.waves)):
+        fail("the mode-3 engine at iwl 1 failed waves, kept the exact route "
+             "or did not launch each kernel per wave")
+    if answers != want or not logits_ok:
+        fail("mode-3 engine answers (iwl 1) differ from the plain route")
+
+    # 11. mode-3 training at iwl 1 on the kernel route
+    cfg11 = cfg3.replace(num_itr=2)
+    cfg11_plain = cfg11.replace(use_pallas=False)
+    qmv.quantized_matvec.launches = 0
+    ar.fused_read.launches = 0
+    _, finite = train_route(cfg11, data, dev, "11 mode3-train", "kernel")
+    qmv3_launches = qmv.quantized_matvec.launches
+    ar3_launches = ar.fused_read.launches
+    print(f"[11 mode3-train] {n_calls} forwards: qmatvec launches "
+          f"{qmv3_launches} (want {10 * n_calls}), attention_read launches "
+          f"{ar3_launches} (want {3 * n_calls})", flush=True)
+    if qmv3_launches != 10 * n_calls or ar3_launches != 3 * n_calls:
+        fail("mode-3 training did not launch each kernel as expected")
+    if not finite:
+        fail("a mode-3 training or evaluation cost is not finite")
+    base3 = {k: 4.0 * v for k, v in memn2n.init_params(
+        cfg11, data.dims, torch.Generator().manual_seed(SEED),
+        device=dev).items()}
+    cfg11_ham = cfg11_plain.replace(use_pallas_hamming=True)
+    sgd_steps_agree((cfg11_plain, cfg11), base3, batches_np, dev,
+                    "11 mode3-train")
+    leaves = {k: v.clone().requires_grad_() for k, v in base3.items()}
+    loss, _ = memn2n.loss_and_metrics(
+        leaves, batch0["memory"], batch0["question"], batch0["answer"],
+        batch0["mask"], batch0["sample_mask"], cfg11)
+    g_a = torch.autograd.grad(loss, [leaves["A"]])[0]
+    print(f"[11 mode3-train] kernel route: max |d loss / d A| "
+          f"{float(g_a.abs().max()):.6g} (A is reached only through the "
+          "Hamming surrogate)", flush=True)
+    if not float(g_a.abs().max()) > 0:
+        fail("mode-3 training gives A no gradient")
+    ham.hamming_score_kernel.launches = 0
+    sgd_steps_agree((cfg11_plain, cfg11_ham), base3, batches_np, dev,
+                    "11 mode3-train use_pallas_hamming")
+    ham_launches = ham.hamming_score_kernel.launches
+    print(f"[11 mode3-train] use_pallas_hamming: Hamming kernel launches "
+          f"{ham_launches} in 2 steps (want 6)", flush=True)
+    if ham_launches != 6:
+        fail("the use_pallas_hamming step did not launch the Hamming kernel "
+             "3 times per step")
+
+    # 12. mode-3 times
+    prep_c3 = memn2n.prepare_inference(
+        params_c3, cfg_c3, max_count=float(serve_dims.max_word + 1),
+        max_rowsum=float(serve_dims.max_word + 1))
+    cfg_c3_plain = cfg_c3.replace(use_fused_chain=False)
+    with torch.inference_mode():
+        fp3 = {"kernel route": lambda: memn2n.forward_prepared(
+                   prep_c3, *batch, cfg_c3),
+               "plain route": lambda: memn2n.forward_prepared(
+                   prep_c3, *batch, cfg_c3_plain)}
+        print(f"[12 mode3-times] {card} | forward_prepared B={BATCH}, mode 3 "
+              "iwl 5", flush=True)
+        time_steps(fp3, "12 mode3-times forward_prepared")
+    print(f"[12 mode3-times] train step B={TRAIN_BATCH}, mode 3 iwl 1",
+          flush=True)
+    t3_steps = time_steps(step_fns(cfg11, cfg11_plain, base3),
+                          "12 mode3-times train step")
+    k3 = time_kernels(
+        {**{("hamming", shape): (
+            lambda a=a: ham.hamming_score_kernel(*a),
+            lambda a=a: ham.hamming_score_reference(*a))
+            for shape, a in ham_args.items()},
+         ("attention_read", "train"): (
+             lambda: ar.fused_read(*read3_args["train"]),
+             lambda: ar.fused_read_reference(*read3_args["train"])),
+         ("hop_chain", "flagship"): (
+             lambda: hop_chain.fused_hop_chain(*chain3_args, **ham_kw),
+             lambda: hop_chain.fused_hop_chain_reference(*chain3_args,
+                                                         **ham_kw))})
+    for (kname, shape), (t_k, t_p, t_dev) in k3.items():
+        print(f"[12 mode3-times] {kname} mode 3 alone, {shape} shape: kernel "
+              f"{t_k:.4f} ms (device {t_dev:.4f} ms), plain {t_p:.4f} ms",
+              flush=True)
+    print("[12 library] no single PyTorch call computes the Hamming score "
+          "(bit-level matches of sign-magnitude words): library_ms is null",
+          flush=True)
+    print(f"[12 mode3-times] train step event times: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in t3_steps.items()),
+          flush=True)
+
     b_chain = chain_bound(*chain_args[:4])
+    b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
     b_qmv = qmatvec_bound(*qmv_args["train"][:2])
     b_read = attention_read_bound(*read_args["train"][:4])
+    b_read3 = attention_read_bound(*read3_args["train"][:4], num_bit=nb3)
+    b_ham = hamming_bound(*ham_args["train"][:2], num_bit=nb3)
     print(json.dumps({"kernels": [
         {"name": "hop_chain", "route": "cuda",
          "source": "qmann_tpu_torch/csrc/hop_chain.cu",
          "replaces": "qmann_tpu/ops/pallas/qkernels.py:358",
-         "launches": launches, "max_abs_err": max_err,
-         "ms": t_kern, "plain_ms": t_ref, "bound_ms": b_chain[0],
-         "bound_by": b_chain[1], "library_ms": None},
+         "launches": launches, "max_abs_err": max(max_err, chain3_err),
+         "ms": t_kern, "plain_ms": t_ref, "device_ms": t_kdev,
+         "bound_ms": b_chain[0],
+         "bound_by": b_chain[1], "library_ms": None,
+         "mode3": {"launches": chain3_launches, "max_abs_err": chain3_err,
+                   "ms": k3["hop_chain", "flagship"][0],
+                   "plain_ms": k3["hop_chain", "flagship"][1],
+                   "device_ms": k3["hop_chain", "flagship"][2],
+                   "bound_ms": b_chain3[0], "bound_by": b_chain3[1]}},
         {"name": "qmatvec", "route": "cuda",
          "source": "qmann_tpu_torch/csrc/qmatvec.cu",
          "replaces": "qmann_tpu/ops/pallas/qkernels.py:88",
          "launches": qmv_launches, "max_abs_err": qmv_err,
          "ms": k_times["qmatvec", "train"][0],
          "plain_ms": k_times["qmatvec", "train"][1],
-         "bound_ms": b_qmv[0], "bound_by": b_qmv[1], "library_ms": None},
+         "device_ms": k_times["qmatvec", "train"][2],
+         "bound_ms": b_qmv[0], "bound_by": b_qmv[1], "library_ms": None,
+         "mode3": {"launches": qmv3_launches}},
         {"name": "attention_read", "route": "cuda",
          "source": "qmann_tpu_torch/csrc/attention_read.cu",
          "replaces": "qmann_tpu/ops/pallas/qkernels.py:435",
-         "launches": ar_launches, "max_abs_err": ar_err,
+         "launches": ar_launches, "max_abs_err": max(ar_err, ar3_err),
          "ms": k_times["attention_read", "train"][0],
          "plain_ms": k_times["attention_read", "train"][1],
-         "bound_ms": b_read[0], "bound_by": b_read[1], "library_ms": None},
+         "device_ms": k_times["attention_read", "train"][2],
+         "bound_ms": b_read[0], "bound_by": b_read[1], "library_ms": None,
+         "mode3": {"launches": ar3_launches, "max_abs_err": ar3_err,
+                   "ms": k3["attention_read", "train"][0],
+                   "plain_ms": k3["attention_read", "train"][1],
+                   "device_ms": k3["attention_read", "train"][2],
+                   "bound_ms": b_read3[0], "bound_by": b_read3[1]}},
+        {"name": "hamming_score", "route": "cuda",
+         "source": "qmann_tpu_torch/csrc/hamming.cu",
+         "replaces": "qmann_tpu/ops/pallas/qkernels.py:171",
+         "launches": ham_launches, "max_abs_err": ham_err,
+         "ms": k3["hamming", "train"][0],
+         "plain_ms": k3["hamming", "train"][1],
+         "device_ms": k3["hamming", "train"][2],
+         "bound_ms": b_ham[0], "bound_by": b_ham[1], "library_ms": None},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

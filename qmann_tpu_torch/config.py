@@ -5,10 +5,10 @@ The machine with the GPU has no jax, and ``qmann_tpu.config`` imports
 fields, defaults, dispatch properties and derived formats;
 tests/test_torch_config.py holds the two equal field by field.  The
 TPU-execution flags keep their names: ``use_fused_chain`` selects the
-Hopper chain kernel on the serving path and ``use_pallas`` the lattice
-and attention-read kernels on the training forward (ops/cuda);
-``use_pallas_hamming`` selects a kernel not ported yet and is ignored by
-the port.
+Hopper chain kernel on the serving path, ``use_pallas`` the lattice and
+attention-read kernels on the training forward, and ``use_pallas_hamming``
+the Hamming-score kernel for the mode-3 score alone, wherever the fused
+read does not compute it (ops/cuda).
 
 The reference's configuration is a compile-time header (MemN2N/define.h)
 plus four positional CLI arguments (MemN2N/MemN2N.c:211-274) — sweeps

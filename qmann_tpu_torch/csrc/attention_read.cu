@@ -1,6 +1,8 @@
 // One hop's attention read for one query per thread block:
 //   score = Q(sum_d Q(Q(m,att)*Q(u,bin), att), att)   (mode 2, quantized)
 //         | sum_d m*u                                  (mode 1, float)
+//         | Q(sum_d ham_term(m, u), (iwl_att, 31-iwl_att))  (mode 3, Hamming
+//           on the raw m and u; ham_term is in hamming.cuh)
 //   p     = masked softmax(score)                      (-1e30 fill)
 //   o     = Q(sum_m mask*Q(Q(p,act)*Q(c,act), act), act)  (quantized sum)
 //         | sum_m c*(p*mask)                           (float sum)
@@ -8,9 +10,9 @@
 // p [B, M], s [B, M] (the raw scores, before the mask).
 //
 // Replaces the TPU kernel fused_attention_read_pallas / _fused_read_kernel
-// (qmann_tpu/ops/pallas/qkernels.py), attention modes 1 and 2; the mode-3
-// Hamming score is not ported yet.  On the training path it runs once per
-// hop (ops/fused.py), at B=32, M=10, D=60 for the flagship.
+// (qmann_tpu/ops/pallas/qkernels.py), attention modes 1, 2 and 3.  On the
+// training path it runs once per hop (ops/fused.py), at B=32, M=10, D=60
+// for the flagship (mode 2 at iwl 5, mode 3 at iwl 1).
 //
 // What bounds it on an H100: one call reads m and c once (2*32*10*60*4 B =
 // 154 KB at the flagship training shape, ~0.05 us at 3.35 TB/s) and does
@@ -31,24 +33,31 @@
 // partial batch) gets p = 0 and o = Q(0), never NaN.  Padded rows are
 // skipped after the per-product requant (the binary format maps 0 to +1).
 // The float (mode 1) sums are order-sensitive; they differ from the plain
-// version's by float32 rounding only.
+// version's by float32 rounding only.  The mode-3 terms sum exactly as in
+// hamming.cu (num_bit <= 19, D <= 64).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -I csrc  (qmann_tpu_torch/ops/cuda/_build.py does it).
 #include <cuda_runtime.h>
 
+#include "hamming.cuh"
 #include "qformat.cuh"
 
 namespace {
 
+using qmann::HamFmt;
 using qmann::QFmt;
 using qmann::fq;
+using qmann::ham_term;
 using qmann::warp_max;
 using qmann::warp_sum;
 
 constexpr int kMaxMem = 64;    // the softmax keeps two rows per lane
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+
+// how a row's score is computed
+enum ScoreKind { kFloatDot = 1, kLattice = 2, kHamming = 3 };
 
 __global__ void __launch_bounds__(kThreads)
 attention_read_kernel(const float* __restrict__ m,      // [B, M, D]
@@ -59,7 +68,7 @@ attention_read_kernel(const float* __restrict__ m,      // [B, M, D]
                       float* __restrict__ p_out,        // [B, M]
                       float* __restrict__ s_out,        // [B, M]
                       int M, int D, QFmt fatt, QFmt fbin, QFmt fact,
-                      int score_quantized, int sum_quantized) {
+                      int score_kind, int sum_quantized, HamFmt ham) {
   __shared__ float s[kMaxMem], pw[kMaxMem];
   __shared__ int live[kMaxMem];
 
@@ -77,7 +86,9 @@ attention_read_kernel(const float* __restrict__ m,      // [B, M, D]
   for (int r = warp; r < M; r += kWarps) {
     const float* mrow = mb + (size_t)r * D;
     float acc = 0.f;
-    if (score_quantized) {
+    if (score_kind == kHamming) {
+      for (int d = lane; d < D; d += 32) acc += ham_term(mrow[d], ub[d], ham);
+    } else if (score_kind == kLattice) {
       for (int d = lane; d < D; d += 32)
         acc += fq(fq(mrow[d], fatt) * fq(ub[d], fbin), fatt);
     } else {
@@ -85,7 +96,9 @@ attention_read_kernel(const float* __restrict__ m,      // [B, M, D]
     }
     acc = warp_sum(acc);
     if (lane == 0) {
-      const float sc = score_quantized ? fq(acc, fatt) : acc;
+      const float sc = score_kind == kHamming  ? fq(acc, ham.full)
+                       : score_kind == kLattice ? fq(acc, fatt)
+                                                : acc;
       s[r] = sc;
       s_out[(size_t)b * M + r] = sc;
     }
@@ -136,13 +149,16 @@ attention_read_kernel(const float* __restrict__ m,      // [B, M, D]
 }  // namespace
 
 // fmts: host array of the (iwl, frac, mode) triples of fmt_att, fmt_bin
-// and fmt_act.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for shapes or formats out of range).
+// and fmt_act.  ham: num_bit, const_scale, weight_para and weighted of the
+// mode-3 score, which takes its iwl and rounding mode from fmt_att.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// shapes, formats or knobs out of range).
 extern "C" int qmann_attention_read(const float* m, const float* c,
                                     const float* u, const float* mask,
                                     float* o_out, float* p_out, float* s_out,
                                     int B, int M, int D, const int* fmts,
                                     int score_quantized, int sum_quantized,
+                                    int attention_mode, const int* ham_knobs,
                                     void* stream) {
   if (B < 1 || M < 1 || M > kMaxMem || D < 1) return (int)cudaErrorInvalidValue;
   QFmt fatt, fbin, fact;
@@ -150,8 +166,16 @@ extern "C" int qmann_attention_read(const float* m, const float* c,
       !qmann::make_qfmt(fmts[3], fmts[4], fmts[5], &fbin) ||
       !qmann::make_qfmt(fmts[6], fmts[7], fmts[8], &fact))
     return (int)cudaErrorInvalidValue;
+  HamFmt ham = {};
+  int score_kind = score_quantized ? kLattice : kFloatDot;
+  if (attention_mode == 3) {
+    if (!qmann::make_hamfmt(fmts[0], fmts[2], ham_knobs[0], ham_knobs[1],
+                            ham_knobs[2], ham_knobs[3], &ham))
+      return (int)cudaErrorInvalidValue;
+    score_kind = kHamming;
+  }
   attention_read_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
       m, c, u, mask, o_out, p_out, s_out, M, D, fatt, fbin, fact,
-      score_quantized, sum_quantized);
+      score_kind, sum_quantized, ham);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,12 @@
 // The whole K-hop MemN2N controller chain for one query per thread block.
 //
 // Replaces the TPU kernel fused_hop_chain_pallas / _fused_chain_kernel
-// (qmann_tpu/ops/pallas/qkernels.py), attention mode 2 only.  Per hop h:
+// (qmann_tpu/ops/pallas/qkernels.py), attention modes 2 and 3.  Per hop h:
 //   m, c   = Q(slice of flat, fmt_w[h])                 (A and C embeddings)
-//   score  = Q(sum_d Q(Q(m,att)*Q(u,bin), att), att)
+//   score  = Q(sum_d Q(Q(m,att)*Q(u,bin), att), att)   (mode 2)
+//          | Q(sum_d ham_term(m, u), (iwl_att, 31-iwl_att))  (mode 3: the
+//            Hamming similarity of the requanted m and the raw current u,
+//            ham_term in hamming.cuh)
 //   p      = masked softmax(score)                      (-1e30 fill)
 //   o      = Q(sum_m mask*Q(Q(p,act)*Q(c,act), act), act)
 //   u_map  = Q(sum_i Q(Q(H,w)*Q(u,bin), w), w)          (when linear mapping)
@@ -28,18 +31,22 @@
 // on the 2^-frac grid, partial sums stay under 2^24 units), so the warp
 // reductions may sum in any order.  The softmax is order-sensitive: it
 // uses expf and IEEE division (build without --use_fast_math), the -1e30
-// masked fill, and total==0 -> 1 for fully masked rows.
+// masked fill, and total==0 -> 1 for fully masked rows.  The mode-3 terms
+// sum exactly as in hamming.cu (num_bit <= 19, D <= 64).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -I csrc  (qmann_tpu_torch/ops/cuda/_build.py does it).
 #include <cuda_runtime.h>
 
+#include "hamming.cuh"
 #include "qformat.cuh"
 
 namespace {
 
+using qmann::HamFmt;
 using qmann::QFmt;
 using qmann::fq;
+using qmann::ham_term;
 using qmann::warp_max;
 using qmann::warp_sum;
 
@@ -52,6 +59,7 @@ constexpr int kSlots = 3 * kMaxHops + 1;  // w[K], att[K], act[K], bin
 
 struct ChainFormats {
   QFmt f[kSlots];
+  HamFmt ham[kMaxHops];  // mode 3: each hop's Hamming format
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -63,8 +71,9 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
                  float* __restrict__ p_out,         // [K, B, M]
                  float* __restrict__ s_out,         // [K, B, M]
                  int B, int M, int D, int K, int linear_mapping,
-                 int non_linearity, ChainFormats formats) {
+                 int non_linearity, int hamming, ChainFormats formats) {
   __shared__ QFmt fmt[kSlots];
+  __shared__ HamFmt ham[kMaxHops];
   __shared__ float u[kMaxDim], ubin[kMaxDim], umap[kMaxDim], o[kMaxDim];
   __shared__ float s[kMaxMem], pq[kMaxMem];
   __shared__ int live[kMaxMem];
@@ -77,6 +86,7 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
   const float* fb = flat + (size_t)b * M * row;
 
   for (int i = tid; i < 3 * K + 1; i += kThreads) fmt[i] = formats.f[i];
+  for (int i = tid; i < K; i += kThreads) ham[i] = formats.ham[i];
   __syncthreads();
   const QFmt& fbin = fmt[3 * K];
   for (int d = tid; d < D; d += kThreads) {
@@ -96,11 +106,16 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
     for (int r = warp; r < M; r += kWarps) {
       const float* mrow = fb + (size_t)r * row + (size_t)h * D;
       float acc = 0.f;
-      for (int d = lane; d < D; d += 32)
-        acc += fq(fq(fq(mrow[d], fw), fa) * ubin[d], fa);
+      if (hamming) {
+        for (int d = lane; d < D; d += 32)
+          acc += ham_term(fq(mrow[d], fw), u[d], ham[h]);
+      } else {
+        for (int d = lane; d < D; d += 32)
+          acc += fq(fq(fq(mrow[d], fw), fa) * ubin[d], fa);
+      }
       acc = warp_sum(acc);
       if (lane == 0) {
-        const float sc = fq(acc, fa);
+        const float sc = fq(acc, hamming ? ham[h].full : fa);
         s[r] = sc;
         s_out[out_off + r] = sc;
       }
@@ -168,13 +183,17 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
 }  // namespace
 
 // fmts: host array of (iwl, frac, mode) triples for the 3K+1 slots
-// w[0..K), att[0..K), act[0..K), bin.  Returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for shapes or formats out of range).
+// w[0..K), att[0..K), act[0..K), bin.  attention_mode 2 or 3; ham_knobs:
+// num_bit, const_scale, weight_para and weighted of the mode-3 score,
+// which takes each hop's iwl and rounding mode from its att slot.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes,
+// formats, modes or knobs out of range).
 extern "C" int qmann_hop_chain(const float* flat, const float* u,
                                const float* hmats, const int* mask,
                                float* u_out, float* p_out, float* s_out,
                                int B, int M, int D, int K, const int* fmts,
                                int linear_mapping, int non_linearity,
+                               int attention_mode, const int* ham_knobs,
                                void* stream) {
   if (B < 1 || M < 1 || M > kMaxMem || D < 1 || D > kMaxDim || K < 1 ||
       K > kMaxHops)
@@ -184,8 +203,16 @@ extern "C" int qmann_hop_chain(const float* flat, const float* u,
     if (!qmann::make_qfmt(fmts[3 * i], fmts[3 * i + 1], fmts[3 * i + 2],
                           &formats.f[i]))
       return (int)cudaErrorInvalidValue;
+  if (attention_mode != 2 && attention_mode != 3)
+    return (int)cudaErrorInvalidValue;
+  const int hamming = attention_mode == 3;
+  for (int h = 0; hamming && h < K; ++h)
+    if (!qmann::make_hamfmt(fmts[3 * (K + h)], fmts[3 * (K + h) + 2],
+                            ham_knobs[0], ham_knobs[1], ham_knobs[2],
+                            ham_knobs[3], &formats.ham[h]))
+      return (int)cudaErrorInvalidValue;
   hop_chain_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
       flat, u, hmats, mask, u_out, p_out, s_out, B, M, D, K, linear_mapping,
-      non_linearity, formats);
+      non_linearity, hamming, formats);
   return (int)cudaGetLastError();
 }

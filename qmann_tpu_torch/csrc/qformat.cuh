@@ -1,5 +1,5 @@
 // Q-format fake quantization and warp reductions shared by the port's
-// CUDA kernels (hop_chain.cu, qmatvec.cu, attention_read.cu).
+// CUDA kernels (hop_chain.cu, qmatvec.cu, attention_read.cu, hamming.cu).
 //
 // fq() is float_quant of qmann_tpu/numerics/fixed.py element by element:
 // saturating float->int32 conversion (+-2^31 clamp), the INT_MIN magnitude

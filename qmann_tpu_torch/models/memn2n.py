@@ -19,12 +19,15 @@ The forward is differentiable: every quantized op is an
 quantized embeddings and linear maps go through the lattice kernel
 (``ops/cuda/qmatvec.py``) and each hop's read through the fused read
 (``ops/fused.py``, kernel ``ops/cuda/attention_read.py``), as the JAX
-package's Pallas backend does.
+package's Pallas backend does.  In attention mode 3 (the Hamming
+similarity, ``ops/attention.py``) ``cfg.use_pallas_hamming`` sends the
+score alone through the Hamming kernel (``ops/cuda/hamming.py``), as does
+``use_pallas`` wherever the fused read is not used.
 
-Ported: attention modes 1 and 2 with no feature head.  Mode 3 (Hamming),
-EN_SC_ATT, maxout, cosine similarity, shift-based and exp_plan softmax,
-the score mitigations and linear start raise NotImplementedError; they wait
-for later PRs (ROADMAP.md, Queue 1).
+Ported: attention modes 1 to 4 with no feature head.  EN_SC_ATT, maxout,
+cosine similarity, shift-based and exp_plan softmax, the score mitigations
+and linear start raise NotImplementedError; they wait for later PRs
+(ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -38,8 +41,9 @@ from qmann_tpu_torch.device import resolve_device
 from qmann_tpu_torch.numerics import (fixed_max_float, float_quant,
                                       float_quant_blocks)
 from qmann_tpu_torch.ops import (CEMetrics, activation, exact_matmul,
-                                 qembed_mat_multi, qmatvec, qscore, qsum,
+                                 qembed_mat_multi, qmatvec, qsum,
                                  qweighted_sum, softmax)
+from qmann_tpu_torch.ops.attention import attention_score
 from qmann_tpu_torch.ops.cuda import fused_hop_chain
 from qmann_tpu_torch.ops.fused import fused_attention_read
 from qmann_tpu_torch.ops.losses import argmax_last
@@ -56,7 +60,7 @@ class ForwardResult(NamedTuple):
 def _check_supported(cfg: QmannConfig) -> None:
     missing = [name for name, on in (
         (f"attention mode {cfg.attention_mode}",
-         cfg.attention_mode not in (1, 2)),
+         cfg.attention_mode not in (1, 2, 3, 4)),
         ("en_sc_att", cfg.en_sc_att),
         ("test_maxout", cfg.test_maxout),
         ("en_cosine_sim", cfg.en_cosine_sim),
@@ -190,13 +194,21 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
     # softmax variants and the EN_GRAD_QUANT backward placement (the fused
     # backward is raw-float) keep the unfused chain.  The guard of
     # qmann_tpu/models/memn2n.py; its linear-start term is vacuous here
-    # (forward refuses remove_softmax) and mode 3 is refused earlier.
+    # (forward refuses remove_softmax).
     use_fused = (backend == "kernel" and cfg.attention_mode in (1, 2, 3)
                  and not gq
                  and cfg.att_score_mod == "none"
                  and not (cfg.en_sc_att or cfg.test_maxout
                           or cfg.en_cosine_sim or cfg.en_shift_based_sm
                           or cfg.en_exp_table_based))
+    # the unfused chain's score route: use_pallas_hamming sends the mode-3
+    # score alone through the Hamming kernel
+    att_backend = "kernel" if (cfg.attention_mode == 3
+                               and cfg.use_pallas_hamming) else backend
+    ham = dict(ham_num_bit=cfg.num_bits_attention,
+               ham_const_scale=cfg.attention_const_scale,
+               ham_weight_para=cfg.hamming_weight_para,
+               ham_weighted=cfg.hamming_weighted)
     attn, scores_all = [], []
     for h in range(K):
         _, _, h_w = _hop_weights(params, cfg, h)
@@ -206,11 +218,14 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
                 m, c, u, mask_f, fmt_att[h], cfg.fmt_bin, fmt_act[h],
                 score_quantized=cfg.attention_mode == 2,
                 sum_quantized=wsum_q, attention_mode=cfg.attention_mode,
-                sum_grad_quantized=wsum_gq)
+                sum_grad_quantized=wsum_gq, **ham)
         else:
-            scores = qscore(m, u, fmt_att[h], cfg.fmt_bin,
-                            quantized=cfg.attention_mode == 2,
-                            grad_quantized=gq)
+            scores = attention_score(
+                m, u, cfg.attention_mode, fmt_att[h], cfg.fmt_bin,
+                num_bit=cfg.num_bits_attention,
+                const_scale=cfg.attention_const_scale, backend=att_backend,
+                hamming_weight_para=cfg.hamming_weight_para,
+                hamming_weighted=cfg.hamming_weighted, grad_quantized=gq)
             p = softmax(scores, mask)
             o = qweighted_sum(c, p, mask_f, fmt_act[h], quantized=wsum_q,
                               grad_quantized=wsum_gq)
@@ -315,10 +330,9 @@ def prepare_inference(params: Params, cfg: QmannConfig,
 
 
 def _use_chain(cfg: QmannConfig) -> bool:
-    """The chain kernel's envelope: mode 2, quantized, no feature heads or
-    score mitigations, no binary formats.  Mode 3 stays out until its
-    in-chain Hamming score is ported."""
-    return (cfg.use_fused_chain and cfg.attention_mode == 2
+    """The chain kernel's envelope: mode 2 or 3, quantized, no feature
+    heads or score mitigations, no binary formats."""
+    return (cfg.use_fused_chain and cfg.attention_mode in (2, 3)
             and cfg.en_fixed_point and cfg.att_score_mod == "none"
             and not (cfg.en_sc_att or cfg.test_maxout or cfg.en_cosine_sim
                      or cfg.en_shift_based_sm or cfg.en_exp_table_based)
@@ -345,7 +359,11 @@ def forward_prepared(prep: PreparedInference, memory: torch.Tensor,
             flat, u, prep.hmats, mask, fmt_w, cfg.fmt_att, cfg.fmt_bin,
             cfg.fmt_act, linear_mapping=cfg.en_linear_mapping,
             non_linearity=cfg.en_non_linearity,
-            attention_mode=cfg.attention_mode)
+            attention_mode=cfg.attention_mode,
+            ham_num_bit=cfg.num_bits_attention,
+            ham_const_scale=cfg.attention_const_scale,
+            ham_weight_para=cfg.hamming_weight_para,
+            ham_weighted=cfg.hamming_weighted)
         logits = qmatvec(_output_weight(prep.raw, cfg), u_fin,
                          cfg.fmt_ds_ans, cfg.fmt_ds_ans, quantized=False)
         return ForwardResult(logits, p, s)

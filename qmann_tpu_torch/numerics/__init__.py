@@ -4,13 +4,18 @@ from qmann_tpu_torch.numerics.fixed import (
     ROUND_UP,
     ROUND_NEAREST_EVEN,
     ROUND_TOWARD_ZERO,
+    bin2gray,
+    decode_sign_magnitude,
+    encode_sign_magnitude,
     fixed_max_float,
     float_quant,
     float_quant_blocks,
+    gray2bin,
 )
 
 __all__ = [
     "QFormat", "ROUND_DOWN", "ROUND_UP", "ROUND_NEAREST_EVEN",
-    "ROUND_TOWARD_ZERO", "fixed_max_float", "float_quant",
-    "float_quant_blocks",
+    "ROUND_TOWARD_ZERO", "bin2gray", "decode_sign_magnitude",
+    "encode_sign_magnitude", "fixed_max_float", "float_quant",
+    "float_quant_blocks", "gray2bin",
 ]

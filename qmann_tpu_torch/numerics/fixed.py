@@ -14,13 +14,16 @@ same semantics bit for bit on float32 inputs:
   * saturation is decided on the pre-conversion value;
   * iwl+frac == 0 binarizes to +/-1 with 0 -> +1.
 
-The sign-magnitude encode/decode, the straight-through quantizer and the
-gray-code helpers are not ported yet (see ROADMAP.md).
+It also holds the 32-bit sign-magnitude encode/decode that the Hamming
+attention compares bit by bit (``encode_sign_magnitude``,
+``decode_sign_magnitude``) and the gray-code helpers (``bin2gray``,
+``gray2bin``).  The straight-through quantizer is not ported yet (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -111,3 +114,94 @@ def float_quant_blocks(x: torch.Tensor, fmts: Sequence[QFormat],
         wrap = cols(full31, torch.bool)
         deq = torch.where(wrap & (scaled <= -_INT32_SAT_F32), 0.0, deq)
     return torch.where(x > maxf, maxf, torch.where(x < -maxf, -maxf, deq))
+
+
+# ---------------------------------------------------------------------------
+# Sign-magnitude bit-level encoding (for the Hamming attention)
+# ---------------------------------------------------------------------------
+
+def encode_sign_magnitude(x: torch.Tensor, fmt: QFormat
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 -> (sign, magnitude) of the 32-bit sign-magnitude fixed word.
+
+    sign: int32 in {0, 1}, 1 iff x < 0 (so -0.0 has sign 0).  magnitude:
+    int32, the low 31 bits of the word: conv(|x| * 2^frac) by rounding mode,
+    where floor and ceil swap for negatives (the conversion acts on the
+    signed value); |x| > max (strictly) saturates to all ones.
+
+    Past 24 bits the magnitude is rebuilt from a hi/lo split in which every
+    step is exact in float32; under ROUND_UP the low half can round to 2^16
+    and carry into the high half.  At iwl+frac == 31 the magnitude can
+    reach exactly 2^31 (|x| == 2^iwl, whose float32 bound maxf is exactly
+    2^iwl and does not saturate): a positive value then gives 2^31-1, a
+    negative one magnitude 0 with the sign set."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    iwl, frac = fmt.iwl, fmt.frac
+    n = iwl + frac
+    assert n <= 31
+    neg = x < 0.0
+    sign = neg.to(torch.int32)
+    maxf = fixed_max_float(iwl, frac)
+    absx = x.abs()
+    sat_fixed = (1 << n) - 1 if n < 31 else 2 ** 31 - 1
+    absx_c = torch.clamp(absx, max=maxf)
+
+    def conv_mag(scaled_abs):
+        if fmt.mode == ROUND_TOWARD_ZERO:
+            return torch.trunc(scaled_abs)
+        if fmt.mode == ROUND_NEAREST_EVEN:
+            return torch.round(scaled_abs)
+        if fmt.mode == ROUND_DOWN:
+            return torch.where(neg, torch.ceil(scaled_abs),
+                               torch.floor(scaled_abs))
+        return torch.where(neg, torch.floor(scaled_abs),
+                           torch.ceil(scaled_abs))
+
+    if n <= 24:
+        mag = conv_mag(absx_c * (2.0 ** frac)).to(torch.int64)
+    else:
+        hi_scaled = absx_c * (2.0 ** (frac - 16))
+        hi = torch.trunc(hi_scaled)
+        lo = conv_mag((hi_scaled - hi) * 65536.0)
+        # add, not or: the low half may carry
+        mag = (hi.to(torch.int64) << 16) + lo.to(torch.int64)
+        if n == 31:
+            reach31 = (hi >= 32768.0) | ((hi == 32767.0) & (lo >= 65536.0))
+            mag = torch.where(reach31, torch.where(neg, 0, 2 ** 31 - 1), mag)
+    mag = torch.where(absx > maxf, sat_fixed, mag)
+    return sign, mag.to(torch.int32)
+
+
+def decode_sign_magnitude(sign: torch.Tensor, mag: torch.Tensor,
+                          fmt: QFormat) -> torch.Tensor:
+    """(sign, magnitude) -> float32: (float)mag / 2^frac with the sign
+    applied; the int32 rounds to float32 first, as in C."""
+    val = mag.to(torch.float32) * (2.0 ** -fmt.frac)
+    return torch.where(sign > 0, -val, val)
+
+
+# ---------------------------------------------------------------------------
+# Gray code helpers
+# ---------------------------------------------------------------------------
+
+def bin2gray(bin_val: torch.Tensor, idx_bit_low: int,
+             idx_bit_high: int) -> torch.Tensor:
+    """Binary -> Gray code over the bit range [idx_bit_low, idx_bit_high]
+    (inclusive), other bits zeroed: gray[high] = bin[high];
+    gray[i] = bin[i+1] ^ bin[i] for i in [low, high)."""
+    b = torch.as_tensor(bin_val, dtype=torch.int32)
+    gray = b & (1 << idx_bit_high)
+    for i in range(idx_bit_high - 1, idx_bit_low - 1, -1):
+        gray = gray | ((((b >> (i + 1)) ^ (b >> i)) & 1) << i)
+    return gray
+
+
+def gray2bin(gray_val: torch.Tensor, idx_bit_low: int,
+             idx_bit_high: int) -> torch.Tensor:
+    """Gray -> binary, the inverse of bin2gray: bin[high] = gray[high];
+    bin[i] = bin[i+1] ^ gray[i]."""
+    g = torch.as_tensor(gray_val, dtype=torch.int32)
+    binv = g & (1 << idx_bit_high)
+    for i in range(idx_bit_high - 1, idx_bit_low - 1, -1):
+        binv = binv | ((((binv >> (i + 1)) ^ (g >> i)) & 1) << i)
+    return binv

@@ -3,6 +3,9 @@ PyTorch version.  Sources live in ``qmann_tpu_torch/csrc/``."""
 from qmann_tpu_torch.ops.cuda.attention_read import (
     fused_read, fused_read_reference,
 )
+from qmann_tpu_torch.ops.cuda.hamming import (
+    hamming_score_kernel, hamming_score_reference,
+)
 from qmann_tpu_torch.ops.cuda.hop_chain import (
     fused_hop_chain, fused_hop_chain_reference,
 )
@@ -11,5 +14,6 @@ from qmann_tpu_torch.ops.cuda.qmatvec import (
 )
 
 __all__ = ["fused_hop_chain", "fused_hop_chain_reference", "fused_read",
-           "fused_read_reference", "quantized_matvec",
+           "fused_read_reference", "hamming_score_kernel",
+           "hamming_score_reference", "quantized_matvec",
            "quantized_matvec_reference"]

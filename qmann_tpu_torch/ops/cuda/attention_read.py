@@ -4,8 +4,11 @@ hand-written CUDA kernel for Hopper and its plain PyTorch version.
 Replaces the TPU kernel ``fused_attention_read_pallas``
 (``_fused_read_kernel``, ``qmann_tpu/ops/pallas/qkernels.py``), which the
 training forward runs once per hop under ``use_pallas``
-(``ops.fused.fused_attention_read``).  Attention modes 1 and 2; the mode-3
-Hamming score is not ported yet.
+(``ops.fused.fused_attention_read``).  Attention modes 1, 2 and 3: the
+mode-3 score is the Hamming similarity of the raw m and u at the
+full-width format of fmt_att (``ops.attention``), with the ``ham_*``
+knobs; the kernel computes it in its own body through
+``csrc/hamming.cuh``.
 
 The kernel source is ``qmann_tpu_torch/csrc/attention_read.cu``; its header
 says what bounds it on the card and what the design does about that.  It
@@ -26,7 +29,9 @@ from typing import Tuple
 import torch
 
 from qmann_tpu_torch.numerics import QFormat
+from qmann_tpu_torch.ops.attention import hamming_score_reference
 from qmann_tpu_torch.ops.cuda import _build
+from qmann_tpu_torch.ops.cuda.hamming import check_knobs
 from qmann_tpu_torch.ops.qlinear import qscore_forward, qweighted_sum_forward
 from qmann_tpu_torch.ops.softmax import masked_softmax
 
@@ -46,30 +51,41 @@ def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, "qmann_attention_read",
                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
 
 
-def _check_mode(attention_mode: int) -> None:
-    if attention_mode not in (1, 2):
-        raise NotImplementedError(
-            f"the attention read covers modes 1 and 2; mode "
-            f"{attention_mode} (the Hamming score) is not ported yet "
-            "(ROADMAP.md, Queue 2 item 3)")
+def _check_mode(attention_mode: int, fmt_att: QFormat, ham_num_bit: int,
+                ham_const_scale: int, ham_weight_para: int) -> None:
+    if attention_mode not in (1, 2, 3):
+        raise ValueError(f"the attention read covers modes 1, 2 and 3, not "
+                         f"mode {attention_mode}")
+    if attention_mode == 3:
+        check_knobs(fmt_att.iwl, ham_num_bit, ham_const_scale, fmt_att.mode,
+                    ham_weight_para)
 
 
 def fused_read_reference(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
                          mask: torch.Tensor, fmt_att: QFormat,
                          fmt_bin: QFormat, fmt_act: QFormat,
                          score_quantized: bool = True,
-                         sum_quantized: bool = True, attention_mode: int = 2):
+                         sum_quantized: bool = True, attention_mode: int = 2,
+                         ham_num_bit: int = 8, ham_const_scale: int = -3,
+                         ham_weight_para: int = 0, ham_weighted: bool = True):
     """The read in plain PyTorch, from the ported forwards.
 
     m, c [B, M, D]; u [B, D]; mask [B, M] (nonzero live) ->
     (o [B, D], p [B, M], scores [B, M]); the scores are returned raw
-    (before the mask), as the unfused path reports them."""
-    _check_mode(attention_mode)
+    (before the mask), as the unfused path reports them.  Mode 3 ignores
+    score_quantized."""
+    _check_mode(attention_mode, fmt_att, ham_num_bit, ham_const_scale,
+                ham_weight_para)
     live = mask != 0
-    scores = qscore_forward(m, u, fmt_att, fmt_bin, score_quantized)
+    if attention_mode == 3:
+        scores = hamming_score_reference(
+            m, u, fmt_att.iwl, ham_num_bit, ham_const_scale, fmt_att.mode,
+            ham_weight_para, ham_weighted)
+    else:
+        scores = qscore_forward(m, u, fmt_att, fmt_bin, score_quantized)
     p = masked_softmax(scores, live)
     o = qweighted_sum_forward(c, p, live.to(torch.float32), fmt_act,
                               sum_quantized)
@@ -79,13 +95,17 @@ def fused_read_reference(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
 def fused_read(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
                mask: torch.Tensor, fmt_att: QFormat, fmt_bin: QFormat,
                fmt_act: QFormat, score_quantized: bool = True,
-               sum_quantized: bool = True, attention_mode: int = 2):
+               sum_quantized: bool = True, attention_mode: int = 2,
+               ham_num_bit: int = 8, ham_const_scale: int = -3,
+               ham_weight_para: int = 0, ham_weighted: bool = True):
     """The read (same arguments and results as ``fused_read_reference``):
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    _check_mode(attention_mode)
+    ham = (ham_num_bit, ham_const_scale, ham_weight_para, ham_weighted)
+    _check_mode(attention_mode, fmt_att, *ham[:3])
     if m.device.type == "cpu":
         return fused_read_reference(m, c, u, mask, fmt_att, fmt_bin,
-                                    fmt_act, score_quantized, sum_quantized)
+                                    fmt_act, score_quantized, sum_quantized,
+                                    attention_mode, *ham)
     if m.device.type != "cuda":
         raise ValueError(f"fused_read: unsupported device {m.device}")
     if m.dim() != 3:
@@ -113,13 +133,15 @@ def fused_read(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
     s = torch.empty((B, M), dtype=torch.float32, device=m.device)
     fmts = (ctypes.c_int * 9)(*[v for f in (fmt_att, fmt_bin, fmt_act)
                                 for v in (f.iwl, f.frac, f.mode)])
+    knobs = (ctypes.c_int * 4)(*(int(v) for v in ham))
     lib = load_library()
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
         rc = lib.qmann_attention_read(
             m.data_ptr(), c.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
             o.data_ptr(), p.data_ptr(), s.data_ptr(), B, M, D, fmts,
-            int(score_quantized), int(sum_quantized), stream)
+            int(score_quantized), int(sum_quantized), attention_mode, knobs,
+            stream)
     if rc != 0:
         raise RuntimeError(
             f"attention_read kernel launch failed: CUDA error {rc}")

@@ -4,7 +4,10 @@ PyTorch version.
 Replaces the TPU kernel ``fused_hop_chain_pallas`` (``_fused_chain_kernel``,
 ``qmann_tpu/ops/pallas/qkernels.py``) on the serving path
 (``models.memn2n.forward_prepared`` with ``use_fused_chain``), attention
-mode 2 only; the mode-3 in-chain Hamming score is not ported yet.
+modes 2 and 3.  In mode 3 each hop scores the Hamming similarity of its
+requanted m and the raw current u (``ops.attention``) with the ``ham_*``
+knobs; the kernel computes it in its own body through
+``csrc/hamming.cuh``.
 
 The kernel source is ``qmann_tpu_torch/csrc/hop_chain.cu``; its header says
 what bounds it on the card and what the design does about that.  It is
@@ -26,9 +29,11 @@ from typing import Sequence, Tuple
 import torch
 
 from qmann_tpu_torch.numerics import QFormat, float_quant
+from qmann_tpu_torch.ops.attention import attention_score
 from qmann_tpu_torch.ops.cuda import _build
+from qmann_tpu_torch.ops.cuda.hamming import check_knobs
 from qmann_tpu_torch.ops.elementwise import activation, qsum
-from qmann_tpu_torch.ops.qlinear import qmatvec, qscore, qweighted_sum
+from qmann_tpu_torch.ops.qlinear import qmatvec, qweighted_sum
 from qmann_tpu_torch.ops.softmax import softmax
 
 SOURCE = _build.CSRC / "hop_chain.cu"
@@ -47,7 +52,19 @@ def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, "qmann_hop_chain",
                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+
+def _check_mode(attention_mode: int, fmts_att: Sequence[QFormat],
+                ham_num_bit: int, ham_const_scale: int,
+                ham_weight_para: int) -> None:
+    if attention_mode not in (2, 3):
+        raise ValueError(f"the chain covers attention modes 2 and 3, not "
+                         f"mode {attention_mode}")
+    if attention_mode == 3:
+        for f in fmts_att:
+            check_knobs(f.iwl, ham_num_bit, ham_const_scale, f.mode,
+                        ham_weight_para)
 
 
 def fused_hop_chain_reference(flat: torch.Tensor, u: torch.Tensor,
@@ -56,12 +73,18 @@ def fused_hop_chain_reference(flat: torch.Tensor, u: torch.Tensor,
                               fmts_att: Sequence[QFormat], fmt_bin: QFormat,
                               fmts_act: Sequence[QFormat],
                               linear_mapping: bool = True,
-                              non_linearity: bool = False):
+                              non_linearity: bool = False,
+                              attention_mode: int = 2, ham_num_bit: int = 8,
+                              ham_const_scale: int = -3,
+                              ham_weight_para: int = 0,
+                              ham_weighted: bool = True):
     """The chain in plain PyTorch, from the ported ops.
 
     flat [B, M, 2K*D] raw stacked-GEMM output; u [B, D] (quantized at
     fmt_w[0]); hmats [K, D, D] raw; mask [B, M] -> (u_final [B, D],
     p [K, B, M], scores [K, B, M])."""
+    _check_mode(attention_mode, fmts_att, ham_num_bit, ham_const_scale,
+                ham_weight_para)
     K = hmats.shape[0]
     D = u.shape[-1]
     live = mask != 0
@@ -70,7 +93,10 @@ def fused_hop_chain_reference(flat: torch.Tensor, u: torch.Tensor,
     for h in range(K):
         m = float_quant(flat[..., h * D:(h + 1) * D], fmts_w[h])
         c = float_quant(flat[..., (K + h) * D:(K + h + 1) * D], fmts_w[h])
-        s = qscore(m, u, fmts_att[h], fmt_bin)
+        s = attention_score(m, u, attention_mode, fmts_att[h], fmt_bin,
+                            num_bit=ham_num_bit, const_scale=ham_const_scale,
+                            hamming_weight_para=ham_weight_para,
+                            hamming_weighted=ham_weighted)
         p = softmax(s, live)
         o = qweighted_sum(c, p, live_f, fmts_act[h])
         u_m = qmatvec(hmats[h], u, fmts_w[h], fmt_bin) if linear_mapping else u
@@ -86,18 +112,19 @@ def fused_hop_chain(flat: torch.Tensor, u: torch.Tensor, hmats: torch.Tensor,
                     mask: torch.Tensor, fmts_w: Sequence[QFormat],
                     fmts_att: Sequence[QFormat], fmt_bin: QFormat,
                     fmts_act: Sequence[QFormat], linear_mapping: bool = True,
-                    non_linearity: bool = False, attention_mode: int = 2):
+                    non_linearity: bool = False, attention_mode: int = 2,
+                    ham_num_bit: int = 8, ham_const_scale: int = -3,
+                    ham_weight_para: int = 0, ham_weighted: bool = True):
     """The K-hop chain (same arguments and results as
     ``fused_hop_chain_reference``): the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    if attention_mode != 2:
-        raise NotImplementedError(
-            "the chain kernel covers attention mode 2; the mode-3 in-chain "
-            "Hamming score is not ported yet (ROADMAP.md, Queue 2)")
+    ham = (ham_num_bit, ham_const_scale, ham_weight_para, ham_weighted)
+    _check_mode(attention_mode, fmts_att, *ham[:3])
     if flat.device.type == "cpu":
         return fused_hop_chain_reference(flat, u, hmats, mask, fmts_w,
                                          fmts_att, fmt_bin, fmts_act,
-                                         linear_mapping, non_linearity)
+                                         linear_mapping, non_linearity,
+                                         attention_mode, *ham)
     if flat.device.type != "cuda":
         raise ValueError(f"fused_hop_chain: unsupported device {flat.device}")
     B, M, KD2 = flat.shape
@@ -130,6 +157,7 @@ def fused_hop_chain(flat: torch.Tensor, u: torch.Tensor, hmats: torch.Tensor,
     slots = [*fmts_w, *fmts_att, *fmts_act, fmt_bin]
     fmts = (ctypes.c_int * (3 * len(slots)))(
         *[v for f in slots for v in (f.iwl, f.frac, f.mode)])
+    knobs = (ctypes.c_int * 4)(*(int(v) for v in ham))
     lib = load_library()
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
@@ -137,7 +165,7 @@ def fused_hop_chain(flat: torch.Tensor, u: torch.Tensor, hmats: torch.Tensor,
             flat.data_ptr(), u.data_ptr(), hmats.data_ptr(),
             mask_i.data_ptr(), u_out.data_ptr(), p.data_ptr(), s.data_ptr(),
             B, M, D, K, fmts, int(linear_mapping), int(non_linearity),
-            stream)
+            attention_mode, knobs, stream)
     if rc != 0:
         raise RuntimeError(f"hop_chain kernel launch failed: CUDA error {rc}")
     fused_hop_chain.launches += 1

@@ -117,7 +117,10 @@ def train_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
         loss, met = memn2n.loss_and_metrics(
             params, batch["memory"], batch["question"], batch["answer"],
             batch["mask"], batch["sample_mask"], cfg, remove_softmax)
-        grads = torch.autograd.grad(loss, leaves)
+        # a weight that no gradient reaches (A in attention mode 4, whose
+        # binarized score passes none) gets zeros, as under jax.grad
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
     finally:
         for t in leaves:
             t.requires_grad_(False)

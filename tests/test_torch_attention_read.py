@@ -3,26 +3,31 @@ fused_attention_read_pallas (interpret mode), and the wrapper's CPU
 dispatch.  The CUDA kernel against the plain version is
 tests/test_torch_cuda.py.
 
-Tolerances.  Mode 2: the scores sit on the exact lattice and are
-bit-identical; p within atol 1e-6, because exp and the softmax sum differ
-by an ulp between torch and XLA; o bit-identical in every query where no
-Q(p, act) requant flipped, and at most one query may flip.  Mode 1 (float
-dot and float weighted sum, summed in another order): rtol 1e-5,
-atol 1e-6.
+Tolerances.  Modes 2 and 3: the scores sit on an exact grid (the lattice,
+or the Hamming terms) and are bit-identical; p within atol 1e-6, because
+exp and the softmax sum differ by an ulp between torch and XLA; o
+bit-identical in every query where no Q(p, act) requant flipped, and at
+most one query may flip.  Mode 1 (float dot and float weighted sum, summed
+in another order): rtol 1e-5, atol 1e-6.  The mode-3 fused op's gradients
+against JAX's: rtol 1e-5, atol 1e-6 (the softmax and weighted-sum
+backwards sum in another order).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from qmann_tpu.numerics import QFormat as JQ  # noqa: E402
+from qmann_tpu.ops.fused import fused_attention_read as j_fused  # noqa: E402
 from qmann_tpu.ops.pallas.qkernels import (  # noqa: E402
     fused_attention_read_pallas,
 )
 from qmann_tpu_torch.numerics import QFormat, float_quant  # noqa: E402
 from qmann_tpu_torch.ops.cuda import attention_read as ar  # noqa: E402
+from qmann_tpu_torch.ops.fused import fused_attention_read  # noqa: E402
 
 
 def _inputs(rng, B, M, D, fmt_w=None, sd=1.5):
@@ -40,30 +45,26 @@ def _inputs(rng, B, M, D, fmt_w=None, sd=1.5):
     return m, c, u, mask
 
 
-def _both(m, c, u, mask, fmts, quantized):
+def _both(m, c, u, mask, fmts, quantized, mode=None):
     fa, fb, fc = fmts
+    mode = mode or (2 if quantized else 1)
     want = fused_attention_read_pallas(
         jnp.asarray(m), jnp.asarray(c), jnp.asarray(u), jnp.asarray(mask),
-        JQ(*fa), JQ(*fb), JQ(*fc), score_quantized=quantized,
-        sum_quantized=quantized, interpret=True)
+        JQ(*fa), JQ(*fb), JQ(*fc), score_quantized=mode == 2,
+        sum_quantized=quantized, interpret=True, attention_mode=mode)
     got = ar.fused_read_reference(
         torch.from_numpy(m), torch.from_numpy(c), torch.from_numpy(u),
         torch.from_numpy(mask).to(torch.float32), QFormat(*fa), QFormat(*fb),
-        QFormat(*fc), score_quantized=quantized, sum_quantized=quantized,
-        attention_mode=2 if quantized else 1)
+        QFormat(*fc), score_quantized=mode == 2, sum_quantized=quantized,
+        attention_mode=mode)
     return [np.array(a) for a in want], [t.numpy() for t in got]
 
 
-@pytest.mark.parametrize("fmts", [((5, 2), (5, 2), (5, 2)),
-                                  ((2, 5), (2, 5), (2, 5)),
-                                  ((5, 2), (5, 2), (0, 0))])
-@pytest.mark.parametrize("B,M,D", [(7, 6, 10), (12, 10, 60)])
-def test_mode2_plain_matches_pallas_kernel(rng, fmts, B, M, D):
-    m, c, u, mask = _inputs(rng, B, M, D, QFormat(6, 1))
-    (o_w, p_w, s_w), (o_g, p_g, s_g) = _both(m, c, u, mask, fmts, True)
+def _check_quantized(want, got, fc):
+    """The module docstring's mode-2/3 tolerances."""
+    (o_w, p_w, s_w), (o_g, p_g, s_g) = want, got
     np.testing.assert_array_equal(s_g, s_w)
     np.testing.assert_allclose(p_g, p_w, rtol=0, atol=1e-6)
-    fc = QFormat(*fmts[2])
     flipped = (float_quant(torch.from_numpy(p_g), fc).numpy()
                != float_quant(torch.from_numpy(p_w), fc).numpy()).any(-1)
     assert flipped.sum() <= 1
@@ -72,6 +73,26 @@ def test_mode2_plain_matches_pallas_kernel(rng, fmts, B, M, D):
     assert (p_g[-2:] == 0).all() and np.isfinite(o_g).all()
     np.testing.assert_array_equal(
         o_g[-2:], float_quant(torch.zeros(o_g[-2:].shape), fc).numpy())
+
+
+@pytest.mark.parametrize("fmts", [((5, 2), (5, 2), (5, 2)),
+                                  ((2, 5), (2, 5), (2, 5)),
+                                  ((5, 2), (5, 2), (0, 0))])
+@pytest.mark.parametrize("B,M,D", [(7, 6, 10), (12, 10, 60)])
+def test_mode2_plain_matches_pallas_kernel(rng, fmts, B, M, D):
+    m, c, u, mask = _inputs(rng, B, M, D, QFormat(6, 1))
+    want, got = _both(m, c, u, mask, fmts, True)
+    _check_quantized(want, got, QFormat(*fmts[2]))
+
+
+@pytest.mark.parametrize("fmt", [(2, 5), (5, 2), (1, 6), (0, 7)])
+@pytest.mark.parametrize("B,M,D", [(7, 6, 10), (12, 10, 60)])
+def test_mode3_plain_matches_pallas_kernel(rng, fmt, B, M, D):
+    """The Hamming score on the raw m and u (the embeddings at the
+    format's own grid, with values past its range), the default knobs."""
+    m, c, u, mask = _inputs(rng, B, M, D, QFormat(*fmt), sd=0.8 * 2 ** fmt[0])
+    want, got = _both(m, c, u, mask, (fmt,) * 3, True, mode=3)
+    _check_quantized(want, got, QFormat(*fmt))
 
 
 @pytest.mark.parametrize("B,M,D", [(7, 6, 10), (12, 10, 60)])
@@ -102,8 +123,55 @@ def test_wrapper_on_cpu_never_builds(rng, monkeypatch):
 
 
 def test_mode_3_raises(rng):
+    """Mode 3 raises on knobs outside the Hamming kernel's ranges, on
+    every device; a mode the read does not cover raises too."""
     m, c, u, mask = (torch.from_numpy(a) for a in _inputs(rng, 3, 4, 6))
     fmt = QFormat(2, 5)
     for fn in (ar.fused_read, ar.fused_read_reference):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(m, c, u, mask, fmt, fmt, fmt, attention_mode=3)
+        for knobs in (dict(ham_num_bit=0), dict(ham_num_bit=33),
+                      dict(ham_weight_para=40)):
+            with pytest.raises(ValueError, match="num_bit in"):
+                fn(m, c, u, mask, fmt, fmt, fmt, attention_mode=3, **knobs)
+        with pytest.raises(ValueError, match="modes 1, 2 and 3"):
+            fn(m, c, u, mask, fmt, fmt, fmt, attention_mode=4)
+
+
+@pytest.mark.parametrize("sum_gq,used", [(False, None), (True, None),
+                                         (True, (0,)), (False, (0, 2))])
+@pytest.mark.parametrize("fmt", [(1, 6), (5, 2)])
+def test_mode3_fused_grads_match_jax(rng, fmt, sum_gq, used):
+    """d/d(m, c, u) of sum_k sum(out_k * ct_k) over the outputs in
+    ``used`` (all by default; torch hands the backward None for the
+    others): the weighted-sum backward (quantized contractions under
+    sum_grad_quantized), the softmax backward, the Hamming surrogate."""
+    B, M, D = 6, 5, 8
+    m, c, u, mask = _inputs(rng, B, M, D, sd=0.8 * 2 ** fmt[0])
+    mask_f = mask.astype(np.float32)
+    kw = dict(score_quantized=False, sum_quantized=True, attention_mode=3,
+              sum_grad_quantized=sum_gq)
+    outs = jax.eval_shape(
+        lambda: j_fused(jnp.asarray(m), jnp.asarray(c), jnp.asarray(u),
+                        jnp.asarray(mask_f), JQ(*fmt), JQ(*fmt), JQ(*fmt),
+                        interpret=True, **kw))
+    used = range(3) if used is None else used
+    cts = {k: rng.normal(0.0, 1.0, outs[k].shape).astype(np.float32)
+           for k in used}
+
+    def jloss(m_, c_, u_):
+        out = j_fused(m_, c_, u_, jnp.asarray(mask_f), JQ(*fmt), JQ(*fmt),
+                      JQ(*fmt), interpret=True, **kw)
+        return sum(jnp.sum(out[k] * cts[k]) for k in used)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(m), jnp.asarray(c), jnp.asarray(u))
+    tin = [torch.tensor(a, requires_grad=True) for a in (m, c, u)]
+    out = fused_attention_read(*tin, torch.from_numpy(mask_f),
+                               QFormat(*fmt), QFormat(*fmt), QFormat(*fmt),
+                               **kw)
+    loss = sum((out[k] * torch.from_numpy(cts[k])).sum() for k in used)
+    got = torch.autograd.grad(loss, tin)
+    for g, w, name in zip(got, want, ("dm", "dc", "du")):
+        g, w = g.numpy(), np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=name)
+        assert np.isfinite(g).all()
+    assert np.abs(got[0].numpy()).max() > 0     # the surrogate reaches m

@@ -2,11 +2,14 @@
 (interpret mode), and the wrapper's CPU dispatch.  The CUDA kernel against
 the plain version is tests/test_torch_cuda.py.
 
-Tolerances: every lattice sum is exact, so hop 0's scores are
-bit-identical.  The softmax's exp differs by an ulp between torch and XLA,
-so p is held to atol 1e-6; a later hop can then differ only where a
-Q(p, act) requant flipped, and every query without such a flip must match
-bit for bit in all scores and in u_final.
+Tolerances: every lattice sum and every Hamming row sum is exact, so hop
+0's scores are bit-identical (modes 2 and 3).  The softmax's exp differs by
+an ulp between torch and XLA, so p is held to atol 1e-6; a later hop can
+then differ only where a Q(p, act) requant flipped, and every query without
+such a flip must match bit for bit in all scores and in u_final.  Through
+forward_prepared, the float output layer sums in another order: logits of
+the queries without a flip within rtol 1e-5, atol 1e-5, and their
+predictions equal.
 """
 import numpy as np
 import pytest
@@ -42,7 +45,7 @@ def _chain_inputs(rng, tying, B=7, M=5, D=8, K=3, I=17, scale=0.6):
     return cfg, flat, u, hm, mask
 
 
-def _run_both(cfg, flat, u, hm, mask, linmap, relu):
+def _run_both(cfg, flat, u, hm, mask, linmap, relu, mode=2):
     from jax.experimental.pallas import tpu as pltpu
     from qmann_tpu.config import QmannConfig as JaxConfig
     from qmann_tpu.ops.pallas.qkernels import fused_hop_chain_pallas
@@ -51,12 +54,24 @@ def _run_both(cfg, flat, u, hm, mask, linmap, relu):
         want = fused_hop_chain_pallas(
             jnp.asarray(flat), jnp.asarray(u), jnp.asarray(hm),
             jnp.asarray(mask), jcfg.fmt_w, jcfg.fmt_att, jcfg.fmt_bin,
-            jcfg.fmt_act, linear_mapping=linmap, non_linearity=relu)
+            jcfg.fmt_act, linear_mapping=linmap, non_linearity=relu,
+            attention_mode=mode, ham_num_bit=jcfg.num_bits_attention)
     got = hop_chain.fused_hop_chain_reference(
         torch.from_numpy(flat), torch.from_numpy(u), torch.from_numpy(hm),
         torch.from_numpy(mask), cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
-        cfg.fmt_act, linear_mapping=linmap, non_linearity=relu)
+        cfg.fmt_act, linear_mapping=linmap, non_linearity=relu,
+        attention_mode=mode, ham_num_bit=cfg.num_bits_attention)
     return ([np.array(a) for a in want], [t.numpy() for t in got])
+
+
+def _flips(cfg, p_w, p_g):
+    """The queries in which some hop's Q(p, act) requant differs."""
+    flipped = np.zeros(p_w.shape[1], bool)
+    for h, fmt in enumerate(cfg.fmt_act):
+        qw = float_quant(torch.from_numpy(p_w[h]), fmt).numpy()
+        qg = float_quant(torch.from_numpy(p_g[h]), fmt).numpy()
+        flipped |= (qw != qg).any(-1)
+    return flipped
 
 
 def _check_chain(cfg, want, got, B):
@@ -64,15 +79,10 @@ def _check_chain(cfg, want, got, B):
     (u_w, p_w, s_w), (u_g, p_g, s_g) = want, got
     np.testing.assert_array_equal(s_g[0], s_w[0])
     np.testing.assert_allclose(p_g, p_w, rtol=0, atol=1e-6)
-    flipped = np.zeros(B, bool)
-    for h, fmt in enumerate(cfg.fmt_act):
-        qw = float_quant(torch.from_numpy(p_w[h]), fmt).numpy()
-        qg = float_quant(torch.from_numpy(p_g[h]), fmt).numpy()
-        flipped |= (qw != qg).any(-1)
-    ok = ~flipped
+    ok = ~_flips(cfg, p_w, p_g)
     np.testing.assert_array_equal(s_g[:, ok], s_w[:, ok])
     np.testing.assert_array_equal(u_g[ok], u_w[ok])
-    return int(flipped.sum())
+    return B - int(ok.sum())
 
 
 @pytest.mark.parametrize("relu", [False, True])
@@ -85,6 +95,72 @@ def test_chain_reference_matches_jax_kernel(rng, tying, linmap, relu):
     flips = _check_chain(cfg, want, got, B)
     print(f"queries with a flipped Q(p, act): {flips} of {B}")
     assert flips <= 1
+
+
+# the mode-3 rows (tying, linmap, relu) of test_pallas.py's chain grid
+MODE3_ROWS = [(2, True, False), (1, False, False)]
+
+
+@pytest.mark.parametrize("tying,linmap,relu", MODE3_ROWS)
+def test_mode3_chain_reference_matches_jax_kernel(rng, tying, linmap, relu):
+    """The in-chain Hamming score on the requanted m and the raw current
+    u, at the config's num_bit (8)."""
+    B = 7
+    cfg, flat, u, hm, mask = _chain_inputs(rng, tying, B=B)
+    want, got = _run_both(cfg, flat, u, hm, mask, linmap, relu, mode=3)
+    assert _check_chain(cfg, want, got, B) <= 1
+
+
+@pytest.mark.parametrize("tying,linmap,relu", MODE3_ROWS)
+def test_mode3_forward_prepared_matches_jax(rng, tying, linmap, relu):
+    """forward_prepared with use_fused_chain (the chain route) against
+    JAX's, in interpret mode, on test_pallas.py's set-up: weights x6,
+    B=7, partial masks."""
+    import jax
+    from jax.experimental.pallas import tpu as pltpu
+    from qmann_tpu.config import QmannConfig as JaxConfig
+    from qmann_tpu.models import memn2n as jmodel
+    from qmann_tpu_torch.data import DataDims
+    from qmann_tpu_torch.models import memn2n
+    kw = dict(dim_emb=8, num_hops=3, verbose=False, type_weight_tying=tying,
+              attention_mode=3, en_linear_mapping=linmap,
+              en_non_linearity=relu, use_fused_chain=True)
+    jcfg, cfg = JaxConfig(**kw), QmannConfig(**kw)
+    dims = DataDims(dim_dict=12, max_line=5, max_word=5, dim_word=6,
+                    dim_input=17)
+    pj = {k: np.asarray(v) * np.float32(6.0) for k, v in
+          jmodel.init_params(jcfg, dims, jax.random.PRNGKey(1)).items()}
+    B = 7
+    mem = rng.integers(0, 3, (B, 5, 17)).astype(np.float32)
+    que = rng.integers(0, 3, (B, 17)).astype(np.float32)
+    mask = np.arange(5)[None, :] < rng.integers(1, 6, B)[:, None]
+    mem = mem * mask[:, :, None]
+    bounds = dict(max_count=6.0, max_rowsum=6.0)
+    jprep = jmodel.prepare_inference({k: jnp.asarray(v) for k, v in
+                                      pj.items()}, jcfg, **bounds)
+    prep = memn2n.prepare_inference(
+        memn2n.params_from_jax(pj, cfg, device="cpu"), cfg, **bounds)
+    assert prep.fast and jprep.fast
+    with pltpu.force_tpu_interpret_mode():
+        want = jmodel.forward_prepared(jprep, jnp.asarray(mem),
+                                       jnp.asarray(que), jnp.asarray(mask),
+                                       jcfg)
+    before = hop_chain.fused_hop_chain.launches
+    got = memn2n.forward_prepared(prep, torch.from_numpy(mem),
+                                  torch.from_numpy(que),
+                                  torch.from_numpy(mask), cfg)
+    assert hop_chain.fused_hop_chain.launches == before   # CPU: plain chain
+    p_w, p_g = np.array(want.attention), got.attention.numpy()
+    s_w, s_g = np.array(want.scores), got.scores.numpy()
+    np.testing.assert_array_equal(s_g[0], s_w[0])
+    np.testing.assert_allclose(p_g, p_w, rtol=0, atol=1e-6)
+    ok = ~_flips(cfg, p_w, p_g)
+    assert ok.sum() >= B - 1
+    np.testing.assert_array_equal(s_g[:, ok], s_w[:, ok])
+    lw, lg = np.array(want.logits), got.logits.numpy()
+    np.testing.assert_allclose(lg[ok], lw[ok], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(lg[ok].argmax(-1), lw[ok].argmax(-1))
+    assert np.isfinite(lg).all()
 
 
 def test_wrapper_on_cpu_never_builds(rng, monkeypatch):
@@ -105,9 +181,16 @@ def test_wrapper_on_cpu_never_builds(rng, monkeypatch):
 
 
 def test_wrapper_raises_on_mode_3(rng):
+    """Mode 3 raises on Hamming knobs outside the kernel's ranges, on
+    every device; a mode the chain does not cover raises too."""
     cfg, flat, u, hm, mask = _chain_inputs(rng, 2)
-    with pytest.raises(NotImplementedError, match="mode 2"):
-        hop_chain.fused_hop_chain(
-            torch.from_numpy(flat), torch.from_numpy(u), torch.from_numpy(hm),
+    args = (torch.from_numpy(flat), torch.from_numpy(u), torch.from_numpy(hm),
             torch.from_numpy(mask), cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
-            cfg.fmt_act, attention_mode=3)
+            cfg.fmt_act)
+    for fn in (hop_chain.fused_hop_chain,
+               hop_chain.fused_hop_chain_reference):
+        for knobs in (dict(ham_num_bit=0), dict(ham_const_scale=-65)):
+            with pytest.raises(ValueError, match="num_bit in"):
+                fn(*args, attention_mode=3, **knobs)
+        with pytest.raises(ValueError, match="modes 2 and 3"):
+            fn(*args, attention_mode=1)

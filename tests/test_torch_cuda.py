@@ -12,8 +12,10 @@ Q(p, act) requant, and every other query bit-identical in all scores and in
 u_final.  qmatvec: bit-identical (exact lattice sums).  Mode-2 attention
 read: scores bit-identical, p within atol 1e-6, o bit-identical but for at
 most one flipped query.  Mode-1 read: rtol 1e-5, atol 1e-6 (float sums in
-another order).  One SGD step, kernel route against plain route: rtol 1e-5,
-atol 1e-6.
+another order).  Hamming score kernel: bit-identical (integer work and
+exact sums), on random inputs and on the encode's edge list.  Mode-3 read
+and chain: as mode 2.  One SGD step, kernel route against plain route:
+rtol 1e-5, atol 1e-6.
 """
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from qmann_tpu_torch.numerics import float_quant  # noqa: E402
 from qmann_tpu_torch.ops import exact_matmul  # noqa: E402
 from qmann_tpu_torch.numerics import QFormat  # noqa: E402
 from qmann_tpu_torch.ops.cuda import attention_read as ar  # noqa: E402
+from qmann_tpu_torch.ops.cuda import hamming as ham  # noqa: E402
 from qmann_tpu_torch.ops.cuda import hop_chain  # noqa: E402
 from qmann_tpu_torch.ops.cuda import qmatvec as qmv  # noqa: E402
 from qmann_tpu_torch.ops.qlinear import (  # noqa: E402
@@ -184,10 +187,10 @@ def test_training_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="shapes"):
         ar.fused_read(m, m, torch.zeros((4, 7), device=cuda),
                       torch.ones((4, 6), device=cuda), fmt, fmt, fmt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="num_bit in"):
         ar.fused_read(m, m, torch.zeros((4, 8), device=cuda),
                       torch.ones((4, 6), device=cuda), fmt, fmt, fmt,
-                      attention_mode=3)
+                      attention_mode=3, ham_num_bit=33)
 
 
 @pytest.mark.cuda
@@ -218,3 +221,151 @@ def test_train_step_kernel_route_matches_plain_route(cuda):
         torch.testing.assert_close(after[0][k], after[1][k], rtol=1e-5,
                                    atol=1e-6)
         assert not torch.equal(after[0][k], base[k])
+
+
+# ---------------------------------------------------------------------------
+# attention mode 3: the Hamming score kernel, and the read and chain kernels'
+# mode-3 branches
+# ---------------------------------------------------------------------------
+
+def ham_edge_values(iwl):
+    """0, -0.0, +-2^iwl, +-maxf, the next float above maxf, +-1e30, a value
+    whose low half carries under ROUND_UP, tiny values."""
+    maxf = np.float32(2.0 ** iwl)
+    above = np.nextafter(maxf, np.float32(np.inf))
+    carry = np.float32(65535.5 * 2.0 ** -(31 - iwl))
+    return np.array([0.0, -0.0, maxf, -maxf, above, -above, 1e30, -1e30,
+                     carry, -carry, 1e-7, -3e-9], np.float32)
+
+
+def ham_inputs(iwl, B, M, D, seed=0):
+    """Gaussian m, u at the format's range; the first sample pairs the edge
+    list with itself and with its negation (every sign and wrap case)."""
+    rng = np.random.default_rng(seed)
+    m = rng.normal(0.0, 0.6 * 2.0 ** iwl, (B, M, D)).astype(np.float32)
+    u = rng.normal(0.0, 0.6 * 2.0 ** iwl, (B, D)).astype(np.float32)
+    e = ham_edge_values(iwl)[:D]
+    for r in range(min(M, len(e))):
+        m[0, r, :len(e)] = np.roll(e, r)
+    u[0, :len(e)] = -e
+    return m, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_para,weighted", [(0, True), (-1, True),
+                                                  (0, False)])
+@pytest.mark.parametrize("iwl", [0, 1, 5])
+@pytest.mark.parametrize("B,M,D", [(32, 10, 60), (1024, 10, 60),
+                                   (32, 50, 60)])
+def test_hamming_kernel_matches_plain(cuda, B, M, D, iwl, weight_para,
+                                      weighted):
+    m, u = (torch.from_numpy(a).to(cuda) for a in ham_inputs(iwl, B, M, D))
+    for mode, nb in ((3, 8), (1, 8), (0, 12), (2, 16)):
+        args = (m, u, iwl, nb, -3, mode, weight_para, weighted)
+        before = ham.hamming_score_kernel.launches
+        got = ham.hamming_score_kernel(*args)
+        want = ham.hamming_score_reference(*args)
+        torch.cuda.synchronize()
+        assert ham.hamming_score_kernel.launches == before + 1
+        assert torch.equal(got, want), (mode, nb)
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_rejects_what_it_cannot_take(cuda):
+    m = torch.zeros((4, 6, 8), device=cuda)
+    u = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="num_bit in"):
+        ham.hamming_score_kernel(m, u, 1, 33)
+    with pytest.raises(ValueError, match="num_bit in"):
+        ham.hamming_score_kernel(m, u, 32, 8)
+    with pytest.raises(ValueError, match="shapes"):
+        ham.hamming_score_kernel(m, u[:, :7], 1, 8)
+    with pytest.raises(TypeError, match="float32"):
+        ham.hamming_score_kernel(m.double(), u, 1, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iwl", [1, 5])
+@pytest.mark.parametrize("V,M,W,B", [(19, 10, 6, 32), (19, 10, 6, 1024),
+                                     (64, 50, 7, 32)])
+def test_attention_read_mode3_matches_plain(cuda, V, M, W, B, iwl):
+    cfg, params, mem, que, mask, _ = _training_inputs(V, M, W, B, cuda)
+    cfg = cfg.replace(iwl=iwl, attention_mode=3)
+    m = qembed_mat_forward(mem, params["A"], cfg.fmt_w[0])
+    c = qembed_mat_forward(mem, params["C"], cfg.fmt_w[0])
+    u = qmatvec_forward(params["B"], que, cfg.fmt_w[0], cfg.fmt_w[0])
+    fmt_act = cfg.fmt_act[0]
+    args = (m, c, u, mask.to(torch.float32), cfg.fmt_att[0], cfg.fmt_bin,
+            fmt_act, False, True, 3, cfg.num_bits_attention)
+    before = ar.fused_read.launches
+    o_g, p_g, s_g = ar.fused_read(*args)
+    o_w, p_w, s_w = ar.fused_read_reference(*args)
+    torch.cuda.synchronize()
+    assert ar.fused_read.launches == before + 1
+    assert torch.equal(s_g, s_w)
+    torch.testing.assert_close(p_g, p_w, rtol=0, atol=1e-6)
+    flipped = (float_quant(p_g, fmt_act) != float_quant(p_w, fmt_act)).any(-1)
+    assert int(flipped.sum()) <= 1
+    assert torch.equal(o_g[~flipped], o_w[~flipped])
+    assert (p_g[-3:] == 0).all()
+    assert torch.equal(o_g[-3:], float_quant(torch.zeros_like(o_g[-3:]),
+                                             fmt_act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"type_weight_tying": 1}])
+@pytest.mark.parametrize("V,M,W", [(19, 10, 6), (64, 50, 7)])
+def test_chain_kernel_mode3_matches_plain(cuda, V, M, W, kw):
+    cfg = QmannConfig(use_fused_chain=True, attention_mode=3, **kw)
+    args = _chain_args(cfg, V, M, W, 1000, cuda)
+    flags = dict(linear_mapping=cfg.en_linear_mapping,
+                 non_linearity=cfg.en_non_linearity, attention_mode=3,
+                 ham_num_bit=cfg.num_bits_attention)
+    u_g, p_g, s_g = hop_chain.fused_hop_chain(*args, **flags)
+    u_w, p_w, s_w = hop_chain.fused_hop_chain_reference(*args, **flags)
+    torch.cuda.synchronize()
+    assert torch.equal(s_g[0], s_w[0])
+    torch.testing.assert_close(p_g, p_w, rtol=0, atol=1e-6)
+    flipped = torch.zeros(u_g.shape[0], dtype=torch.bool, device=cuda)
+    for h, fmt in enumerate(cfg.fmt_act):
+        flipped |= (float_quant(p_g[h], fmt) != float_quant(p_w[h], fmt)).any(-1)
+    assert int(flipped.sum()) <= 1
+    assert torch.equal(s_g[:, ~flipped], s_w[:, ~flipped])
+    assert torch.equal(u_g[~flipped], u_w[~flipped])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,launches", [
+    ({"use_pallas": True}, (10, 3, 0)),
+    ({"use_pallas_hamming": True}, (0, 0, 3)),
+    ({"use_pallas": True, "en_grad_quant": True}, (10, 0, 3))])
+def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
+                                                          launches):
+    """One SGD step at iwl 1, mode 3, on a partial batch: the kernel routes
+    launch the lattice, the mode-3 read or the Hamming kernel as many
+    times as a step runs them, and agree with plain PyTorch."""
+    from qmann_tpu_torch.data import synthetic_task
+    from qmann_tpu_torch.train import train_step
+    from qmann_tpu_torch.train.trainer import _batched_arrays
+    data = synthetic_task(np.random.default_rng(0), 40, 1, 1, 19, 10, 6)
+    cfg = QmannConfig(iwl=1, attention_mode=3)
+    batch = {k: torch.as_tensor(v[1]).to(cuda)
+             for k, v in _batched_arrays(data.train, 32).items()}
+    base = {k: 4.0 * v for k, v in memn2n.init_params(
+        cfg, data.dims, torch.Generator().manual_seed(0), device=cuda).items()}
+    lr = torch.tensor(0.3, device=cuda)
+    after = []
+    for route in (cfg.replace(**extra), cfg):
+        params = {k: v.clone() for k, v in base.items()}
+        counters = (qmv.quantized_matvec, ar.fused_read,
+                    ham.hamming_score_kernel)
+        before = [f.launches for f in counters]
+        cost, _ = train_step(params, batch, lr, route)
+        launched = tuple(f.launches - b for f, b in zip(counters, before))
+        assert launched == (launches if route is not cfg else (0, 0, 0))
+        assert torch.isfinite(cost)
+        after.append(params)
+    for k in base:
+        torch.testing.assert_close(after[0][k], after[1][k], rtol=1e-5,
+                                   atol=1e-6)
+    assert not torch.equal(after[0]["A"], base["A"])

@@ -165,6 +165,8 @@ def test_port_never_imports_jax():
             "qmann_tpu_torch.ops.cuda._build",
             "qmann_tpu_torch.ops.cuda.qmatvec",
             "qmann_tpu_torch.ops.cuda.attention_read",
+            "qmann_tpu_torch.ops.attention",
+            "qmann_tpu_torch.ops.cuda.hamming",
             "qmann_tpu_torch.train.optim",
             "qmann_tpu_torch.train.trainer"} <= names
     roots = _imported_roots(REPO / "chip_smoke.py")

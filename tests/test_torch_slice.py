@@ -155,7 +155,7 @@ def test_init_params_layout():
     assert 0.05 < float(p["A"].std()) < 0.15
 
 
-@pytest.mark.parametrize("kw", [dict(attention_mode=3), dict(en_sc_att=True),
+@pytest.mark.parametrize("kw", [dict(en_att_clip=True), dict(en_sc_att=True),
                                 dict(en_shift_based_sm=True),
                                 dict(en_exp_table_based=True),
                                 dict(en_cosine_sim=True),
