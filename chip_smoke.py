@@ -11,19 +11,27 @@ Phases, one line each; any failure exits non-zero:
                nvcc per source, all started together
   3. kernel  — the hop-chain kernel against its plain PyTorch version, both
                on the card, at the flagship shape (B=1000, M=10, I=29, D=60,
-               K=3, EN_MQ formats) and the wide layout (M=50, I=114)
+               K=3, EN_MQ formats) and the wide layout (M=50, I=114), at
+               each of the four rounding modes (the kernel fixes the mode
+               at compile time: one instance per mode); the launch on the
+               Q(H) that prepare_inference caches (the serving path's,
+               requant skipped) equals the launch on raw H bit for bit
   4. slice   — an InferenceEngine on cuda:0 answers ~100 synthetic
                qa1-shaped requests over several waves; every answer equals
                the plain route's, and the chain kernel must have launched
   5. times   — forward_prepared on 1000-query batches, kernel route and
-               plain route, and the kernel alone against the plain chain
-               (CUDA events, median of 7 samples)
+               plain route, and the kernel alone against the plain chain:
+               the serving path's launch on the cached Q(H), which the
+               kernels line reports, and the launch on raw H (CUDA events,
+               median of 7 samples; the profiler's device time)
   6. train-kernels — the qmatvec and attention-read kernels against their
                plain versions on the card, at the flagship training shape
                (B=32, M=10, I=29, D=60, EN_MQ formats; the 2K embeddings
                take B*M rows), the eval chunk (B=1024) and the wide layout
-               (M=50, I=114); the last samples of each batch have no live
-               memory row, as the padded samples of a partial batch
+               (M=50, I=114); qmatvec at each of the four rounding modes,
+               with binary fmt_w and binary fmt_x too; the last samples of
+               each batch have no live memory row, as the padded samples of
+               a partial batch
   7. train   — train_task on cuda:0 (use_pallas=True) for 2 epochs on a
                synthetic_task of 1000/100/100 qa1-shaped stories
                (1000 = 31*32 + 8: a last partial batch); 10 qmatvec and 3
@@ -33,8 +41,9 @@ Phases, one line each; any failure exits non-zero:
                the partial one) agrees; prints both routes' histories
   8. train-times — one training step (forward + backward + SGD) at B=32 on
                each route, each new kernel and its plain version at B=32 and
-               B=1024 (CUDA events, median of 7), and the profiler's device
-               busy time and idle share of a step
+               B=1024 (CUDA events, median of 7; qmatvec at B=1024 is the
+               10240-row eval chunk), and the profiler's device busy time
+               and idle share of a step
 Attention mode 3 (the Hamming attention):
   9. mode3-kernels — the Hamming score kernel against its plain version at
                B=32 and B=1024 (M=10, D=60) and the wide layout (M=50), at
@@ -42,7 +51,8 @@ Attention mode 3 (the Hamming attention):
                variants, on inputs that hold the encode's edge list; the
                read kernel in mode 3 at iwl 1 at the training, eval-chunk
                and wide shapes with padded samples; the chain kernel in
-               mode 3 at iwl 5, B=1000, flagship and wide
+               mode 3 at iwl 5, B=1000, flagship and wide, at each of the
+               four rounding modes
  10. mode3-serve — an engine at iwl 5 with use_fused_chain answers ~100
                requests through the chain kernel; an engine at iwl 1 with
                use_pallas leaves the exact route and runs 10 qmatvec and 3
@@ -56,7 +66,8 @@ Attention mode 3 (the Hamming attention):
                use_pallas_hamming launches the Hamming kernel 3 times and
                equals the plain step
  12. mode3-times — the Hamming kernel alone at B=32 and B=1024, the mode-3
-               read at B=32, the mode-3 chain at B=1000, forward_prepared at
+               read at B=32, the mode-3 chain at B=1000 (cached Q(H) and
+               raw H, as phase 5), forward_prepared at
                B=1000 on both routes and one train step on both routes
                (CUDA events, median of 7; the profiler's device time, busy
                time and idle share)
@@ -103,6 +114,7 @@ INT32_OPS_PER_S = F32_OPS_PER_S / 2
 Q_OPS = 4     # operations counted per float_quant
 HAM_IWLS = (0, 1, 5)
 HAM_VARIANTS = ((0, True), (-1, True), (0, False))   # weight_para, weighted
+ROUND_MODES = (3, 0, 1, 2)   # the config's default (truncation) first
 
 
 def fail(msg):
@@ -249,18 +261,22 @@ def device_ms(fn, n_iter=20):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_iter):
-            fn()
-        torch.cuda.synchronize()
-    # only the device-side kernel events: an aten op also reports its
-    # kernels' time as its own self device time
-    return {ev.key: (ev.self_device_time_total / n_iter / 1000.0,
-                     ev.count / n_iter)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0}
+    for _ in range(3):   # the profiler now and then records no kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_iter):
+                fn()
+            torch.cuda.synchronize()
+        # only the device-side kernel events: an aten op also reports its
+        # kernels' time as its own self device time
+        kernels = {ev.key: (ev.self_device_time_total / n_iter / 1000.0,
+                            ev.count / n_iter)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.self_device_time_total > 0}
+        if kernels:
+            break
+    return kernels
 
 
 def ham_inputs(rng, iwl, B, M, D):
@@ -497,24 +513,53 @@ def main():
         flat = exact_matmul(mem_t, prep.embed_wt)
         u = float_quant(exact_matmul(que_t, prep.query_wt), cfg_c.fmt_w[0])
         return scale, (flat, u, prep.hmats, mask_t, cfg_c.fmt_w,
-                       cfg_c.fmt_att, cfg_c.fmt_bin, cfg_c.fmt_act)
+                       cfg_c.fmt_att, cfg_c.fmt_bin, cfg_c.fmt_act), prep
 
-    max_err, chain_args = 0.0, None
-    for name, (V, M, W) in shapes.items():
-        scale, args = chain_inputs(cfg, V, M, W)
-        got = hop_chain.fused_hop_chain(*args)
-        want = hop_chain.fused_hop_chain_reference(*args)
-        torch.cuda.synchronize()
-        diffs, flips, good = compare_chain(cfg, got, want)
-        print(f"[3 kernel] {name} B={BATCH} M={M} I={V + M} D={cfg.dim_emb} "
-              f"K={cfg.num_hops} weights x{scale}: max|diff| "
-              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
-              + f"; queries with a flipped Q(p, act): {flips}", flush=True)
-        if not good:
-            fail(f"chain kernel disagrees with the plain version ({name})")
-        max_err = max(max_err, *diffs.values())
-        if name == "flagship":
-            chain_args = args
+    def cached_launch(args, prep, **kw):
+        """The serving path's launch: on Q(H) cached by prepare_inference,
+        with the kernel's requant skipped."""
+        return lambda: hop_chain.fused_hop_chain(
+            args[0], args[1], prep.hmats_q, *args[3:], hmats_quantized=True,
+            **kw)
+
+    def cached_equal(args, prep, got, **kw):
+        """The cached launch equals the launch on raw H."""
+        cached = cached_launch(args, prep, **kw)()
+        return all(torch.equal(a, b) for a, b in zip(cached, got))
+
+    def time_chain(args, prep, **kw):
+        """{"cached": the serving launch, "raw H": the launch on raw H}:
+        (kernel event ms, plain event ms, kernel device ms) each."""
+        return time_kernels({
+            "cached": (cached_launch(args, prep, **kw),
+                       lambda: hop_chain.fused_hop_chain_reference(*args,
+                                                                   **kw)),
+            "raw H": (lambda: hop_chain.fused_hop_chain(*args, **kw),
+                      lambda: hop_chain.fused_hop_chain_reference(*args,
+                                                                  **kw))})
+
+    max_err, chain_args, chain_prep = 0.0, None, None
+    for round_mode in ROUND_MODES:
+        cfg_r = cfg.replace(quant_mode=round_mode)
+        for name, (V, M, W) in shapes.items():
+            scale, args, prep = chain_inputs(cfg_r, V, M, W)
+            got = hop_chain.fused_hop_chain(*args)
+            want = hop_chain.fused_hop_chain_reference(*args)
+            torch.cuda.synchronize()
+            diffs, flips, good = compare_chain(cfg_r, got, want)
+            good &= cached_equal(args, prep, got)
+            print(f"[3 kernel] {name} round {round_mode} B={BATCH} M={M} "
+                  f"I={V + M} D={cfg.dim_emb} K={cfg.num_hops} weights "
+                  f"x{scale}: max|diff| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+                  + f"; queries with a flipped Q(p, act): {flips}",
+                  flush=True)
+            if not good:
+                fail(f"chain kernel disagrees with the plain version ({name}, "
+                     f"round {round_mode})")
+            max_err = max(max_err, *diffs.values())
+            if name == "flagship" and round_mode == cfg.quant_mode:
+                chain_args, chain_prep = args, prep
 
     # 4. the slice: engine on cuda:0, ~100 requests over several waves
     V, M, W = shapes["flagship"]
@@ -558,11 +603,10 @@ def main():
                         prep_k, *batch, cfg),
                     "plain route": lambda: memn2n.forward_prepared(
                         prep_k, *batch, cfg_plain)}, "5 times")
-    t_kern, t_ref, t_kdev = time_kernels({"chain": (
-        lambda: hop_chain.fused_hop_chain(*chain_args),
-        lambda: hop_chain.fused_hop_chain_reference(*chain_args))})["chain"]
-    print(f"[5 times] chain alone: kernel {t_kern:.4f} ms (device "
-          f"{t_kdev:.4f} ms), plain {t_ref:.4f} ms", flush=True)
+    t_chain = time_chain(chain_args, chain_prep)
+    for launch, (t_k, t_p, t_dev) in t_chain.items():
+        print(f"[5 times] chain alone, {launch}: kernel {t_k:.4f} ms (device "
+              f"{t_dev:.4f} ms), plain {t_p:.4f} ms", flush=True)
 
     # 6. the training kernels against their plain versions, on the card
     from qmann_tpu_torch.data import synthetic_task
@@ -602,13 +646,19 @@ def main():
         dims, params, mem_t, que_t, mask_t, (m, c, u) = read_inputs(
             cfg_t, B, V, M, W)
         rows = mem_t.reshape(-1, dims.dim_input)
-        cases = ([("query", params["B"], que_t, fw[0], fw[0])]
-                 + [(f"embed {w}{h}", params[w], rows, fw[h], fw[h])
-                    for w in "AC" for h in range(K)]
-                 + [(f"linmap {h}", params["H"], u, fw[h], cfg_t.fmt_bin)
-                    for h in range(K)]
-                 + [("binary w", params["B"], que_t, QFormat(0, 0), fw[0]),
-                    ("binary x", params["H"], u, fw[1], QFormat(0, 0))])
+        cases = []
+        for rm in ROUND_MODES:
+            fr = cfg_t.replace(quant_mode=rm).fmt_w
+            fb = cfg_t.replace(quant_mode=rm).fmt_bin
+            cases += ([(f"query r{rm}", params["B"], que_t, fr[0], fr[0])]
+                      + [(f"embed {w}{h} r{rm}", params[w], rows, fr[h], fr[h])
+                         for w in "AC" for h in range(K)]
+                      + [(f"linmap {h} r{rm}", params["H"], u, fr[h], fb)
+                         for h in range(K)]
+                      + [(f"binary w r{rm}", params["B"], que_t,
+                          QFormat(0, 0, rm), fr[0]),
+                         (f"binary x r{rm}", params["H"], u, fr[1],
+                          QFormat(0, 0, rm))])
         unequal = []
         for label, w, x, f_w, f_x in cases:
             got = qmv.quantized_matvec(w, x, f_w, f_x)
@@ -617,7 +667,8 @@ def main():
             if not torch.equal(got, want):
                 unequal.append(label)
         torch.cuda.synchronize()
-        print(f"[6 train-kernels] qmatvec {name}: {len(cases)} calls, "
+        print(f"[6 train-kernels] qmatvec {name}: {len(cases)} calls "
+              f"(rounding modes {ROUND_MODES}, binary w and x), "
               f"B={B} ({rows.shape[0]} embedding rows), I={dims.dim_input}, "
               f"O={cfg_t.dim_emb}; not bit-identical: "
               f"{', '.join(unequal) or 'none'}", flush=True)
@@ -787,23 +838,28 @@ def main():
 
     cfg_c3 = QmannConfig(use_fused_chain=True, attention_mode=3)
     ham_kw = dict(attention_mode=3, ham_num_bit=cfg_c3.num_bits_attention)
-    chain3_err, chain3_args = 0.0, None
-    for name, (V, M, W) in shapes.items():
-        scale, args = chain_inputs(cfg_c3, V, M, W)
-        got = hop_chain.fused_hop_chain(*args, **ham_kw)
-        want = hop_chain.fused_hop_chain_reference(*args, **ham_kw)
-        torch.cuda.synchronize()
-        diffs, flips, good = compare_chain(cfg_c3, got, want)
-        print(f"[9 mode3-kernels] chain {name} mode 3 iwl 5 B={BATCH} M={M} "
-              f"I={V + M} weights x{scale}: max|diff| "
-              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
-              + f"; queries with a flipped Q(p, act): {flips}", flush=True)
-        if not good:
-            fail(f"chain kernel disagrees with the plain version ({name}, "
-                 "mode 3)")
-        chain3_err = max(chain3_err, *diffs.values())
-        if name == "flagship":
-            chain3_args = args
+    chain3_err, chain3_args, chain3_prep = 0.0, None, None
+    for round_mode in ROUND_MODES:
+        cfg_r = cfg_c3.replace(quant_mode=round_mode)
+        for name, (V, M, W) in shapes.items():
+            scale, args, prep = chain_inputs(cfg_r, V, M, W)
+            got = hop_chain.fused_hop_chain(*args, **ham_kw)
+            want = hop_chain.fused_hop_chain_reference(*args, **ham_kw)
+            torch.cuda.synchronize()
+            diffs, flips, good = compare_chain(cfg_r, got, want)
+            good &= cached_equal(args, prep, got, **ham_kw)
+            print(f"[9 mode3-kernels] chain {name} mode 3 iwl 5 round "
+                  f"{round_mode} B={BATCH} M={M} I={V + M} weights x{scale}: "
+                  "max|diff| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+                  + f"; queries with a flipped Q(p, act): {flips}",
+                  flush=True)
+            if not good:
+                fail(f"chain kernel disagrees with the plain version ({name}, "
+                     f"mode 3, round {round_mode})")
+            chain3_err = max(chain3_err, *diffs.values())
+            if name == "flagship" and round_mode == cfg_c3.quant_mode:
+                chain3_args, chain3_prep = args, prep
 
     # 10. mode-3 serving: the chain at iwl 5; the forward at iwl 1
     _, params_c3, _ = scaled_prepared(cfg_c3, serve_dims, mem0, dev)
@@ -911,13 +967,11 @@ def main():
             for shape, a in ham_args.items()},
          ("attention_read", "train"): (
              lambda: ar.fused_read(*read3_args["train"]),
-             lambda: ar.fused_read_reference(*read3_args["train"])),
-         ("hop_chain", "flagship"): (
-             lambda: hop_chain.fused_hop_chain(*chain3_args, **ham_kw),
-             lambda: hop_chain.fused_hop_chain_reference(*chain3_args,
-                                                         **ham_kw))})
+             lambda: ar.fused_read_reference(*read3_args["train"]))})
+    k3.update({("hop_chain", launch): t for launch, t in time_chain(
+        chain3_args, chain3_prep, **ham_kw).items()})
     for (kname, shape), (t_k, t_p, t_dev) in k3.items():
-        print(f"[12 mode3-times] {kname} mode 3 alone, {shape} shape: kernel "
+        print(f"[12 mode3-times] {kname} mode 3 alone, {shape}: kernel "
               f"{t_k:.4f} ms (device {t_dev:.4f} ms), plain {t_p:.4f} ms",
               flush=True)
     print("[12 library] no single PyTorch call computes the Hamming score "
@@ -930,23 +984,29 @@ def main():
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
     b_qmv = qmatvec_bound(*qmv_args["train"][:2])
+    b_qmv_eval = qmatvec_bound(*qmv_args["eval"][:2])
     b_read = attention_read_bound(*read_args["train"][:4])
     b_read3 = attention_read_bound(*read3_args["train"][:4], num_bit=nb3)
     b_ham = hamming_bound(*ham_args["train"][:2], num_bit=nb3)
     print(json.dumps({"kernels": [
-        {"name": "hop_chain", "route": "cuda",
+        {"name": "hop_chain", "route": "cuda", "redesigned_in": 4,
          "source": "qmann_tpu_torch/csrc/hop_chain.cu",
          "replaces": "qmann_tpu/ops/pallas/qkernels.py:358",
          "launches": launches, "max_abs_err": max(max_err, chain3_err),
-         "ms": t_kern, "plain_ms": t_ref, "device_ms": t_kdev,
+         "ms": t_chain["cached"][0], "plain_ms": t_chain["cached"][1],
+         "device_ms": t_chain["cached"][2],
          "bound_ms": b_chain[0],
          "bound_by": b_chain[1], "library_ms": None,
+         "raw_h": {"ms": t_chain["raw H"][0],
+                   "device_ms": t_chain["raw H"][2]},
          "mode3": {"launches": chain3_launches, "max_abs_err": chain3_err,
-                   "ms": k3["hop_chain", "flagship"][0],
-                   "plain_ms": k3["hop_chain", "flagship"][1],
-                   "device_ms": k3["hop_chain", "flagship"][2],
-                   "bound_ms": b_chain3[0], "bound_by": b_chain3[1]}},
-        {"name": "qmatvec", "route": "cuda",
+                   "ms": k3["hop_chain", "cached"][0],
+                   "plain_ms": k3["hop_chain", "cached"][1],
+                   "device_ms": k3["hop_chain", "cached"][2],
+                   "bound_ms": b_chain3[0], "bound_by": b_chain3[1],
+                   "raw_h": {"ms": k3["hop_chain", "raw H"][0],
+                             "device_ms": k3["hop_chain", "raw H"][2]}}},
+        {"name": "qmatvec", "route": "cuda", "redesigned_in": 4,
          "source": "qmann_tpu_torch/csrc/qmatvec.cu",
          "replaces": "qmann_tpu/ops/pallas/qkernels.py:88",
          "launches": qmv_launches, "max_abs_err": qmv_err,
@@ -954,6 +1014,11 @@ def main():
          "plain_ms": k_times["qmatvec", "train"][1],
          "device_ms": k_times["qmatvec", "train"][2],
          "bound_ms": b_qmv[0], "bound_by": b_qmv[1], "library_ms": None,
+         "eval": {"rows": qmv_args["eval"][1].shape[0],
+                  "ms": k_times["qmatvec", "eval"][0],
+                  "plain_ms": k_times["qmatvec", "eval"][1],
+                  "device_ms": k_times["qmatvec", "eval"][2],
+                  "bound_ms": b_qmv_eval[0], "bound_by": b_qmv_eval[1]},
          "mode3": {"launches": qmv3_launches}},
         {"name": "attention_read", "route": "cuda",
          "source": "qmann_tpu_torch/csrc/attention_read.cu",

@@ -1,7 +1,9 @@
 // Q-format fake quantization and warp reductions shared by the port's
 // CUDA kernels (hop_chain.cu, qmatvec.cu, attention_read.cu, hamming.cu).
 //
-// fq() is float_quant of qmann_tpu/numerics/fixed.py element by element:
+// fq() is float_quant of qmann_tpu/numerics/fixed.py element by element
+// (FastQ<Mode> is the same for the formats it takes, with the mode fixed at
+// compile time; AnyQ wraps fq behind the same interface):
 // saturating float->int32 conversion (+-2^31 clamp), the INT_MIN magnitude
 // wrap at iwl+frac == 31, saturation decided on the pre-conversion value,
 // and the binary format (iwl+frac == 0) mapping 0 to +1.  Each format's
@@ -55,6 +57,63 @@ __device__ __forceinline__ float fq(float x, const QFmt& f) {
   // saturation is decided on the pre-conversion value
   return x > f.maxf ? f.maxf : (x < -f.maxf ? -f.maxf : deq);
 }
+
+// The same function with the rounding mode fixed at compile time, for a
+// non-binary format with iwl+frac <= 30 (fastq_exact below): one multiply,
+// one rounding of the fixed kind, one multiply and the saturation as a
+// NaN-propagating clamp, with no branch (a select that the compiler turns
+// into branches costs a convergence barrier per requant).
+//
+// Why this equals fq there.  Let n = iwl+frac <= 30, s = 2^frac and maxf
+// the float32 bound: maxf*s is the integer N = 2^n-1, or 2^n once 2^n-1
+// rounds up in float32 (n >= 25).  The multiplies by s and 1/s are exact
+// (powers of two; |x*s| <= 2^30 wherever the result is kept).
+//  - |x| <= maxf: |x*s| <= N <= 2^30, and rounding a value in [-N, N] of
+//    any kind stays in [-N, N], so fq's +-2^31 clamp never binds, its
+//    INT_MIN wrap (n == 31 only) never fires, and deq lies in
+//    [-maxf, maxf], where the clamp is the identity;
+//  - x > maxf (+inf included): x*s > N, every rounding is monotone and
+//    leaves the integer N in place, so deq >= maxf and the clamp gives
+//    maxf, as fq's select does; x < -maxf likewise gives -maxf;
+//  - NaN: deq is NaN and max.NaN / min.NaN keep it, as fq does.
+// tests/test_torch_qmatvec.py checks the formula against float_quant for
+// every (iwl, frac) with n <= 30 and every mode on an edge list.
+__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(v), "f"(lo));
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(r), "f"(hi));
+  return r;
+}
+
+template <int Mode>
+struct FastQ {
+  float maxf, scale, inv_scale;
+  __device__ __forceinline__ float operator()(float x) const {
+    const float s = x * scale;
+    float q;
+    if constexpr (Mode == 0) q = floorf(s);
+    else if constexpr (Mode == 1) q = ceilf(s);
+    else if constexpr (Mode == 2) q = rintf(s);
+    else q = truncf(s);
+    return clamp_nan(q * inv_scale, -maxf, maxf);
+  }
+  static __host__ __device__ FastQ from(const QFmt& f) {
+    return FastQ{f.maxf, f.scale, f.inv_scale};
+  }
+};
+
+// The runtime fq behind the same interface, for the formats FastQ does not
+// take (binary, iwl+frac == 31) and launches that need them.
+struct AnyQ {
+  QFmt f;
+  __device__ __forceinline__ float operator()(float x) const {
+    return fq(x, f);
+  }
+  static __host__ __device__ AnyQ from(const QFmt& f) { return AnyQ{f}; }
+};
+
+// Whether FastQ computes fq exactly for f.
+inline bool fastq_exact(const QFmt& f) { return !f.binary && !f.full31; }
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -283,6 +283,9 @@ class PreparedInference(NamedTuple):
     query_wt: Optional[torch.Tensor]    # [I, D] quantized emb_q, transposed
     embed_wt: Optional[torch.Tensor]    # [I, 2K*D] stacked quantized A/C
     hmats: Optional[torch.Tensor]       # [K, D, D] raw lin maps for the chain
+    # [K, D, D] Q(H[h], fmt_w[h]) for the chain kernel, where float_quant
+    # is idempotent (every fmt_w of at most 30 bits), else None
+    hmats_q: Optional[torch.Tensor] = None
 
 
 def prepare_inference(params: Params, cfg: QmannConfig,
@@ -326,7 +329,12 @@ def prepare_inference(params: Params, cfg: QmannConfig,
         hmats = params["H"].contiguous()
     else:
         hmats = params["H"].expand(K, D, D).contiguous()
-    return PreparedInference(params, True, query_wt, embed_wt, hmats)
+    hmats_q = None
+    if all(f.iwl + f.frac <= 30 for f in fmt_w):
+        hmats_q = torch.stack([float_quant(hmats[h], fmt_w[h])
+                               for h in range(K)])
+    return PreparedInference(params, True, query_wt, embed_wt, hmats,
+                             hmats_q)
 
 
 def _use_chain(cfg: QmannConfig) -> bool:
@@ -355,15 +363,17 @@ def forward_prepared(prep: PreparedInference, memory: torch.Tensor,
     u = float_quant(exact_matmul(question, prep.query_wt), fmt_w[0])
     flat = exact_matmul(memory, prep.embed_wt)                # [B, M, 2K*D]
     if _use_chain(cfg):
+        cached = prep.hmats_q is not None
         u_fin, p, s = fused_hop_chain(
-            flat, u, prep.hmats, mask, fmt_w, cfg.fmt_att, cfg.fmt_bin,
+            flat, u, prep.hmats_q if cached else prep.hmats, mask, fmt_w,
+            cfg.fmt_att, cfg.fmt_bin,
             cfg.fmt_act, linear_mapping=cfg.en_linear_mapping,
             non_linearity=cfg.en_non_linearity,
             attention_mode=cfg.attention_mode,
             ham_num_bit=cfg.num_bits_attention,
             ham_const_scale=cfg.attention_const_scale,
             ham_weight_para=cfg.hamming_weight_para,
-            ham_weighted=cfg.hamming_weighted)
+            ham_weighted=cfg.hamming_weighted, hmats_quantized=cached)
         logits = qmatvec(_output_weight(prep.raw, cfg), u_fin,
                          cfg.fmt_ds_ans, cfg.fmt_ds_ans, quantized=False)
         return ForwardResult(logits, p, s)

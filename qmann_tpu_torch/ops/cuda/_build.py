@@ -13,7 +13,9 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import Sequence, Tuple
+
+from qmann_tpu_torch.numerics import QFormat
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -50,6 +52,16 @@ def build(source: Path) -> Tuple[Path, str]:
         raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
     os.replace(tmp, lib)   # atomic: concurrent builders race harmlessly
     return lib, proc.stdout + proc.stderr
+
+
+def check_one_rounding_mode(fmts: Sequence[QFormat], name: str) -> None:
+    """The chain and lattice kernels fix the rounding mode at compile time:
+    a launch's non-binary formats must share one (every QmannConfig's
+    formats do)."""
+    modes = {f.mode for f in fmts if not f.is_binary}
+    if len(modes) > 1:
+        raise ValueError(f"{name}: the kernel takes one rounding mode per "
+                         f"launch, got modes {sorted(modes)}")
 
 
 def load(source: Path, symbol: str, argtypes) -> ctypes.CDLL:

@@ -16,15 +16,18 @@ use, into ``qmann_tpu_torch/_build/`` (``ops/cuda/_build.py``), and bound
 with ctypes.
 
 ``fused_hop_chain`` dispatches on the device of ``flat``: a CPU tensor takes
-``fused_hop_chain_reference``; a CUDA tensor launches the kernel or raises.
-``fused_hop_chain.launches`` counts kernel launches.
+``fused_hop_chain_reference``; a CUDA tensor launches the kernel or raises
+(also when the formats mix rounding modes: the kernel fixes the mode at
+compile time).  ``chain_geometry`` gives the launch's queries per block,
+threads and shared memory.  ``fused_hop_chain.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -38,8 +41,49 @@ from qmann_tpu_torch.ops.softmax import softmax
 
 SOURCE = _build.CSRC / "hop_chain.cu"
 
-# bounds of the kernel (csrc/hop_chain.cu: kMaxHops, kMaxMem, kMaxDim)
+# bounds of the kernel (csrc/hop_chain.cu: kMaxHops, kMaxMem, kMaxDim,
+# kMaxThreads, kSmemLimit: 227 KB of shared memory less 1 KB of static
+# formats)
 MAX_HOPS, MAX_MEM, MAX_DIM = 8, 64, 128
+MAX_THREADS = 512
+SMEM_LIMIT = 232448 - 1024
+SMEM_OPT_IN = 48 * 1024    # above this the launch opts in to more
+# geometry, chosen by measurement on the H100 (PERF.md, section 6): up to
+# QUERIES_PER_BLOCK queries per block while at least MIN_BLOCKS blocks (one
+# per SM) remain and two blocks fit an SM's shared memory; 128 threads per
+# query, 256 from M > 16 memory rows on (the score's rows need them)
+QUERIES_PER_BLOCK = 4
+MIN_BLOCKS = 132
+
+
+class ChainGeometry(NamedTuple):
+    queries_per_block: int
+    threads: int
+    blocks: int
+    smem_bytes: int       # dynamic shared memory of one block
+    opt_in: bool          # the launch raises the 48 KB default
+
+
+def chain_smem_bytes(qpb: int, M: int, D: int) -> int:
+    """Dynamic shared memory of one block (csrc/hop_chain.cu's
+    smem_floats): two stages of the block's A and C slices, Q(H[h]) with a
+    row stride of D+1, u, Q(u, bin) and u_map per query, the scores, Q(p)
+    and the live mask per query."""
+    return 4 * (4 * qpb * M * D + D * (D + 1) + 3 * qpb * D + 3 * qpb * M)
+
+
+@functools.lru_cache(maxsize=None)
+def chain_geometry(B: int, M: int, D: int, K: int) -> ChainGeometry:
+    """The launch geometry of the kernel for a [B, M, 2K*D] chain."""
+    del K   # the hops run inside the block; the geometry does not see them
+    qpb = QUERIES_PER_BLOCK
+    while qpb > 1 and (-(-B // qpb) < MIN_BLOCKS
+                       or chain_smem_bytes(qpb, M, D) > SMEM_LIMIT // 2):
+        qpb //= 2
+    threads = min(MAX_THREADS, qpb * (128 if M <= 16 else 256))
+    smem = chain_smem_bytes(qpb, M, D)
+    return ChainGeometry(qpb, threads, -(-B // qpb), smem,
+                         smem > SMEM_OPT_IN)
 
 
 def build() -> Tuple[Path, str]:
@@ -51,8 +95,9 @@ def build() -> Tuple[Path, str]:
 def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, "qmann_hop_chain",
                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
 
 
 def _check_mode(attention_mode: int, fmts_att: Sequence[QFormat],
@@ -114,10 +159,16 @@ def fused_hop_chain(flat: torch.Tensor, u: torch.Tensor, hmats: torch.Tensor,
                     fmts_act: Sequence[QFormat], linear_mapping: bool = True,
                     non_linearity: bool = False, attention_mode: int = 2,
                     ham_num_bit: int = 8, ham_const_scale: int = -3,
-                    ham_weight_para: int = 0, ham_weighted: bool = True):
+                    ham_weight_para: int = 0, ham_weighted: bool = True,
+                    hmats_quantized: bool = False):
     """The K-hop chain (same arguments and results as
     ``fused_hop_chain_reference``): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors.
+
+    ``hmats_quantized`` says that hmats already holds Q(H[h], fmts_w[h])
+    (``prepare_inference`` caches it for formats of at most 30 bits, where
+    float_quant is idempotent): the kernel then skips its requant of H.
+    The results are the same; only the work differs."""
     ham = (ham_num_bit, ham_const_scale, ham_weight_para, ham_weighted)
     _check_mode(attention_mode, fmts_att, *ham[:3])
     if flat.device.type == "cpu":
@@ -143,6 +194,8 @@ def fused_hop_chain(flat: torch.Tensor, u: torch.Tensor, hmats: torch.Tensor,
             f"kernel's bounds K<={MAX_HOPS}, M<={MAX_MEM}, D<={MAX_DIM}")
     if len(fmts_w) != K or len(fmts_att) != K or len(fmts_act) != K:
         raise ValueError("fused_hop_chain: one format per hop expected")
+    slots = [*fmts_w, *fmts_att, *fmts_act, fmt_bin]
+    _build.check_one_rounding_mode(slots, "fused_hop_chain")
     for t in (u, hmats, mask):
         if t.device != flat.device:
             raise ValueError("fused_hop_chain: inputs on different devices")
@@ -154,18 +207,19 @@ def fused_hop_chain(flat: torch.Tensor, u: torch.Tensor, hmats: torch.Tensor,
     u_out = torch.empty((B, D), dtype=torch.float32, device=flat.device)
     p = torch.empty((K, B, M), dtype=torch.float32, device=flat.device)
     s = torch.empty((K, B, M), dtype=torch.float32, device=flat.device)
-    slots = [*fmts_w, *fmts_att, *fmts_act, fmt_bin]
     fmts = (ctypes.c_int * (3 * len(slots)))(
         *[v for f in slots for v in (f.iwl, f.frac, f.mode)])
     knobs = (ctypes.c_int * 4)(*(int(v) for v in ham))
+    geo = chain_geometry(B, M, D, K)
     lib = load_library()
     with torch.cuda.device(flat.device):
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         rc = lib.qmann_hop_chain(
             flat.data_ptr(), u.data_ptr(), hmats.data_ptr(),
             mask_i.data_ptr(), u_out.data_ptr(), p.data_ptr(), s.data_ptr(),
-            B, M, D, K, fmts, int(linear_mapping), int(non_linearity),
-            attention_mode, knobs, stream)
+            B, M, D, K, fmts, int(linear_mapping), int(hmats_quantized),
+            int(non_linearity), attention_mode, knobs,
+            geo.queries_per_block, geo.threads, stream)
     if rc != 0:
         raise RuntimeError(f"hop_chain kernel launch failed: CUDA error {rc}")
     fused_hop_chain.launches += 1

@@ -14,14 +14,17 @@ ctypes.
 
 ``quantized_matvec`` dispatches on the device of ``x``: a CPU tensor takes
 ``quantized_matvec_reference``; a CUDA tensor launches the kernel or
-raises.  ``quantized_matvec.launches`` counts kernel launches.
+raises (also when fmt_w and fmt_x mix rounding modes: the kernel fixes the
+mode at compile time).  ``qmatvec_geometry`` gives the launch's rows per
+block, blocks and shared memory.
+``quantized_matvec.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -30,9 +33,37 @@ from qmann_tpu_torch.ops.cuda import _build
 
 SOURCE = _build.CSRC / "qmatvec.cu"
 
-# csrc/qmatvec.cu keeps Q(w) and at least one row of Q(x) in 48 KB of
-# shared memory: O*I + I <= 12288 floats
+# the kernel's operand limit, O*I + I <= 12288 floats, and its shared
+# memory, O*I + rows*I <= 12288 floats (48 KB: csrc/qmatvec.cu,
+# kSmemFloats); 256 threads per block
 MAX_SMEM_FLOATS = 12288
+THREADS = 256
+# geometry, chosen by measurement on the H100 (PERF.md, section 6): a base
+# tile of as many rows as one round of the threads covers, one output each
+# (at most 32 rows); doubled while the grid holds more blocks than the card
+# runs at once (132 SMs x 8 resident blocks of 256 threads), up to
+# MAX_TILES base tiles: w's requant is then paid fewer times
+RESIDENT_BLOCKS = 132 * 8
+MAX_TILES = 4
+
+
+class QmatvecGeometry(NamedTuple):
+    rows_per_block: int
+    blocks: int
+    smem_bytes: int       # dynamic shared memory of one block
+
+
+@functools.lru_cache(maxsize=None)
+def qmatvec_geometry(B: int, O: int, I: int) -> QmatvecGeometry:
+    """Rows of x per block (the kernel's grid is ceil(B / rows)): the base
+    tile, doubled as above, and no more than shared memory holds beside
+    Q(w)."""
+    base = max(1, min(32, THREADS // O))
+    rows = base
+    while rows < MAX_TILES * base and -(-B // rows) > RESIDENT_BLOCKS:
+        rows *= 2
+    rows = min(rows, (MAX_SMEM_FLOATS - O * I) // I)
+    return QmatvecGeometry(rows, -(-B // rows), 4 * (O * I + rows * I))
 
 
 def build() -> Tuple[Path, str]:
@@ -44,7 +75,7 @@ def build() -> Tuple[Path, str]:
 def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, "qmann_qmatvec",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p, ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
 def quantized_matvec_reference(w: torch.Tensor, x: torch.Tensor,
@@ -79,7 +110,9 @@ def quantized_matvec(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
         raise ValueError(
             f"quantized_matvec: B={B}, O={O}, I={I} outside the kernel's "
             f"bounds B, O, I >= 1 and O*I + I <= {MAX_SMEM_FLOATS}")
+    _build.check_one_rounding_mode((fmt_w, fmt_x), "quantized_matvec")
     w, x = w.contiguous(), x.contiguous()
+    geo = qmatvec_geometry(B, O, I)
     out = torch.empty((B, O), dtype=torch.float32, device=x.device)
     fmts = (ctypes.c_int * 6)(fmt_w.iwl, fmt_w.frac, fmt_w.mode,
                               fmt_x.iwl, fmt_x.frac, fmt_x.mode)
@@ -87,7 +120,7 @@ def quantized_matvec(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.qmann_qmatvec(w.data_ptr(), x.data_ptr(), out.data_ptr(),
-                               B, O, I, fmts, stream)
+                               B, O, I, fmts, geo.rows_per_block, stream)
     if rc != 0:
         raise RuntimeError(f"qmatvec kernel launch failed: CUDA error {rc}")
     quantized_matvec.launches += 1

@@ -111,11 +111,10 @@ def test_mode3_chain_reference_matches_jax_kernel(rng, tying, linmap, relu):
     assert _check_chain(cfg, want, got, B) <= 1
 
 
-@pytest.mark.parametrize("tying,linmap,relu", MODE3_ROWS)
-def test_mode3_forward_prepared_matches_jax(rng, tying, linmap, relu):
-    """forward_prepared with use_fused_chain (the chain route) against
-    JAX's, in interpret mode, on test_pallas.py's set-up: weights x6,
-    B=7, partial masks."""
+def _forward_prepared_vs_jax(rng, tying, linmap, relu, mode):
+    """forward_prepared with use_fused_chain (the chain route, Q(H) cached
+    by prepare_inference) against JAX's, in interpret mode, on
+    test_pallas.py's set-up: weights x6, B=7, partial masks."""
     import jax
     from jax.experimental.pallas import tpu as pltpu
     from qmann_tpu.config import QmannConfig as JaxConfig
@@ -123,7 +122,7 @@ def test_mode3_forward_prepared_matches_jax(rng, tying, linmap, relu):
     from qmann_tpu_torch.data import DataDims
     from qmann_tpu_torch.models import memn2n
     kw = dict(dim_emb=8, num_hops=3, verbose=False, type_weight_tying=tying,
-              attention_mode=3, en_linear_mapping=linmap,
+              attention_mode=mode, en_linear_mapping=linmap,
               en_non_linearity=relu, use_fused_chain=True)
     jcfg, cfg = JaxConfig(**kw), QmannConfig(**kw)
     dims = DataDims(dim_dict=12, max_line=5, max_word=5, dim_word=6,
@@ -141,6 +140,9 @@ def test_mode3_forward_prepared_matches_jax(rng, tying, linmap, relu):
     prep = memn2n.prepare_inference(
         memn2n.params_from_jax(pj, cfg, device="cpu"), cfg, **bounds)
     assert prep.fast and jprep.fast
+    want_q = torch.stack([float_quant(prep.hmats[h], cfg.fmt_w[h])
+                          for h in range(3)])
+    assert torch.equal(prep.hmats_q, want_q)
     with pltpu.force_tpu_interpret_mode():
         want = jmodel.forward_prepared(jprep, jnp.asarray(mem),
                                        jnp.asarray(que), jnp.asarray(mask),
@@ -161,6 +163,43 @@ def test_mode3_forward_prepared_matches_jax(rng, tying, linmap, relu):
     np.testing.assert_allclose(lg[ok], lw[ok], rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(lg[ok].argmax(-1), lw[ok].argmax(-1))
     assert np.isfinite(lg).all()
+
+
+@pytest.mark.parametrize("tying,linmap,relu", MODE3_ROWS)
+def test_mode3_forward_prepared_matches_jax(rng, tying, linmap, relu):
+    _forward_prepared_vs_jax(rng, tying, linmap, relu, mode=3)
+
+
+@pytest.mark.parametrize("tying,linmap,relu", MODE3_ROWS)
+def test_mode2_forward_prepared_matches_jax(rng, tying, linmap, relu):
+    """The mode-2 twin: the chain route with Q(H) cached."""
+    _forward_prepared_vs_jax(rng, tying, linmap, relu, mode=2)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_float_quant_is_idempotent_up_to_30_bits(mode):
+    """Why prepare_inference may cache Q(H) and the kernel skip its
+    requant: for every (iwl, frac) with 1 <= iwl+frac <= 30,
+    float_quant(float_quant(x)) == float_quant(x) bit for bit, on an edge
+    list (+-maxf and beyond, +-2^31/2^frac, +-inf, +-0.0, tiny values, half
+    steps) and a Gaussian spread."""
+    from qmann_tpu_torch.numerics import QFormat, fixed_max_float
+    for n in range(1, 31):
+        for iwl in range(n + 1):
+            fmt = QFormat(iwl, n - iwl, mode)
+            maxf = np.float32(fixed_max_float(iwl, n - iwl))
+            step = np.float32(2.0 ** -(n - iwl))
+            pts = np.array([maxf, np.nextafter(maxf, np.float32(np.inf)),
+                            2.0 ** (31 - n + iwl), np.inf, 0.0, 1e-45,
+                            3e-9, 0.5 * step, 1.5 * step, 2.5 * step],
+                           np.float32)
+            spread = np.random.default_rng(n * 64 + iwl).normal(
+                0.0, 2.0 ** iwl, 128).astype(np.float32)
+            x = torch.from_numpy(np.concatenate([pts, -pts, spread]))
+            once = float_quant(x, fmt)
+            twice = float_quant(once, fmt)
+            assert torch.equal(once.view(torch.int32),
+                               twice.view(torch.int32)), fmt
 
 
 def test_wrapper_on_cpu_never_builds(rng, monkeypatch):
@@ -194,3 +233,52 @@ def test_wrapper_raises_on_mode_3(rng):
                 fn(*args, attention_mode=3, **knobs)
         with pytest.raises(ValueError, match="modes 2 and 3"):
             fn(*args, attention_mode=1)
+
+
+@pytest.mark.parametrize("M,D", [(1, 1), (10, 60), (50, 60), (64, 1),
+                                 (1, 128), (64, 128)])
+def test_chain_geometry_covers_every_query_once(M, D):
+    """For every B from 1 to 2100 (and B=100000) at the kernel's limits:
+    block b takes queries [b*qpb, min((b+1)*qpb, B)), so the blocks cover
+    each query exactly once; shared memory fits the 227 KB a block may
+    take, the opt-in flag is set exactly above 48 KB, and the threads are
+    whole warps within the kernel's 512."""
+    for B in [*range(1, 2101), 100000]:
+        for K in (1, hop_chain.MAX_HOPS):
+            geo = hop_chain.chain_geometry(B, M, D, K)
+            qpb = geo.queries_per_block
+            assert qpb >= 1 and (geo.blocks - 1) * qpb < B <= geo.blocks * qpb
+            covered = np.zeros(B, np.int64)
+            for b in range(geo.blocks):
+                covered[b * qpb:min((b + 1) * qpb, B)] += 1
+            assert (covered == 1).all()
+            assert geo.smem_bytes == hop_chain.chain_smem_bytes(qpb, M, D)
+            assert geo.smem_bytes <= hop_chain.SMEM_LIMIT <= 227 * 1024
+            assert geo.opt_in == (geo.smem_bytes > 48 * 1024)
+            assert geo.threads % 32 == 0
+            assert 32 <= geo.threads <= hop_chain.MAX_THREADS
+
+
+def test_chain_geometry_keeps_the_largest_shape_in_one_block():
+    """At K=8, M=64, D=128 one query per block still fits (two stages of
+    64 x 256 floats, Q(H)^T 128 x 129, the per-query vectors)."""
+    geo = hop_chain.chain_geometry(1, 64, 128, 8)
+    assert geo.queries_per_block == 1 and geo.opt_in
+    assert geo.smem_bytes == 4 * (4 * 64 * 128 + 128 * 129 + 3 * 128
+                                  + 3 * 64)
+
+
+def test_wrapper_on_cpu_takes_mixed_rounding_modes(rng):
+    """The kernel fixes one rounding mode per launch and its wrapper
+    refuses formats that mix modes on the card (tests/test_torch_cuda.py);
+    the plain version, which CPU tensors take, keeps accepting them."""
+    from qmann_tpu_torch.numerics import QFormat
+    cfg, flat, u, hm, mask = _chain_inputs(rng, 2)
+    fmts_act = (QFormat(5, 2, 0),) + cfg.fmt_act[1:]
+    args = (torch.from_numpy(flat), torch.from_numpy(u), torch.from_numpy(hm),
+            torch.from_numpy(mask), cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
+            fmts_act)
+    got = hop_chain.fused_hop_chain(*args)
+    want = hop_chain.fused_hop_chain_reference(*args)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)

@@ -62,6 +62,24 @@ def _chain_args(cfg, V, M, W, B, dev, seed=0):
             cfg.fmt_bin, cfg.fmt_act)
 
 
+def _assert_chain_kernel_matches(cfg, args, flags):
+    """One launch of the chain kernel against the plain chain, under the
+    module docstring's tolerances."""
+    before = hop_chain.fused_hop_chain.launches
+    u_g, p_g, s_g = hop_chain.fused_hop_chain(*args, **flags)
+    u_w, p_w, s_w = hop_chain.fused_hop_chain_reference(*args, **flags)
+    torch.cuda.synchronize()
+    assert hop_chain.fused_hop_chain.launches == before + 1
+    assert torch.equal(s_g[0], s_w[0])
+    torch.testing.assert_close(p_g, p_w, rtol=0, atol=1e-6)
+    flipped = torch.zeros(u_g.shape[0], dtype=torch.bool, device=u_g.device)
+    for h, fmt in enumerate(cfg.fmt_act):
+        flipped |= (float_quant(p_g[h], fmt) != float_quant(p_w[h], fmt)).any(-1)
+    assert int(flipped.sum()) <= 1
+    assert torch.equal(s_g[:, ~flipped], s_w[:, ~flipped])
+    assert torch.equal(u_g[~flipped], u_w[~flipped])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kw", [{}, {"type_weight_tying": 1},
                                 {"en_linear_mapping": False,
@@ -72,19 +90,7 @@ def test_chain_kernel_matches_plain(cuda, V, M, W, kw):
     args = _chain_args(cfg, V, M, W, 1000, cuda)
     flags = dict(linear_mapping=cfg.en_linear_mapping,
                  non_linearity=cfg.en_non_linearity)
-    before = hop_chain.fused_hop_chain.launches
-    u_g, p_g, s_g = hop_chain.fused_hop_chain(*args, **flags)
-    u_w, p_w, s_w = hop_chain.fused_hop_chain_reference(*args, **flags)
-    torch.cuda.synchronize()
-    assert hop_chain.fused_hop_chain.launches == before + 1
-    assert torch.equal(s_g[0], s_w[0])
-    torch.testing.assert_close(p_g, p_w, rtol=0, atol=1e-6)
-    flipped = torch.zeros(u_g.shape[0], dtype=torch.bool, device=cuda)
-    for h, fmt in enumerate(cfg.fmt_act):
-        flipped |= (float_quant(p_g[h], fmt) != float_quant(p_w[h], fmt)).any(-1)
-    assert int(flipped.sum()) <= 1
-    assert torch.equal(s_g[:, ~flipped], s_w[:, ~flipped])
-    assert torch.equal(u_g[~flipped], u_w[~flipped])
+    _assert_chain_kernel_matches(cfg, args, flags)
 
 
 @pytest.mark.cuda
@@ -321,17 +327,7 @@ def test_chain_kernel_mode3_matches_plain(cuda, V, M, W, kw):
     flags = dict(linear_mapping=cfg.en_linear_mapping,
                  non_linearity=cfg.en_non_linearity, attention_mode=3,
                  ham_num_bit=cfg.num_bits_attention)
-    u_g, p_g, s_g = hop_chain.fused_hop_chain(*args, **flags)
-    u_w, p_w, s_w = hop_chain.fused_hop_chain_reference(*args, **flags)
-    torch.cuda.synchronize()
-    assert torch.equal(s_g[0], s_w[0])
-    torch.testing.assert_close(p_g, p_w, rtol=0, atol=1e-6)
-    flipped = torch.zeros(u_g.shape[0], dtype=torch.bool, device=cuda)
-    for h, fmt in enumerate(cfg.fmt_act):
-        flipped |= (float_quant(p_g[h], fmt) != float_quant(p_w[h], fmt)).any(-1)
-    assert int(flipped.sum()) <= 1
-    assert torch.equal(s_g[:, ~flipped], s_w[:, ~flipped])
-    assert torch.equal(u_g[~flipped], u_w[~flipped])
+    _assert_chain_kernel_matches(cfg, args, flags)
 
 
 @pytest.mark.cuda
@@ -369,3 +365,155 @@ def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
         torch.testing.assert_close(after[0][k], after[1][k], rtol=1e-5,
                                    atol=1e-6)
     assert not torch.equal(after[0]["A"], base["A"])
+
+
+# ---------------------------------------------------------------------------
+# the redesigned chain and lattice kernels: every rounding mode, ragged
+# batches, the kernels' limits, saturation
+# ---------------------------------------------------------------------------
+
+def _synthetic_chain(B, M, D, K, quant_mode, dev, scale=0.6, seed=0):
+    """flat = bag-of-words counts @ Gaussian weights of sd `scale` (the raw
+    stacked GEMM), u quantized at fmt_w[0], lin maps of the same sd,
+    partial masks and, from B=7 on, a last query with no live row."""
+    cfg = QmannConfig(dim_emb=D, num_hops=K, quant_mode=quant_mode)
+    rng = np.random.default_rng(seed)
+    I = 17
+    mem = rng.integers(0, 3, (B, M, I)).astype(np.float32)
+    mask = np.arange(M)[None, :] < rng.integers(1, M + 1, B)[:, None]
+    if B >= 7:
+        mask[-1] = False
+    mem *= mask[:, :, None]
+    emb = rng.normal(0.0, scale, (I, 2 * K * D)).astype(np.float32)
+    flat = np.einsum("bmi,ie->bme", mem, emb).astype(np.float32)
+    que = rng.integers(0, 3, (B, I)).astype(np.float32)
+    u_raw = que @ rng.normal(0.0, scale, (I, D)).astype(np.float32)
+    hm = rng.normal(0.0, scale, (K, D, D)).astype(np.float32)
+    flat_t, u_t, hm_t = (torch.from_numpy(a).to(dev)
+                         for a in (flat, u_raw, hm))
+    u_t = float_quant(u_t, cfg.fmt_w[0])
+    mask_t = torch.from_numpy(mask).to(dev)
+    return cfg, (flat_t, u_t, hm_t, mask_t, cfg.fmt_w, cfg.fmt_att,
+                 cfg.fmt_bin, cfg.fmt_act)
+
+
+# (B, K, D, M, linear map, ReLU, weight sd): the flagship at B=1000, ragged
+# batches, K/D/M at 1 and at the kernel's limits, the lin map off with ReLU
+# on, and weights large enough that saturation fires
+CHAIN_SHAPES = [(1000, 3, 60, 10, True, False, 0.6),
+                (1, 3, 60, 10, True, False, 0.6),
+                (7, 3, 60, 10, True, False, 0.6),
+                (1001, 3, 60, 10, True, False, 0.6),
+                (1001, 1, 8, 1, True, False, 0.6),
+                (1000, 8, 128, 64, True, False, 0.6),
+                (1001, 3, 60, 64, False, True, 0.6),
+                (1000, 3, 60, 10, True, True, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("attention_mode", [2, 3])
+@pytest.mark.parametrize("B,K,D,M,linmap,relu,scale", CHAIN_SHAPES)
+def test_chain_kernel_every_rounding_mode(cuda, B, K, D, M, linmap, relu,
+                                          scale, attention_mode, quant_mode):
+    cfg, args = _synthetic_chain(B, M, D, K, quant_mode, cuda, scale)
+    flags = dict(linear_mapping=linmap, non_linearity=relu,
+                 attention_mode=attention_mode,
+                 ham_num_bit=cfg.num_bits_attention)
+    if scale > 1.0:   # saturation must fire in the lattices
+        sat = cfg.fmt_w[0]
+        from qmann_tpu_torch.numerics import fixed_max_float
+        assert float(args[0].abs().max()) > fixed_max_float(sat.iwl,
+                                                            sat.frac)
+    _assert_chain_kernel_matches(cfg, args, flags)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_mixed_rounding_modes(cuda):
+    """Both kernels fix the rounding mode at compile time: formats that mix
+    modes raise before a launch (binary formats carry no mode)."""
+    cfg, args = _synthetic_chain(8, 10, 60, 3, 3, cuda)
+    fmts_act = (QFormat(5, 2, 0),) + cfg.fmt_act[1:]
+    before = hop_chain.fused_hop_chain.launches
+    with pytest.raises(ValueError, match="rounding mode"):
+        hop_chain.fused_hop_chain(*args[:7], fmts_act)
+    w = torch.ones((6, 5), device=cuda)
+    x = torch.ones((4, 5), device=cuda)
+    with pytest.raises(ValueError, match="rounding mode"):
+        qmv.quantized_matvec(w, x, QFormat(5, 2, 3), QFormat(5, 2, 1))
+    assert hop_chain.fused_hop_chain.launches == before
+    got = qmv.quantized_matvec(w, x, QFormat(0, 0, 3), QFormat(5, 2, 1))
+    want = qmv.quantized_matvec_reference(w, x, QFormat(0, 0, 3),
+                                          QFormat(5, 2, 1))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("rows", [1, 7, 320, 10240, 10241])
+def test_qmatvec_kernel_every_rounding_mode(cuda, rows, quant_mode):
+    """Bit-identical at every mode: the flagship embedding shape (O=60,
+    I=29) at Q5.2, Q6.1 x Q2.5, binary fmt_w and binary fmt_x, x not
+    16-byte aligned (a view one row in), and O*I + I at the operand limit
+    (O=203, I=60: 12240; O=1, I=6144: 12288)."""
+    rng = np.random.default_rng(rows * 4 + quant_mode)
+
+    def t(*shape, counts=False):
+        a = (rng.integers(0, 4, shape) if counts
+             else rng.normal(0.0, 1.5, shape))
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    m = quant_mode
+    w, x = t(60, 29), t(rows, 29, counts=True)
+    x_off = t(rows + 1, 29)[1:]
+    cases = [(w, x, QFormat(5, 2, m), QFormat(5, 2, m)),
+             (w, t(rows, 29), QFormat(6, 1, m), QFormat(2, 5, m)),
+             (w, x, QFormat(0, 0, m), QFormat(5, 2, m)),
+             (w, x, QFormat(5, 2, m), QFormat(0, 0, m)),
+             (w, x_off, QFormat(4, 3, m), QFormat(4, 3, m)),
+             (t(203, 60), t(rows, 60), QFormat(5, 2, m), QFormat(5, 2, m)),
+             (t(1, 6144), t(rows, 6144), QFormat(2, 5, m), QFormat(2, 5, m))]
+    for w_, x_, f_w, f_x in cases:
+        before = qmv.quantized_matvec.launches
+        got = qmv.quantized_matvec(w_, x_, f_w, f_x)
+        want = qmv.quantized_matvec_reference(w_, x_, f_w, f_x)
+        torch.cuda.synchronize()
+        assert qmv.quantized_matvec.launches == before + 1
+        assert torch.equal(got, want), (tuple(w_.shape), f_w, f_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention_mode", [2, 3])
+def test_chain_kernel_takes_cached_quantized_lin_maps(cuda, attention_mode):
+    """The serving path hands the kernel Q(H) from prepare_inference with
+    hmats_quantized=True, which skips the kernel's requant of H: the
+    result is the plain chain's on the raw lin maps."""
+    cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode)
+    dims, mem, que, mask = synthetic_batch(np.random.default_rng(1), 1000,
+                                           19, 10, 6)
+    params = {k: 4.0 * v for k, v in memn2n.init_params(
+        cfg, dims, torch.Generator().manual_seed(1), device=cuda).items()}
+    prep = memn2n.prepare_inference(params, cfg, max_count=7.0,
+                                    max_rowsum=7.0)
+    assert prep.fast and prep.hmats_q is not None
+    mem_t, que_t, mask_t = (torch.from_numpy(a).to(cuda)
+                            for a in (mem, que, mask))
+    flat = exact_matmul(mem_t, prep.embed_wt)
+    u = float_quant(exact_matmul(que_t, prep.query_wt), cfg.fmt_w[0])
+    fmts = (cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin, cfg.fmt_act)
+    flags = dict(attention_mode=attention_mode,
+                 ham_num_bit=cfg.num_bits_attention)
+    got = hop_chain.fused_hop_chain(flat, u, prep.hmats_q, mask_t, *fmts,
+                                    hmats_quantized=True, **flags)
+    want = hop_chain.fused_hop_chain_reference(flat, u, prep.hmats, mask_t,
+                                               *fmts, **flags)
+    torch.cuda.synchronize()
+    (u_g, p_g, s_g), (u_w, p_w, s_w) = got, want
+    assert torch.equal(s_g[0], s_w[0])
+    torch.testing.assert_close(p_g, p_w, rtol=0, atol=1e-6)
+    flipped = torch.zeros(u_g.shape[0], dtype=torch.bool, device=cuda)
+    for h, fmt in enumerate(cfg.fmt_act):
+        flipped |= (float_quant(p_g[h], fmt) != float_quant(p_w[h], fmt)).any(-1)
+    assert int(flipped.sum()) <= 1
+    assert torch.equal(s_g[:, ~flipped], s_w[:, ~flipped])
+    assert torch.equal(u_g[~flipped], u_w[~flipped])

@@ -87,3 +87,93 @@ def test_unknown_backend_raises():
     with pytest.raises(ValueError, match="backend"):
         qlinear.qmatvec(w, torch.zeros((2, 4)), QFormat(5, 2), QFormat(5, 2),
                         backend="pallas")
+
+
+def _fast_quant(x, fmt):
+    """The device's compile-time quantizer (csrc/qformat.cuh, FastQ) in
+    torch: one multiply, one rounding of the fixed kind, one multiply and a
+    NaN-propagating clamp to [-maxf, maxf] (torch.maximum / minimum keep
+    NaN, as PTX max.NaN / min.NaN do); no +-2^31 clamp, no INT_MIN wrap,
+    and saturation decided on the rounded value, not on x."""
+    from qmann_tpu_torch.numerics import fixed_max_float
+    rnd = (torch.floor, torch.ceil, torch.round, torch.trunc)[fmt.mode]
+    maxf = torch.tensor(fixed_max_float(fmt.iwl, fmt.frac))
+    deq = rnd(x * (2.0 ** fmt.frac)) * (2.0 ** -fmt.frac)
+    return torch.minimum(torch.maximum(deq, -maxf), maxf)
+
+
+def _edge_values(fmt):
+    """+-maxf, the floats just beyond and just inside, +-2^31/2^frac and
+    its neighbours, +-inf, NaN, +-0.0, tiny and denormal values, the grid's
+    half steps (ties) and points beside them, and a Gaussian spread."""
+    from qmann_tpu_torch.numerics import fixed_max_float
+    f32 = np.float32
+    maxf = f32(fixed_max_float(fmt.iwl, fmt.frac))
+    big = f32(2.0 ** (31 - fmt.frac))
+    step = f32(2.0 ** -fmt.frac)
+    pts = [maxf, np.nextafter(maxf, f32(np.inf)),
+           np.nextafter(maxf, f32(0)), big, np.nextafter(big, f32(np.inf)),
+           np.nextafter(big, f32(0)), f32(np.inf), f32(np.nan), f32(0.0),
+           f32(1e-45), f32(1e-38), f32(3e-9), f32(1e30), f32(3e38)]
+    for k in (0.5, 1.5, 2.5, 3.0, 7.5):
+        v = f32(k * step)
+        pts += [v, np.nextafter(v, f32(0)), np.nextafter(v, f32(np.inf))]
+    spread = np.random.default_rng(fmt.iwl * 64 + fmt.frac).normal(
+        0.0, 2.0 ** fmt.iwl, 256).astype(np.float32)
+    vals = np.concatenate([np.array(pts, np.float32), spread])
+    return torch.from_numpy(np.concatenate([vals, -vals]))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_fast_quant_formula_equals_float_quant(mode):
+    """The argument of csrc/qformat.cuh: for every (iwl, frac) with
+    1 <= iwl+frac <= 30 the formula without fq's clamp and wrap, with the
+    saturation as a clamp of the rounded value, equals float_quant bit for
+    bit (NaN where float_quant gives NaN)."""
+    from qmann_tpu_torch.numerics import float_quant
+    for n in range(1, 31):
+        for iwl in range(n + 1):
+            fmt = QFormat(iwl, n - iwl, mode)
+            x = _edge_values(fmt)
+            got, want = _fast_quant(x, fmt), float_quant(x, fmt)
+            nan = torch.isnan(want)
+            assert torch.equal(torch.isnan(got), nan), fmt
+            assert torch.equal(got[~nan].view(torch.int32),
+                               want[~nan].view(torch.int32)), fmt
+
+
+@pytest.mark.parametrize("O,I", [(1, 1), (60, 29), (60, 60), (60, 114),
+                                 (1, 6144), (203, 60), (4095, 3),
+                                 (6143, 1)])
+def test_qmatvec_geometry_covers_every_row_once(O, I):
+    """For every B from 1 to 2100 (and 4224, 4225, 10240, 10241, 100000)
+    at shapes up to the operand limit O*I + I <= 12288: block b takes rows
+    [b*R, min((b+1)*R, B)) with R = rows_per_block, so the blocks cover
+    each row exactly once; Q(w) and the row tile fit the kernel's 48 KB of
+    shared memory; one round of the threads covers a base tile (at most 32
+    rows), doubled while the grid exceeds the card's resident blocks, up
+    to MAX_TILES base tiles, where they fit; the 32-row query call keeps
+    8 blocks."""
+    assert O * I + I <= qmv.MAX_SMEM_FLOATS
+    base = max(1, min(32, qmv.THREADS // O))
+    fit = (qmv.MAX_SMEM_FLOATS - O * I) // I
+    for B in [*range(1, 2101), 4224, 4225, 10240, 10241, 100000]:
+        geo = qmv.qmatvec_geometry(B, O, I)
+        R = geo.rows_per_block
+        assert 1 <= R <= fit
+        tiles = 1
+        while (tiles < qmv.MAX_TILES
+               and -(-B // (base * tiles)) > qmv.RESIDENT_BLOCKS):
+            tiles *= 2
+        assert R == min(fit, base * tiles)
+        assert (geo.blocks - 1) * R < B <= geo.blocks * R
+        covered = np.zeros(B, np.int64)
+        for b in range(geo.blocks):
+            covered[b * R:min((b + 1) * R, B)] += 1
+        assert (covered == 1).all()
+        assert geo.smem_bytes == 4 * (O * I + R * I) <= 48 * 1024
+    assert qmv.qmatvec_geometry(32, 60, 29).blocks == 8
+    assert qmv.qmatvec_geometry(320, 60, 29).blocks == 80
+    # the measured choices at the flagship embedding (O=60, I=29)
+    assert [qmv.qmatvec_geometry(B, 60, 29).rows_per_block
+            for B in (320, 4096, 6144, 10240, 100000)] == [4, 4, 8, 16, 16]
