@@ -28,10 +28,11 @@ Phases, one line each; any failure exits non-zero:
                plain versions on the card, at the flagship training shape
                (B=32, M=10, I=29, D=60, EN_MQ formats; the 2K embeddings
                take B*M rows), the eval chunk (B=1024) and the wide layout
-               (M=50, I=114); qmatvec at each of the four rounding modes,
-               with binary fmt_w and binary fmt_x too; the last samples of
-               each batch have no live memory row, as the padded samples of
-               a partial batch
+               (M=50, I=114); both at each of the four rounding modes (the
+               kernels fix the mode at compile time), qmatvec with binary
+               fmt_w and binary fmt_x too; the last samples of each batch
+               have no live memory row, as the padded samples of a partial
+               batch
   7. train   — train_task on cuda:0 (use_pallas=True) for 2 epochs on a
                synthetic_task of 1000/100/100 qa1-shaped stories
                (1000 = 31*32 + 8: a last partial batch); 10 qmatvec and 3
@@ -40,19 +41,23 @@ Phases, one line each; any failure exits non-zero:
                on the kernel route and the plain route (a full batch and
                the partial one) agrees; prints both routes' histories
   8. train-times — one training step (forward + backward + SGD) at B=32 on
-               each route, each new kernel and its plain version at B=32 and
-               B=1024 (CUDA events, median of 7; qmatvec at B=1024 is the
-               10240-row eval chunk), and the profiler's device busy time
-               and idle share of a step
+               each route, qmatvec and its plain version at B=32 and B=1024
+               (the 10240-row eval chunk), the read and its plain version
+               at B=32, B=1024 and the wide layout (CUDA events, median of
+               7), and the profiler's device busy time and idle share of a
+               step
 Attention mode 3 (the Hamming attention):
   9. mode3-kernels — the Hamming score kernel against its plain version at
                B=32 and B=1024 (M=10, D=60) and the wide layout (M=50), at
-               iwl 0/1/5 in its weighted, weight_para -1 and unweighted
-               variants, on inputs that hold the encode's edge list; the
-               read kernel in mode 3 at iwl 1 at the training, eval-chunk
-               and wide shapes with padded samples; the chain kernel in
-               mode 3 at iwl 5, B=1000, flagship and wide, at each of the
-               four rounding modes
+               iwl 0/1/5/31 and each of the four rounding modes in its
+               weighted, weight_para -1 and unweighted variants, on inputs
+               that hold the encode's edge list, and its largest
+               difference from the plain row sum at num_bit 20..32
+               (printed, not gated: those sums may round); the read kernel
+               in mode 3 at iwl 1 at the training, eval-chunk and wide
+               shapes with padded samples, at each rounding mode; the
+               chain kernel in mode 3 at iwl 5, B=1000, flagship and wide,
+               at each of the four rounding modes
  10. mode3-serve — an engine at iwl 5 with use_fused_chain answers ~100
                requests through the chain kernel; an engine at iwl 1 with
                use_pallas leaves the exact route and runs 10 qmatvec and 3
@@ -65,14 +70,15 @@ Attention mode 3 (the Hamming attention):
                batch), a non-zero gradient on A; one step under
                use_pallas_hamming launches the Hamming kernel 3 times and
                equals the plain step
- 12. mode3-times — the Hamming kernel alone at B=32 and B=1024, the mode-3
-               read at B=32, the mode-3 chain at B=1000 (cached Q(H) and
-               raw H, as phase 5), forward_prepared at
+ 12. mode3-times — the Hamming kernel and the mode-3 read alone at B=32,
+               B=1024 and the wide layout, the mode-3 chain at B=1000
+               (cached Q(H) and raw H, as phase 5), forward_prepared at
                B=1000 on both routes and one train step on both routes
                (CUDA events, median of 7; the profiler's device time, busy
                time and idle share)
-Then one JSON line of kernels, the card's name and power limit, and as the
-last line {"ok": true, "device": {...}}.
+Then one JSON line of kernels (the read's and the Hamming kernel's with
+their eval-chunk and wide entries), the card's name and power limit, and
+as the last line {"ok": true, "device": {...}}.
 
 Tolerances.  Chain (as tests/test_torch_chain.py) and mode-2 attention
 read: the scores bit-identical (hop 0's, for the chain); p within atol 1e-6
@@ -81,19 +87,21 @@ most 1 query per comparison in which a Q(p, act) requant flipped, every
 other query bit-identical.  qmatvec: bit-identical (every lattice sum is
 exact).  Mode-1 attention read: rtol 1e-5, atol 1e-6 (float sums in
 another order).  SGD step: parameters within rtol 1e-5, atol 1e-6.
-Hamming score kernel: bit-identical (integer work and exact sums).  Mode-3
-read and chain: as mode 2.
+Hamming score kernel: bit-identical (integer work, and row sums exact at
+num_bit <= 19).  Mode-3 read and chain: as mode 2.
 
 bound_ms is the larger of the bytes the call must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
 67 TFLOP/s (float32 outside the tensor cores; H100 SXM data sheet at
 700 W), counting 4 operations per float_quant (scale, convert, rescale,
 saturate), 1 per multiply or add and 4 per softmax element.  The Hamming
-score's integer work (per element pair: two encodes of 6 operations, the
-preprocess of 8, 3 per compared bit, 4 for the sign, the scale and the row
-sum, and the term's requant) is counted against the int32 rate, half the
-float32 rate (an SM has half as many int32 lanes as float32 lanes):
-33.5 TOP/s.
+score's integer work is the least the function needs: one encode of 6
+operations per element of m and per element of u (once per query); per
+element pair the preprocess of 8, the match of 3 (the match word read as a
+fixed-point fraction up to num_bit 25; above that the word would round, so
+3 per compared bit), 4 for the sign, the scale and the row sum, and the
+term's requant; counted against the int32 rate, half the float32 rate (an
+SM has half as many int32 lanes as float32 lanes): 33.5 TOP/s.
 """
 import json
 import math
@@ -112,8 +120,9 @@ DEVICE = "cuda:0"
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
 Q_OPS = 4     # operations counted per float_quant
-HAM_IWLS = (0, 1, 5)
+HAM_IWLS = (0, 1, 5, 31)
 HAM_VARIANTS = ((0, True), (-1, True), (0, False))   # weight_para, weighted
+HAM_WORD_MAX_BIT = 25   # the match word is exact as a fraction up to here
 ROUND_MODES = (3, 0, 1, 2)   # the config's default (truncation) first
 
 
@@ -189,11 +198,13 @@ def qmatvec_bound(w, x):
 
 
 def ham_score_ops(B, M, D, num_bit):
-    """Integer operations of one Hamming score: per element pair two
-    encodes, the preprocess, the bit loop, the sign, the scale, the sum
-    and the term's requant; the row sums' requant."""
-    pair = 2 * 6 + 8 + 3 * (num_bit - 1) + 4 + Q_OPS
-    return B * M * (D * pair + Q_OPS)
+    """Integer operations of one Hamming score (module docstring): the
+    encodes of m and u; per element pair the preprocess, the match, the
+    sign, the scale, the sum and the term's requant; the row sums'
+    requant."""
+    match = 3 if num_bit <= HAM_WORD_MAX_BIT else 3 * (num_bit - 1)
+    pair = 8 + match + 4 + Q_OPS
+    return 6 * B * D * (M + 1) + B * M * (D * pair + Q_OPS)
 
 
 def hamming_bound(m, u, num_bit):
@@ -296,6 +307,29 @@ def ham_inputs(rng, iwl, B, M, D):
         m[0, r, :len(edge)] = np.roll(edge, r)
     u[0, :len(edge)] = -edge
     return m, u
+
+
+def read_inputs(rng, cfg, B, V, M, W, dev):
+    """The read's inputs as the training forward makes them, from synthetic
+    qa1-shaped stories and seeded weights x4; the last 3 samples have no
+    live row, as padded samples.  Returns (dims, params, memory, question,
+    mask, (m, c, u))."""
+    import torch
+    from qmann_tpu_torch.data import synthetic_batch
+    from qmann_tpu_torch.models import memn2n
+    from qmann_tpu_torch.ops.qlinear import qembed_mat_forward, qmatvec_forward
+    dims, mem, que, mask = synthetic_batch(rng, B, V, M, W)
+    for a in (mem, que, mask):
+        a[-3:] = 0
+    params = {k: 4.0 * v for k, v in memn2n.init_params(
+        cfg, dims, torch.Generator().manual_seed(SEED), device=dev).items()}
+    mem_t, que_t, mask_t = (torch.from_numpy(a).to(dev)
+                            for a in (mem, que, mask))
+    f0 = cfg.fmt_w[0]
+    u = qmatvec_forward(params["B"], que_t, f0, f0)
+    m = qembed_mat_forward(mem_t, params["A"], f0)
+    c = qembed_mat_forward(mem_t, params["C"], f0)
+    return dims, params, mem_t, que_t, mask_t, (m, c, u)
 
 
 def check_read(got, want, fmt_act, quantized):
@@ -611,8 +645,6 @@ def main():
     # 6. the training kernels against their plain versions, on the card
     from qmann_tpu_torch.data import synthetic_task
     from qmann_tpu_torch.numerics import QFormat
-    from qmann_tpu_torch.ops.qlinear import (qembed_mat_forward,
-                                             qmatvec_forward)
     from qmann_tpu_torch.train import (sgd_update, train_step,
                                        zero_null_columns)
     from qmann_tpu_torch.train.trainer import _batched_arrays
@@ -624,27 +656,10 @@ def main():
                     "eval": (EVAL_CHUNK, 19, 10, 6),
                     "wide": (TRAIN_BATCH, 64, 50, 7)}
 
-    def read_inputs(cfg_r, B, V, M, W):
-        """The read's inputs as the training forward makes them (weights
-        x4); the last 3 samples have no live row, as padded samples."""
-        dims, mem, que, mask = synthetic_batch(rng, B, V, M, W)
-        for a in (mem, que, mask):
-            a[-3:] = 0
-        params = {k: 4.0 * v for k, v in memn2n.init_params(
-            cfg_r, dims, torch.Generator().manual_seed(SEED),
-            device=dev).items()}
-        mem_t, que_t, mask_t = (torch.from_numpy(a).to(dev)
-                                for a in (mem, que, mask))
-        f0 = cfg_r.fmt_w[0]
-        u = qmatvec_forward(params["B"], que_t, f0, f0)
-        m = qembed_mat_forward(mem_t, params["A"], f0)
-        c = qembed_mat_forward(mem_t, params["C"], f0)
-        return dims, params, mem_t, que_t, mask_t, (m, c, u)
-
     qmv_err, ar_err, qmv_args, read_args = 0.0, 0.0, {}, {}
     for name, (B, V, M, W) in train_shapes.items():
         dims, params, mem_t, que_t, mask_t, (m, c, u) = read_inputs(
-            cfg_t, B, V, M, W)
+            rng, cfg_t, B, V, M, W, dev)
         rows = mem_t.reshape(-1, dims.dim_input)
         cases = []
         for rm in ROUND_MODES:
@@ -678,25 +693,28 @@ def main():
         mask_f = mask_t.to(torch.float32)
         for mode in (2, 1):
             q = mode == 2
-            args = (m, c, u, mask_f, cfg_t.fmt_att[0], cfg_t.fmt_bin,
-                    fmt_act, q, q)
-            got = ar.fused_read(*args)
-            want = ar.fused_read_reference(*args)
-            torch.cuda.synchronize()
-            diffs, flips, good, sound = check_read(got, want, fmt_act, q)
-            ar_err = max(ar_err, *diffs.values())
-            print(f"[6 train-kernels] attention_read {name} mode {mode}: "
-                  f"B={B} M={M} D={cfg_t.dim_emb}: max|diff| "
-                  + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
-                  + f"; flipped Q(p, act) queries {flips}; padded samples "
-                  f"p=0, o=Q(0), finite: {sound}", flush=True)
-            if not (good and sound):
-                fail(f"attention_read kernel disagrees with its plain version "
-                     f"({name}, mode {mode})")
+            for rm in ROUND_MODES:
+                cfg_r = cfg_t.replace(quant_mode=rm)
+                fa = cfg_r.fmt_act[0]
+                args = (m, c, u, mask_f, cfg_r.fmt_att[0], cfg_r.fmt_bin, fa,
+                        q, q)
+                got = ar.fused_read(*args)
+                want = ar.fused_read_reference(*args)
+                torch.cuda.synchronize()
+                diffs, flips, good, sound = check_read(got, want, fa, q)
+                ar_err = max(ar_err, *diffs.values())
+                print(f"[6 train-kernels] attention_read {name} mode {mode} "
+                      f"round {rm}: B={B} M={M} D={cfg_t.dim_emb}: max|diff| "
+                      + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+                      + f"; flipped Q(p, act) queries {flips}; padded "
+                      f"samples p=0, o=Q(0), finite: {sound}", flush=True)
+                if not (good and sound):
+                    fail(f"attention_read kernel disagrees with its plain "
+                         f"version ({name}, mode {mode}, round {rm})")
+        read_args[name] = (m, c, u, mask_f, cfg_t.fmt_att[0], cfg_t.fmt_bin,
+                           fmt_act)
         if name != "wide":
             qmv_args[name] = (params["A"], rows, fw[0], fw[0])
-            read_args[name] = (m, c, u, mask_f, cfg_t.fmt_att[0],
-                               cfg_t.fmt_bin, fmt_act)
 
     # 7. the training path: train_task on cuda:0, kernel route and plain
     data = synthetic_task(np.random.default_rng(SEED), 1000, 100, 100,
@@ -775,7 +793,7 @@ def main():
             for shape, a in read_args.items()}})
     for (kname, shape), (t_k, t_p, t_dev) in k_times.items():
         print(f"[8 train-times] {kname} alone, {shape} shape (B="
-              f"{TRAIN_BATCH if shape == 'train' else EVAL_CHUNK}): kernel "
+              f"{EVAL_CHUNK if shape == 'eval' else TRAIN_BATCH}): kernel "
               f"{t_k:.4f} ms (device {t_dev:.4f} ms), plain {t_p:.4f} ms",
               flush=True)
     print("[8 library] no single PyTorch call computes qmatvec, the "
@@ -784,15 +802,15 @@ def main():
 
     # 9. attention mode 3: the Hamming kernel, and the mode-3 branches of
     # the read and chain kernels, against their plain versions on the card
-    ham_err, ham_shapes = 0.0, {"train": (TRAIN_BATCH, 10, 60),
-                                "eval": (EVAL_CHUNK, 10, 60),
-                                "wide": (TRAIN_BATCH, 50, 60)}
+    ham_err, ham_args = 0.0, {}
+    ham_shapes = {"train": (TRAIN_BATCH, 10, 60), "eval": (EVAL_CHUNK, 10, 60),
+                  "wide": (TRAIN_BATCH, 50, 60)}
     for name, (B, M, D) in ham_shapes.items():
         unequal, n_cmp = [], 0
         for iwl in HAM_IWLS:
             m, u = (torch.from_numpy(a).to(dev)
                     for a in ham_inputs(rng, iwl, B, M, D))
-            for round_mode in (3, 1):
+            for round_mode in ROUND_MODES:
                 for para, weighted in HAM_VARIANTS:
                     args = (m, u, iwl, 8, -3, round_mode, para, weighted)
                     got = ham.hamming_score_kernel(*args)
@@ -808,33 +826,50 @@ def main():
               f"bit-identical: {', '.join(unequal) or 'none'}", flush=True)
         if unequal:
             fail(f"hamming kernel differs from its plain version ({name})")
+    # from num_bit 20 on a weighted row sum may round, in another order than
+    # the plain sum's: the largest difference, written down, not gated
+    m, u = (torch.from_numpy(a).to(dev)
+            for a in ham_inputs(rng, 1, TRAIN_BATCH, 10, 60))
+    above = {nb: max(float((ham.hamming_score_kernel(m, u, 1, nb, -3, 3, para)
+                            - ham.hamming_score_reference(
+                                m, u, 1, nb, -3, 3, para)).abs().max())
+                     for para in (0, -1))
+             for nb in range(20, 33)}
+    print("[9 mode3-kernels] hamming B=32 iwl 1, num_bit 20..32: max "
+          "|kernel - plain| " + ", ".join(f"{nb}: {d:.3g}"
+                                         for nb, d in above.items()),
+          flush=True)
 
     cfg3 = QmannConfig(iwl=1, attention_mode=3, use_pallas=True,
                        verbose=False)
     fmt3 = cfg3.fmt_act[0]
     nb3 = cfg3.num_bits_attention
-    ar3_err, read3_args, ham_args = 0.0, {}, {}
+    ar3_err, read3_args = 0.0, {}
     for name, (B, V, M, W) in train_shapes.items():
-        _, _, _, _, mask_t, (m, c, u) = read_inputs(cfg3, B, V, M, W)
-        args = (m, c, u, mask_t.to(torch.float32), cfg3.fmt_att[0],
-                cfg3.fmt_bin, fmt3, False, True, 3, nb3)
-        got = ar.fused_read(*args)
-        want = ar.fused_read_reference(*args)
-        torch.cuda.synchronize()
-        diffs, flips, good, sound = check_read(got, want, fmt3, True)
-        ar3_err = max(ar3_err, *diffs.values())
-        print(f"[9 mode3-kernels] attention_read {name} mode 3 iwl 1: B={B} "
-              f"M={M} D={cfg3.dim_emb}: max|diff| "
-              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
-              + f"; flipped Q(p, act) queries {flips}; padded samples p=0, "
-              f"o=Q(0), finite: {sound}", flush=True)
-        if not (good and sound):
-            fail(f"attention_read kernel disagrees with its plain version "
-                 f"({name}, mode 3)")
-        if name != "wide":
-            read3_args[name] = args
-            ham_args[name] = (m, u, cfg3.fmt_att[0].iwl, nb3, -3,
-                              cfg3.fmt_att[0].mode)
+        _, _, _, _, mask_t, (m, c, u) = read_inputs(rng, cfg3, B, V, M, W,
+                                                    dev)
+        for rm in ROUND_MODES:
+            cfg_r = cfg3.replace(quant_mode=rm)
+            fa = cfg_r.fmt_act[0]
+            args = (m, c, u, mask_t.to(torch.float32), cfg_r.fmt_att[0],
+                    cfg_r.fmt_bin, fa, False, True, 3, nb3)
+            got = ar.fused_read(*args)
+            want = ar.fused_read_reference(*args)
+            torch.cuda.synchronize()
+            diffs, flips, good, sound = check_read(got, want, fa, True)
+            ar3_err = max(ar3_err, *diffs.values())
+            print(f"[9 mode3-kernels] attention_read {name} mode 3 iwl 1 "
+                  f"round {rm}: B={B} M={M} D={cfg3.dim_emb}: max|diff| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+                  + f"; flipped Q(p, act) queries {flips}; padded samples "
+                  f"p=0, o=Q(0), finite: {sound}", flush=True)
+            if not (good and sound):
+                fail(f"attention_read kernel disagrees with its plain "
+                     f"version ({name}, mode 3, round {rm})")
+            if rm == cfg3.quant_mode:
+                read3_args[name] = args
+        ham_args[name] = (m, u, cfg3.fmt_att[0].iwl, nb3, -3,
+                          cfg3.fmt_att[0].mode)
 
     cfg_c3 = QmannConfig(use_fused_chain=True, attention_mode=3)
     ham_kw = dict(attention_mode=3, ham_num_bit=cfg_c3.num_bits_attention)
@@ -965,9 +1000,10 @@ def main():
             lambda a=a: ham.hamming_score_kernel(*a),
             lambda a=a: ham.hamming_score_reference(*a))
             for shape, a in ham_args.items()},
-         ("attention_read", "train"): (
-             lambda: ar.fused_read(*read3_args["train"]),
-             lambda: ar.fused_read_reference(*read3_args["train"]))})
+         **{("attention_read", shape): (
+             lambda a=a: ar.fused_read(*a),
+             lambda a=a: ar.fused_read_reference(*a))
+            for shape, a in read3_args.items()}})
     k3.update({("hop_chain", launch): t for launch, t in time_chain(
         chain3_args, chain3_prep, **ham_kw).items()})
     for (kname, shape), (t_k, t_p, t_dev) in k3.items():
@@ -988,6 +1024,19 @@ def main():
     b_read = attention_read_bound(*read_args["train"][:4])
     b_read3 = attention_read_bound(*read3_args["train"][:4], num_bit=nb3)
     b_ham = hamming_bound(*ham_args["train"][:2], num_bit=nb3)
+
+    def at_shapes(times, kname, args, bound, shapes=("eval", "wide")):
+        """The kernels-line entries of kname beyond the training shape:
+        times, and the bound computed from that shape's inputs."""
+        out = {}
+        for shape in shapes:
+            t_k, t_p, t_dev = times[kname, shape]
+            b = bound(args[shape])
+            out[shape] = {"batch": int(args[shape][0].shape[0]),
+                          "rows": int(args[shape][0].shape[1]),
+                          "ms": t_k, "plain_ms": t_p, "device_ms": t_dev,
+                          "bound_ms": b[0], "bound_by": b[1]}
+        return out
     print(json.dumps({"kernels": [
         {"name": "hop_chain", "route": "cuda", "redesigned_in": 4,
          "source": "qmann_tpu_torch/csrc/hop_chain.cu",
@@ -1028,11 +1077,17 @@ def main():
          "plain_ms": k_times["attention_read", "train"][1],
          "device_ms": k_times["attention_read", "train"][2],
          "bound_ms": b_read[0], "bound_by": b_read[1], "library_ms": None,
+         "redesigned_in": 5,
+         **at_shapes(k_times, "attention_read", read_args,
+                     lambda a: attention_read_bound(*a[:4])),
          "mode3": {"launches": ar3_launches, "max_abs_err": ar3_err,
                    "ms": k3["attention_read", "train"][0],
                    "plain_ms": k3["attention_read", "train"][1],
                    "device_ms": k3["attention_read", "train"][2],
-                   "bound_ms": b_read3[0], "bound_by": b_read3[1]}},
+                   "bound_ms": b_read3[0], "bound_by": b_read3[1],
+                   **at_shapes(k3, "attention_read", read3_args,
+                               lambda a: attention_read_bound(
+                                   *a[:4], num_bit=nb3))}},
         {"name": "hamming_score", "route": "cuda",
          "source": "qmann_tpu_torch/csrc/hamming.cu",
          "replaces": "qmann_tpu/ops/pallas/qkernels.py:171",
@@ -1040,7 +1095,10 @@ def main():
          "ms": k3["hamming", "train"][0],
          "plain_ms": k3["hamming", "train"][1],
          "device_ms": k3["hamming", "train"][2],
-         "bound_ms": b_ham[0], "bound_by": b_ham[1], "library_ms": None},
+         "bound_ms": b_ham[0], "bound_by": b_ham[1], "library_ms": None,
+         "redesigned_in": 5,
+         **at_shapes(k3, "hamming", ham_args,
+                     lambda a: hamming_bound(*a[:2], num_bit=nb3))},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,27 @@
 //      where the words' sign bits differ (weighted only);
 //   4. times 2^const_scale, requantized at (iwl, 31-iwl).
 // The caller sums the terms of a memory row and requantizes the sum at the
-// same format.
+// same format (FastQ31, qformat.cuh).
+//
+// The rounding mode is a template argument (the kernels instantiate one
+// per mode), so the encode and both requants compile without a branch.
+// ham_encode and ham_pair are split so that a kernel encodes each query's
+// u once and pairs the word with each memory row's.
+//
+// The word form of step 3.  Let match = ~differ & mask, with mask the
+// bits 30 .. 32-num_bit (the bits i in [1, num_bit), bit i at position
+// 31-i).  Read as an integer, match is sum 2^(31-i) over the matching i,
+// so the weighted sum is (float)match * 2^(-31-weight_para) and the
+// unweighted count is popc(match).  Both equal the ascending float32 loop
+// exactly while the weighted sum has at most 24 significant bits, that is
+// for num_bit <= 25: then match converts to float32 exactly, the power of
+// two scales it exactly (weight_para in [-32, 32] keeps every value a
+// normal float32), and every partial sum of the loop is exact on the same
+// grid.  From num_bit 26 on the sum has more bits than float32 holds and
+// the loop rounds (once at 26, where it still agrees with the word form;
+// twice or more from 27, where they differ); those launches (HamFmt.word
+// == 0) keep the loop.  The count is exact at any num_bit
+// (tests/test_torch_fastq31.py checks both forms against the loop).
 //
 // The encode works in float32 with no hi/lo split: |x| <= 2^iwl is a
 // float32 times a power of two, so s = |x| * 2^(31-iwl) <= 2^31 is exact,
@@ -38,13 +58,14 @@
 namespace qmann {
 
 struct HamFmt {
-  QFmt full;     // (iwl, 31-iwl, mode): the encode bound and scale, and the
-                 // requant of each term and of the row sum
-  float cscale;  // 2^const_scale
-  float w1;      // the weight of bit 1
-  float wstep;   // w_(i+1) / w_i: 0.5 weighted, 1 unweighted
-  int num_bit;   // bits compared: [1, num_bit)
-  int weighted;  // negate on a sign mismatch
+  QFmt full;       // (iwl, 31-iwl, mode): the encode bound and scale, and the
+                   // requant of each term and of the row sum
+  float cscale;    // 2^const_scale
+  float wscale;    // 2^(-31-weight_para): the weight of match's bit 0
+  uint32_t mask;   // bits 30 .. 32-num_bit: the compared bits
+  int num_bit;     // bits compared: [1, num_bit)
+  int weighted;    // weights 2^(-i-weight_para), negated on a sign mismatch
+  int word;        // the word form is exact: unweighted, or num_bit <= 25
 };
 
 // Fills h; false when a knob is out of range (the caller returns
@@ -57,56 +78,63 @@ inline bool make_hamfmt(int iwl, int mode, int num_bit, int const_scale,
     return false;
   if (!make_qfmt(iwl, 31 - iwl, mode, &h->full)) return false;
   h->cscale = std::ldexp(1.f, const_scale);
-  h->w1 = weighted ? std::ldexp(1.f, -1 - weight_para) : 1.f;
-  h->wstep = weighted ? 0.5f : 1.f;
+  h->wscale = std::ldexp(1.f, -31 - weight_para);
+  // bits [32-num_bit, 31) set; none at num_bit 1
+  h->mask =
+      0x7fffffffu & ~((num_bit >= 32 ? 1u : (1u << (32 - num_bit))) - 1u);
   h->num_bit = num_bit;
   h->weighted = weighted != 0;
+  h->word = !weighted || num_bit <= 25;
   return true;
 }
 
+template <int Mode>
 __device__ __forceinline__ uint32_t ham_encode(float x, const HamFmt& h) {
   const float ax = fabsf(x);
   const bool neg = x < 0.f;
-  uint32_t mag;
-  if (ax > h.full.maxf) {  // strict: |x| == 2^iwl does not saturate
-    mag = 0x7fffffffu;
-  } else {
-    const float s = ax * h.full.scale;
-    float c;
-    switch (h.full.mode) {
-      case 0: c = neg ? ceilf(s) : floorf(s); break;
-      case 1: c = neg ? floorf(s) : ceilf(s); break;
-      case 2: c = rintf(s); break;
-      default: c = truncf(s); break;
-    }
-    mag = c >= 2147483648.f ? (neg ? 0u : 0x7fffffffu) : (uint32_t)c;
-  }
+  const float s = ax * h.full.scale;
+  float c;
+  if constexpr (Mode == 0) c = neg ? ceilf(s) : floorf(s);
+  else if constexpr (Mode == 1) c = neg ? floorf(s) : ceilf(s);
+  else c = round_by<Mode>(s);
+  uint32_t mag = c >= 2147483648.f ? (neg ? 0u : 0x7fffffffu) : (uint32_t)c;
+  mag = ax > h.full.maxf ? 0x7fffffffu : mag;  // strict: 2^iwl stays
   return neg ? (mag | 0x80000000u) : mag;
 }
 
-__device__ __forceinline__ float ham_term(float m, float u, const HamFmt& h) {
-  const uint32_t wm = ham_encode(m, h), wu = ham_encode(u, h);
+// The requanted term of one pair of encoded words.  Word: the word form
+// (only where h.word says it is exact); else the float loop.
+template <int Mode, bool Word>
+__device__ __forceinline__ float ham_pair(uint32_t wm, uint32_t wu,
+                                          const HamFmt& h) {
   const uint32_t sm = wm & 0x80000000u, su = wu & 0x80000000u;
-  uint32_t mm = wm & 0x7fffffffu, mu = wu & 0x7fffffffu;
+  const uint32_t mm = wm & 0x7fffffffu, mu = wu & 0x7fffffffu;
   const uint32_t mn = mm < mu ? mm : mu;
-  if (sm == su) {
-    mm -= mn;
-    mu -= mn;
-  } else if (mm >= mu) {
-    mm += mn;
-    mu = 0u;
+  const bool same = sm == su, ge = mm >= mu;
+  const uint32_t pm = same ? mm - mn : (ge ? mm + mn : 0u);
+  const uint32_t pu = same ? mu - mn : (ge ? 0u : mu + mn);
+  const uint32_t differ = (sm | pm) ^ (su | pu);
+  const uint32_t match = ~differ & h.mask;
+  float sim;
+  if constexpr (Word) {
+    sim = h.weighted ? (float)match * h.wscale : (float)__popc(match);
   } else {
-    mu += mn;
-    mm = 0u;
+    sim = 0.f;
+    float w = h.weighted ? h.wscale * 1073741824.f : 1.f;  // w_1
+    const float step = h.weighted ? 0.5f : 1.f;
+    for (int i = 1; i < h.num_bit; ++i) {
+      if ((match >> (31 - i)) & 1u) sim += w;
+      w *= step;
+    }
   }
-  const uint32_t differ = (sm | mm) ^ (su | mu);
-  float sim = 0.f, w = h.w1;
-  for (int i = 1; i < h.num_bit; ++i) {
-    if (!((differ >> (31 - i)) & 1u)) sim += w;
-    w *= h.wstep;
-  }
-  if (h.weighted && (differ & 0x80000000u)) sim = -sim;
-  return fq(sim * h.cscale, h.full);
+  sim = h.weighted && (differ & 0x80000000u) ? -sim : sim;
+  return FastQ31<Mode>::from(h.full)(sim * h.cscale);
+}
+
+template <int Mode, bool Word>
+__device__ __forceinline__ float ham_term(float m, float u, const HamFmt& h) {
+  return ham_pair<Mode, Word>(ham_encode<Mode>(m, h), ham_encode<Mode>(u, h),
+                              h);
 }
 
 }  // namespace qmann

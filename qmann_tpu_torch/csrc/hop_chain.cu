@@ -25,7 +25,8 @@
 //  - fixes the rounding mode at compile time and saturates without a
 //    branch (FastQ<Mode>, qformat.cuh; the C entry picks one of four
 //    instances by the launch's one mode, and the runtime AnyQ instance
-//    only for binary or 31-bit formats).  This step alone halved the
+//    only for binary or 31-bit formats; the mode-3 term takes the same
+//    mode, hamming.cuh).  This step alone halved the
 //    first design's time and more: its runtime switch and saturation select
 //    compiled to branches and convergence barriers around every requant;
 //  - stages each hop's A and C slices of the block's queries in shared
@@ -48,8 +49,10 @@
 //    (ops/cuda/hop_chain.py::chain_geometry), with dynamic shared memory
 //    opted in above 48 KB.
 // Measured on one H100 80GB HBM3 at 700 W (device time, B=1000, flagship;
-// PERF.md, section 6): 0.029 ms in mode 2 and 0.045 ms in mode 3 on the
-// cached Q(H), from 0.108 and 0.118 ms for the first design.
+// PERF.md, section 6): 0.028 ms in mode 2 and 0.032 ms in mode 3 on the
+// cached Q(H), from 0.108 and 0.118 ms for the first design (mode 3 took
+// 0.045 ms before its Hamming term got the compile-time rounding mode and
+// the word form of hamming.cuh).
 //
 // Numerics: every lattice sum is exact in float32 (quantized products lie
 // on the 2^-frac grid, partial sums stay under 2^24 units), so the sums
@@ -64,6 +67,7 @@
 
 #include <cuda_runtime.h>
 
+#include "block_ops.cuh"
 #include "hamming.cuh"
 #include "qformat.cuh"
 
@@ -71,9 +75,13 @@ namespace {
 
 using qmann::AnyQ;
 using qmann::FastQ;
+using qmann::FastQ31;
 using qmann::HamFmt;
 using qmann::QFmt;
-using qmann::fq;
+using qmann::cp_async16;
+using qmann::cp_async4;
+using qmann::cp_async_commit;
+using qmann::cp_async_wait_all;
 using qmann::ham_term;
 using qmann::warp_max;
 using qmann::warp_sum;
@@ -98,28 +106,6 @@ size_t smem_floats(int qpb, int M, int D) {
          + (size_t)D * (D + 1)         // Q(H[h]), row stride D+1
          + (size_t)3 * qpb * D         // u, Q(u, bin), u_map
          + (size_t)3 * qpb * M;        // scores, Q(p, act), live
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Issue the copies of hop h's A and C slices of the block's nq queries
@@ -166,7 +152,7 @@ __device__ __forceinline__ void stage_h(float* hq, const float* hmats, int D,
   cp_async_commit();
 }
 
-template <class Q>
+template <class Q, int HamMode>
 __global__ void __launch_bounds__(kMaxThreads)
 hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
                  const float* __restrict__ u_in,    // [B, D] Q(., fmt_w[0])
@@ -275,10 +261,13 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
         const float* mrow = st + (size_t)(on ? task : 0) * D2;
         float acc = 0.f;
         if (on) {
-          if (hamming) {
+          if (hamming && hf.word) {
 #pragma unroll 2
             for (int d = g; d < D; d += G)
-              acc += ham_term(mrow[d], u[q * D + d], hf);
+              acc += ham_term<HamMode, true>(mrow[d], u[q * D + d], hf);
+          } else if (hamming) {
+            for (int d = g; d < D; d += G)
+              acc += ham_term<HamMode, false>(mrow[d], u[q * D + d], hf);
           } else {
 #pragma unroll 4
             for (int d = g; d < D; d += G) acc += fa(mrow[d] * ubin[q * D + d]);
@@ -287,7 +276,8 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
         for (int o = G >> 1; o > 0; o >>= 1)
           acc += __shfl_xor_sync(0xffffffffu, acc, o);
         if (on && g == 0) {
-          const float sc = hamming ? fq(acc, hf.full) : fa(acc);
+          const float sc =
+              hamming ? FastQ31<HamMode>::from(hf.full)(acc) : fa(acc);
           s[task] = sc;
           s_out[out_off + task] = sc;
         }
@@ -368,7 +358,7 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
   for (int t = tid; t < nq * D; t += T) u_out[(size_t)b0 * D + t] = u[t];
 }
 
-template <class Q>
+template <class Q, int HamMode>
 int launch(const float* flat, const float* u, const float* hmats,
            const int* mask, float* u_out, float* p_out, float* s_out, int B,
            int M, int D, int K, int qpb, int threads, int linear_mapping,
@@ -381,14 +371,15 @@ int launch(const float* flat, const float* u, const float* hmats,
   cudaGetDevice(&dev);
   if (bytes > 48 * 1024 && !(dev < 64 && opted_in[dev])) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        hop_chain_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        hop_chain_kernel<Q, HamMode>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         kSmemLimit);
     if (rc != cudaSuccess) return (int)rc;
     if (dev < 64) opted_in[dev] = true;
   }
   const int vec16 = D % 4 == 0 && ((uintptr_t)flat & 15u) == 0;
   const int blocks = (B + qpb - 1) / qpb;
-  hop_chain_kernel<Q><<<blocks, threads, bytes, stream>>>(
+  hop_chain_kernel<Q, HamMode><<<blocks, threads, bytes, stream>>>(
       flat, u, hmats, mask, u_out, p_out, s_out, B, M, D, K, qpb,
       linear_mapping, h_quantized, non_linearity, hamming, vec16, formats);
   return (int)cudaGetLastError();
@@ -432,22 +423,33 @@ extern "C" int qmann_hop_chain(const float* flat, const float* u,
   if (attention_mode != 2 && attention_mode != 3)
     return (int)cudaErrorInvalidValue;
   const int hamming = attention_mode == 3;
+  // the Hamming term's rounding mode is fixed at compile time too: the
+  // hops' att formats share one mode (the launch's, when FastQ runs)
+  const int ham_mode = hamming ? formats.f[K].mode : formats.f[0].mode;
   for (int h = 0; hamming && h < K; ++h)
     if (!qmann::make_hamfmt(fmts[3 * (K + h)], fmts[3 * (K + h) + 2],
                             ham_knobs[0], ham_knobs[1], ham_knobs[2],
-                            ham_knobs[3], &formats.ham[h]))
+                            ham_knobs[3], &formats.ham[h]) ||
+        formats.ham[h].full.mode != ham_mode)
       return (int)cudaErrorInvalidValue;
   const auto st = (cudaStream_t)stream;
-#define QMANN_CHAIN_LAUNCH(QT)                                              \
-  launch<QT>(flat, u, hmats, mask, u_out, p_out, s_out, B, M, D, K, qpb,    \
-             threads, linear_mapping, hmats_quantized, non_linearity,       \
-             hamming, formats, st)
-  if (!fast) return QMANN_CHAIN_LAUNCH(AnyQ);
-  switch (formats.f[0].mode) {
-    case 0: return QMANN_CHAIN_LAUNCH(FastQ<0>);
-    case 1: return QMANN_CHAIN_LAUNCH(FastQ<1>);
-    case 2: return QMANN_CHAIN_LAUNCH(FastQ<2>);
-    default: return QMANN_CHAIN_LAUNCH(FastQ<3>);
+#define QMANN_CHAIN_LAUNCH(QT, HM)                                          \
+  launch<QT, HM>(flat, u, hmats, mask, u_out, p_out, s_out, B, M, D, K,     \
+                 qpb, threads, linear_mapping, hmats_quantized,             \
+                 non_linearity, hamming, formats, st)
+  switch (ham_mode) {
+    case 0:
+      return fast ? QMANN_CHAIN_LAUNCH(FastQ<0>, 0)
+                  : QMANN_CHAIN_LAUNCH(AnyQ, 0);
+    case 1:
+      return fast ? QMANN_CHAIN_LAUNCH(FastQ<1>, 1)
+                  : QMANN_CHAIN_LAUNCH(AnyQ, 1);
+    case 2:
+      return fast ? QMANN_CHAIN_LAUNCH(FastQ<2>, 2)
+                  : QMANN_CHAIN_LAUNCH(AnyQ, 2);
+    default:
+      return fast ? QMANN_CHAIN_LAUNCH(FastQ<3>, 3)
+                  : QMANN_CHAIN_LAUNCH(AnyQ, 3);
   }
 #undef QMANN_CHAIN_LAUNCH
 }

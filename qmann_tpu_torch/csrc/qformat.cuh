@@ -2,8 +2,9 @@
 // CUDA kernels (hop_chain.cu, qmatvec.cu, attention_read.cu, hamming.cu).
 //
 // fq() is float_quant of qmann_tpu/numerics/fixed.py element by element
-// (FastQ<Mode> is the same for the formats it takes, with the mode fixed at
-// compile time; AnyQ wraps fq behind the same interface):
+// (FastQ<Mode> and FastQ31<Mode> are the same for the formats they take,
+// with the mode fixed at compile time; AnyQ wraps fq behind the same
+// interface):
 // saturating float->int32 conversion (+-2^31 clamp), the INT_MIN magnitude
 // wrap at iwl+frac == 31, saturation decided on the pre-conversion value,
 // and the binary format (iwl+frac == 0) mapping 0 to +1.  Each format's
@@ -85,20 +86,60 @@ __device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
   return r;
 }
 
+// The rounding of fq's mode `Mode`: 0 floor, 1 ceil, 2 half-even, 3 trunc.
+template <int Mode>
+__device__ __forceinline__ float round_by(float s) {
+  if constexpr (Mode == 0) return floorf(s);
+  else if constexpr (Mode == 1) return ceilf(s);
+  else if constexpr (Mode == 2) return rintf(s);
+  else return truncf(s);
+}
+
 template <int Mode>
 struct FastQ {
   float maxf, scale, inv_scale;
   __device__ __forceinline__ float operator()(float x) const {
-    const float s = x * scale;
-    float q;
-    if constexpr (Mode == 0) q = floorf(s);
-    else if constexpr (Mode == 1) q = ceilf(s);
-    else if constexpr (Mode == 2) q = rintf(s);
-    else q = truncf(s);
-    return clamp_nan(q * inv_scale, -maxf, maxf);
+    return clamp_nan(round_by<Mode>(x * scale) * inv_scale, -maxf, maxf);
   }
   static __host__ __device__ FastQ from(const QFmt& f) {
     return FastQ{f.maxf, f.scale, f.inv_scale};
+  }
+};
+
+// fq for a 31-bit format (iwl+frac == 31, iwl in [0, 31]): the full-width
+// format of the Hamming score (hamming.cuh), with the mode fixed at
+// compile time and no branch:
+//   FastQ31(x) = x == -maxf ? 0 : clamp_nan(round(x*s) * (1/s), -maxf, maxf)
+//
+// Why this equals fq there.  s = 2^frac.  float32 rounds 2^31-1 up to
+// 2^31, so maxf = 2^31 / s = 2^iwl exactly, and maxf*s = 2^31.
+//  - -maxf < x <= maxf: x*s (exact, a power-of-two scaling) lies in
+//    (-2^31, 2^31]; a float32 of magnitude >= 2^23 is an integer and the
+//    floats just above -2^31 are -2^31 + 128 and beyond, so the rounding
+//    leaves every value of magnitude >= 2^23 in place and keeps the rest
+//    within (-2^23, 2^23]: the result stays in (-2^31, 2^31].  fq's +-2^31
+//    clamp never binds, its INT_MIN wrap (x*s <= -2^31) never fires, and
+//    the dequantized value lies in (-maxf, maxf], where the clamp is the
+//    identity;
+//  - x == -maxf: x*s == -2^31, where fq's INT_MIN wrap gives 0 and its
+//    saturation select (strict: x < -maxf) does not fire: 0, as the select
+//    above gives;
+//  - x > maxf (+inf included): x*s > 2^31, every rounding leaves it >= 2^31,
+//    so the clamp gives maxf, as fq's select does; x < -maxf likewise gives
+//    -maxf (fq's select overrides its wrap there);
+//  - NaN: x == -maxf is false and max.NaN / min.NaN keep NaN, as fq does.
+// tests/test_torch_fastq31.py checks the formula against float_quant for
+// every iwl in [0, 31] and every mode on an edge list.
+template <int Mode>
+struct FastQ31 {
+  float maxf, scale, inv_scale;
+  __device__ __forceinline__ float operator()(float x) const {
+    const float v =
+        clamp_nan(round_by<Mode>(x * scale) * inv_scale, -maxf, maxf);
+    return x == -maxf ? 0.f : v;
+  }
+  static __host__ __device__ FastQ31 from(const QFmt& f) {
+    return FastQ31{f.maxf, f.scale, f.inv_scale};
   }
 };
 

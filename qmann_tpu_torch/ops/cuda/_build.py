@@ -55,9 +55,8 @@ def build(source: Path) -> Tuple[Path, str]:
 
 
 def check_one_rounding_mode(fmts: Sequence[QFormat], name: str) -> None:
-    """The chain and lattice kernels fix the rounding mode at compile time:
-    a launch's non-binary formats must share one (every QmannConfig's
-    formats do)."""
+    """The kernels fix the rounding mode at compile time: a launch's
+    non-binary formats must share one (every QmannConfig's formats do)."""
     modes = {f.mode for f in fmts if not f.is_binary}
     if len(modes) > 1:
         raise ValueError(f"{name}: the kernel takes one rounding mode per "

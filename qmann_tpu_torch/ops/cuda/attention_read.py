@@ -16,8 +16,12 @@ is built with nvcc at first use (``ops/cuda/_build.py``) and bound with
 ctypes.
 
 ``fused_read`` dispatches on the device of ``m``: a CPU tensor takes
-``fused_read_reference``; a CUDA tensor launches the kernel or raises.
-``fused_read.launches`` counts kernel launches.
+``fused_read_reference``; a CUDA tensor launches the kernel or raises
+(also when the formats it quantizes with mix rounding modes: the kernel
+fixes the mode at compile time).  ``read_geometry`` gives the launch's
+queries per block, threads, lanes per memory row, row groups of the
+weighted sum and shared memory.  ``fused_read.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -31,14 +35,30 @@ import torch
 from qmann_tpu_torch.numerics import QFormat
 from qmann_tpu_torch.ops.attention import hamming_score_reference
 from qmann_tpu_torch.ops.cuda import _build
+from qmann_tpu_torch.ops.cuda.geometry import (
+    BlockGeometry, block_geometry, check_shape,
+)
 from qmann_tpu_torch.ops.cuda.hamming import check_knobs
 from qmann_tpu_torch.ops.qlinear import qscore_forward, qweighted_sum_forward
 from qmann_tpu_torch.ops.softmax import masked_softmax
 
 SOURCE = _build.CSRC / "attention_read.cu"
 
-# bound of the kernel (csrc/attention_read.cu: kMaxMem)
-MAX_MEM = 64
+
+def read_smem_bytes(qpb: int, M: int, D: int, threads: int) -> int:
+    """Dynamic shared memory of one block (csrc/attention_read.cu's
+    smem_floats): the block's rows of m and of c, u prepared per query,
+    the scores, the weights and the live flags per query, and one partial
+    sum per thread."""
+    return 4 * (2 * qpb * M * D + qpb * D + 3 * qpb * M + threads)
+
+
+@functools.lru_cache(maxsize=None)
+def read_geometry(B: int, M: int, D: int) -> BlockGeometry:
+    """The launch geometry of the kernel for an [B, M, D] read
+    (``geometry.block_geometry``)."""
+    return block_geometry(B, M, D,
+                          lambda qpb, t: read_smem_bytes(qpb, M, D, t))
 
 
 def build() -> Tuple[Path, str]:
@@ -51,7 +71,7 @@ def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, "qmann_attention_read",
                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                          ctypes.c_int] + [ctypes.c_void_p] * 3)
 
 
 def _check_mode(attention_mode: int, fmt_att: QFormat, ham_num_bit: int,
@@ -62,6 +82,29 @@ def _check_mode(attention_mode: int, fmt_att: QFormat, ham_num_bit: int,
     if attention_mode == 3:
         check_knobs(fmt_att.iwl, ham_num_bit, ham_const_scale, fmt_att.mode,
                     ham_weight_para)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_arrays(B: int, M: int, D: int, fmt_att: QFormat,
+                   fmt_bin: QFormat, fmt_act: QFormat, score_quantized: bool,
+                   sum_quantized: bool, attention_mode: int, ham: tuple):
+    """The host arrays of a launch (formats, Hamming knobs, geometry),
+    built once per distinct launch (the C entry only reads them), after
+    the check that the formats whose rounding mode the launch compiles in
+    share one."""
+    fixed = [fmt_act] if sum_quantized else []
+    if attention_mode == 3:
+        fixed.append(QFormat(fmt_att.iwl, 31 - fmt_att.iwl, fmt_att.mode))
+    elif score_quantized:
+        fixed.append(fmt_att)
+    _build.check_one_rounding_mode(fixed, "fused_read")
+    fmts = (ctypes.c_int * 9)(*[v for f in (fmt_att, fmt_bin, fmt_act)
+                                for v in (f.iwl, f.frac, f.mode)])
+    knobs = (ctypes.c_int * 4)(*(int(v) for v in ham))
+    geo = read_geometry(B, M, D)
+    geometry = (ctypes.c_int * 4)(geo.queries_per_block, geo.threads,
+                                  geo.lanes_per_row, geo.row_groups)
+    return fmts, knobs, geometry
 
 
 def fused_read_reference(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
@@ -117,9 +160,10 @@ def fused_read(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
             f"fused_read: shapes m {tuple(m.shape)}, c {tuple(c.shape)}, "
             f"u {tuple(u.shape)}, mask {tuple(mask.shape)} do not form one "
             "read")
-    if not (B >= 1 and 1 <= M <= MAX_MEM and D >= 1):
-        raise ValueError(f"fused_read: B={B}, M={M}, D={D} outside the "
-                         f"kernel's bounds M<={MAX_MEM}")
+    check_shape("fused_read", B, M, D)
+    fmts, knobs, geometry = _launch_arrays(
+        B, M, D, fmt_att, fmt_bin, fmt_act, bool(score_quantized),
+        bool(sum_quantized), attention_mode, ham)
     for t in (c, u, mask):
         if t.device != m.device:
             raise ValueError("fused_read: inputs on different devices")
@@ -131,9 +175,6 @@ def fused_read(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
     o = torch.empty((B, D), dtype=torch.float32, device=m.device)
     p = torch.empty((B, M), dtype=torch.float32, device=m.device)
     s = torch.empty((B, M), dtype=torch.float32, device=m.device)
-    fmts = (ctypes.c_int * 9)(*[v for f in (fmt_att, fmt_bin, fmt_act)
-                                for v in (f.iwl, f.frac, f.mode)])
-    knobs = (ctypes.c_int * 4)(*(int(v) for v in ham))
     lib = load_library()
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
@@ -141,7 +182,7 @@ def fused_read(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
             m.data_ptr(), c.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
             o.data_ptr(), p.data_ptr(), s.data_ptr(), B, M, D, fmts,
             int(score_quantized), int(sum_quantized), attention_mode, knobs,
-            stream)
+            geometry, stream)
     if rc != 0:
         raise RuntimeError(
             f"attention_read kernel launch failed: CUDA error {rc}")

@@ -15,7 +15,10 @@ and bound with ctypes.
 
 ``hamming_score_kernel`` dispatches on the device of ``m``: a CPU tensor
 takes ``hamming_score_reference``; a CUDA tensor launches the kernel or
-raises.  ``hamming_score_kernel.launches`` counts kernel launches.
+raises.  ``hamming_geometry`` gives the launch's queries per block,
+threads, lanes per memory row and shared memory, by the rule it shares
+with the read kernel (``geometry.block_geometry``).
+``hamming_score_kernel.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -28,8 +31,24 @@ import torch
 
 from qmann_tpu_torch.ops.attention import hamming_score_reference
 from qmann_tpu_torch.ops.cuda import _build
+from qmann_tpu_torch.ops.cuda.geometry import (
+    BlockGeometry, block_geometry, check_shape,
+)
 
 SOURCE = _build.CSRC / "hamming.cu"
+
+
+def hamming_smem_bytes(qpb: int, M: int, D: int) -> int:
+    """Dynamic shared memory of one block (csrc/hamming.cu's smem_floats):
+    the block's rows of m and each query's encoded u."""
+    return 4 * (qpb * M * D + qpb * D)
+
+
+@functools.lru_cache(maxsize=None)
+def hamming_geometry(B: int, M: int, D: int) -> BlockGeometry:
+    """The launch geometry of the kernel for an [B, M, D] score."""
+    return block_geometry(B, M, D,
+                          lambda qpb, _: hamming_smem_bytes(qpb, M, D))
 
 
 def build() -> Tuple[Path, str]:
@@ -41,7 +60,16 @@ def build() -> Tuple[Path, str]:
 def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, "qmann_hamming_score",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry_array(B: int, M: int, D: int):
+    """The launch's geometry as the C entry reads it (only on the host),
+    built once per shape."""
+    geo = hamming_geometry(B, M, D)
+    return (ctypes.c_int * 3)(geo.queries_per_block, geo.threads,
+                              geo.lanes_per_row)
 
 
 def check_knobs(iwl: int, num_bit: int, const_scale: int, round_mode: int,
@@ -77,22 +105,21 @@ def hamming_score_kernel(m: torch.Tensor, u: torch.Tensor, iwl: int,
         raise ValueError(f"hamming_score_kernel: shapes m {tuple(m.shape)}, "
                          f"u {tuple(u.shape)}, expected [B, M, D] and [B, D]")
     B, M, D = m.shape
-    if min(B, M, D) < 1:
-        raise ValueError(f"hamming_score_kernel: B={B}, M={M}, D={D} "
-                         "outside the kernel's bounds (each >= 1)")
+    check_shape("hamming_score_kernel", B, M, D)
     if u.device != m.device:
         raise ValueError("hamming_score_kernel: inputs on different devices")
     if m.dtype != torch.float32 or u.dtype != torch.float32:
         raise TypeError("hamming_score_kernel: float32 inputs expected")
     m, u = m.contiguous(), u.contiguous()
     s = torch.empty((B, M), dtype=torch.float32, device=m.device)
+    geometry = _geometry_array(B, M, D)
     lib = load_library()
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
         rc = lib.qmann_hamming_score(
             m.data_ptr(), u.data_ptr(), s.data_ptr(), B, M, D, iwl,
             round_mode, num_bit, const_scale, weight_para, int(weighted),
-            stream)
+            geometry, stream)
     if rc != 0:
         raise RuntimeError(f"hamming kernel launch failed: CUDA error {rc}")
     hamming_score_kernel.launches += 1

@@ -195,7 +195,10 @@ def fused_hop_chain(flat: torch.Tensor, u: torch.Tensor, hmats: torch.Tensor,
     if len(fmts_w) != K or len(fmts_att) != K or len(fmts_act) != K:
         raise ValueError("fused_hop_chain: one format per hop expected")
     slots = [*fmts_w, *fmts_att, *fmts_act, fmt_bin]
-    _build.check_one_rounding_mode(slots, "fused_hop_chain")
+    # mode 3: each hop's Hamming format (iwl, 31-iwl) takes its att mode
+    hams = [QFormat(f.iwl, 31 - f.iwl, f.mode) for f in fmts_att] \
+        if attention_mode == 3 else []
+    _build.check_one_rounding_mode(slots + hams, "fused_hop_chain")
     for t in (u, hmats, mask):
         if t.device != flat.device:
             raise ValueError("fused_hop_chain: inputs on different devices")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's chain and lattice kernels of one checkout on the card.
+"""Time the port's kernels of one checkout on the card.
 
     python3 scripts/kernel_times.py [--root DIR] [--tag NAME] [--out FILE]
+                                    [--only GROUPS]
 
 Imports qmann_tpu_torch from DIR (default: this repository) and takes the
 inputs, the checks and the timers from this repository's chip_smoke.py, so
@@ -9,31 +10,60 @@ that an unpacked older commit (`git archive` into a gitignored directory)
 is timed by the same code as this one; run the versions in turns in one
 call (parent, change, change, parent) to compare them on one card.  Checks
 each kernel against its plain version first (the chain under
-chip_smoke.compare_chain, qmatvec bit for bit) and fails if one disagrees.
-Prints the card's name and power limit, then one JSON line with, per case,
-the kernel's device time (torch.profiler, ms per call) and event time (CUDA
-events around the wrapper, median of 7 samples of 20 calls):
-  - the chain at B=1000, attention modes 2 and 3, on the flagship (M=10,
-    I=29, D=60, K=3) and wide (M=50, I=114) inputs chip_smoke.py makes,
-    on raw H and, where prepare_inference caches it, on Q(H) with the
-    kernel's requant skipped ("cached": the serving path's launch);
-  - qmatvec on the A embedding at 320 rows (B=32, M=10), 1600 rows (the
-    wide layout, B=32, M=50) and 10240 rows (an evaluation chunk, B=1024);
-  - forward_prepared at B=1000 on the kernel route, modes 2 and 3: event
-    time, the profiler's device busy time and the idle share.
+chip_smoke.compare_chain, the read under chip_smoke.check_read, qmatvec
+and the Hamming kernel bit for bit) and fails if one disagrees.  Prints
+the card's name and power limit, then one JSON line with, per case, the
+kernel's device time (torch.profiler, ms per call) and event time (CUDA
+events around the wrapper, median of 7 samples of 20 calls); for the read
+and the Hamming kernel also the wrapper's host time (host_us: the host
+clock per call over 100 calls issued without a wait, median of 7 samples).
+Groups (--only takes a comma-separated subset; default all):
+  chain    the chain at B=1000, attention modes 2 and 3, on the flagship
+           (M=10, I=29, D=60, K=3) and wide (M=50, I=114) inputs
+           chip_smoke.py makes, on raw H and, where prepare_inference
+           caches it, on Q(H) with the kernel's requant skipped ("cached":
+           the serving path's launch); forward_prepared at B=1000 on the
+           kernel route, modes 2 and 3: event time, the profiler's device
+           busy time and the idle share;
+  qmatvec  qmatvec on the A embedding at 320 rows (B=32, M=10), 1600 rows
+           (the wide layout, B=32, M=50) and 10240 rows (an evaluation
+           chunk, B=1024);
+  read     the attention read in modes 1, 2 and 3 (iwl 1) at B=32, B=1024
+           and the wide layout (B=32, M=50), on the training forward's
+           inputs with 3 padded samples;
+  hamming  the Hamming score at iwl 1 and 5 (num_bit 8, weighted), at
+           B=32 and B=1024 (M=10) and the wide layout (B=32, M=50), D=60,
+           on chip_smoke.ham_inputs (the encode's edge list in sample 0);
+  steps    one training step at B=32 (forward, backward, SGD): mode 2 at
+           iwl 5 and mode 3 at iwl 1 with use_pallas, mode 3 at iwl 1 with
+           use_pallas_hamming; event time, busy time, launches, idle share;
+  state    the card's state: the read (modes 2, 3) and the Hamming kernel
+           at B=32 timed (device time) after 5 s idle and after 3 s of
+           float32 GEMMs, twice in turn, with nvidia-smi's SM and memory
+           clocks and power draw before and after each reading.
 --out appends the line to FILE too.
 """
 import argparse
 import importlib.util
 import json
+import statistics
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 BATCH = 1000
+GROUPS = ("chain", "qmatvec", "read", "hamming", "steps", "state")
+STATES = ("idle", "busy", "idle", "busy")
 CHAIN_SHAPES = {"flagship": (19, 10, 6), "wide": (64, 50, 7)}
 QMV_SHAPES = {"320": (32, 19, 10, 6), "1600": (32, 64, 50, 7),
               "10240": (1024, 19, 10, 6)}
+# (B, V, M, W): the read's inputs, as chip_smoke.py phase 6 makes them
+READ_SHAPES = {"B32": (32, 19, 10, 6), "B1024": (1024, 19, 10, 6),
+               "wide": (32, 64, 50, 7)}
+HAM_SHAPES = {"B32": (32, 10, 60), "B1024": (1024, 10, 60),
+              "wide": (32, 50, 60)}
 
 
 def load_chip_smoke():
@@ -50,7 +80,11 @@ def main():
     ap.add_argument("--root", default=str(REPO))
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--only", default=",".join(GROUPS))
     args = ap.parse_args()
+    groups = set(args.only.split(","))
+    if not groups <= set(GROUPS):
+        ap.error(f"--only takes a subset of {','.join(GROUPS)}")
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     cs = load_chip_smoke()
@@ -59,22 +93,25 @@ def main():
     if not torch.cuda.is_available():
         cs.fail("kernel_times.py needs a GPU")
     from qmann_tpu_torch.config import QmannConfig
-    from qmann_tpu_torch.data import synthetic_batch
+    from qmann_tpu_torch.data import synthetic_batch, synthetic_task
     from qmann_tpu_torch.models import memn2n
     from qmann_tpu_torch.numerics import float_quant
     from qmann_tpu_torch.ops import exact_matmul
+    from qmann_tpu_torch.ops.cuda import attention_read as ar
+    from qmann_tpu_torch.ops.cuda import hamming as ham
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
     if not Path(hop_chain.__file__).resolve().is_relative_to(root):
         cs.fail(f"imported {hop_chain.__file__}, not the checkout at {root}")
-    hop_chain.build()
-    qmv.build()
+    for mod in (hop_chain, qmv, ar, ham):
+        mod.build()
     dev = torch.device(cs.DEVICE)
     card = cs.card_line()
     print(f"[kernel_times] {args.tag or root.name} | {card}", flush=True)
     rng = np.random.default_rng(cs.SEED)
     out = {"tag": args.tag, "root": str(root), "card": card,
-           "chain": {}, "qmatvec": {}, "forward_prepared": {}}
+           "chain": {}, "qmatvec": {}, "forward_prepared": {}, "read": {},
+           "hamming": {}, "steps": {}, "state": {}}
 
     def times(fn):
         with torch.inference_mode():
@@ -82,7 +119,34 @@ def main():
                          default=float("nan"))
             return {"device_ms": dev_ms, "ms": cs.cuda_ms(fn)}
 
-    for attention_mode in (2, 3):
+    def host_us(fn, n_iter=100, samples=7):
+        """The host's time per call of fn, issued n_iter times without a
+        wait (the launches queue behind one another on the device)."""
+        per_call = []
+        with torch.inference_mode():
+            for _ in range(samples):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n_iter):
+                    fn()
+                per_call.append((time.perf_counter() - t0) / n_iter * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(per_call)
+
+    def busy(fn, entry):
+        """Event time, the profiler's device busy time, launches and idle
+        share of one call of fn, into entry."""
+        entry["ms"] = cs.cuda_ms(fn)
+        kernels = cs.device_ms(fn)
+        entry["busy_ms"] = sum(ms for ms, _ in kernels.values())
+        entry["launches"] = sum(n for _, n in kernels.values())
+        entry["idle_share"] = 1.0 - entry["busy_ms"] / entry["ms"]
+        return entry
+
+    def report(group, key):
+        print(f"[kernel_times] {group} {key}: {out[group][key]}", flush=True)
+
+    for attention_mode in (2, 3) if "chain" in groups else ():
         cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode)
         kw = dict(attention_mode=attention_mode,
                   ham_num_bit=cfg.num_bits_attention)
@@ -105,31 +169,23 @@ def main():
             out["chain"][key] = {**times(
                 lambda: hop_chain.fused_hop_chain(*chain_args, **kw)),
                 "flipped": flips}
-            print(f"[kernel_times] chain {key}: {out['chain'][key]}",
-                  flush=True)
+            report("chain", key)
             if getattr(prep, "hmats_q", None) is not None:
                 cached = (*chain_args[:2], prep.hmats_q, *chain_args[3:])
                 ck = f"{key} cached"
                 out["chain"][ck] = times(lambda: hop_chain.fused_hop_chain(
                     *cached, hmats_quantized=True, **kw))
-                print(f"[kernel_times] chain {ck}: {out['chain'][ck]}",
-                      flush=True)
+                report("chain", ck)
             if name == "flagship":
                 batch = (mem_t, que_t, mask_t)
-                fp = times(lambda: memn2n.forward_prepared(prep, *batch, cfg))
                 with torch.inference_mode():
-                    busy = cs.device_ms(lambda: memn2n.forward_prepared(
-                        prep, *batch, cfg))
-                fp["busy_ms"] = sum(ms for ms, _ in busy.values())
-                fp["launches"] = sum(n for _, n in busy.values())
-                fp["idle_share"] = 1.0 - fp["busy_ms"] / fp["ms"]
-                del fp["device_ms"]
+                    fp = busy(lambda: memn2n.forward_prepared(
+                        prep, *batch, cfg), {})
                 out["forward_prepared"][f"mode{attention_mode}"] = fp
-                print(f"[kernel_times] forward_prepared mode "
-                      f"{attention_mode}: {fp}", flush=True)
+                report("forward_prepared", f"mode{attention_mode}")
 
     cfg = QmannConfig(use_pallas=True)
-    for key, (B, V, M, W) in QMV_SHAPES.items():
+    for key, (B, V, M, W) in QMV_SHAPES.items() if "qmatvec" in groups else ():
         dims, mem, _, _ = synthetic_batch(rng, B, V, M, W)
         params = {k: 4.0 * v for k, v in memn2n.init_params(
             cfg, dims, torch.Generator().manual_seed(cs.SEED),
@@ -140,8 +196,110 @@ def main():
                            qmv.quantized_matvec_reference(*qargs)):
             cs.fail(f"qmatvec differs from its plain version ({key} rows)")
         out["qmatvec"][key] = times(lambda: qmv.quantized_matvec(*qargs))
-        print(f"[kernel_times] qmatvec {key} rows: {out['qmatvec'][key]}",
-              flush=True)
+        report("qmatvec", key)
+
+    read_cfgs = {1: cfg, 2: cfg,
+                 3: QmannConfig(iwl=1, attention_mode=3, use_pallas=True)}
+    for mode, cfg_r in read_cfgs.items() if "read" in groups else ():
+        for name, (B, V, M, W) in READ_SHAPES.items():
+            *_, mask_t, (m, c, u) = cs.read_inputs(rng, cfg_r, B, V, M, W,
+                                                   dev)
+            q = mode != 1
+            rargs = (m, c, u, mask_t.to(torch.float32), cfg_r.fmt_att[0],
+                     cfg_r.fmt_bin, cfg_r.fmt_act[0], mode == 2, q, mode,
+                     cfg_r.num_bits_attention)
+            _, flips, good, sound = cs.check_read(
+                ar.fused_read(*rargs), ar.fused_read_reference(*rargs),
+                cfg_r.fmt_act[0], q)
+            key = f"mode{mode} {name}"
+            if not (good and sound):
+                cs.fail(f"the read disagrees with its plain version ({key})")
+            out["read"][key] = {**times(lambda: ar.fused_read(*rargs)),
+                                "host_us": host_us(
+                                    lambda: ar.fused_read(*rargs)),
+                                "flipped": flips}
+            report("read", key)
+
+    for iwl in (1, 5) if "hamming" in groups else ():
+        for name, (B, M, D) in HAM_SHAPES.items():
+            m, u = (torch.from_numpy(a).to(dev)
+                    for a in cs.ham_inputs(rng, iwl, B, M, D))
+            hargs = (m, u, iwl, 8, -3, 3)
+            key = f"iwl{iwl} {name}"
+            if not torch.equal(ham.hamming_score_kernel(*hargs),
+                               ham.hamming_score_reference(*hargs)):
+                cs.fail(f"the Hamming kernel differs from its plain version "
+                        f"({key})")
+            out["hamming"][key] = {
+                **times(lambda: ham.hamming_score_kernel(*hargs)),
+                "host_us": host_us(lambda: ham.hamming_score_kernel(*hargs))}
+            report("hamming", key)
+
+    if "steps" in groups:
+        from qmann_tpu_torch.train import train_step
+        from qmann_tpu_torch.train.trainer import _batched_arrays
+        data = synthetic_task(np.random.default_rng(cs.SEED), 1000, 100, 100,
+                              19, 10, 6)
+        batch0 = {k: torch.as_tensor(v[0]).to(dev) for k, v in
+                  _batched_arrays(data.train, 32).items()}
+        mode3 = QmannConfig(iwl=1, attention_mode=3, verbose=False)
+        for key, cfg_s in (
+                ("mode2 use_pallas", QmannConfig(use_pallas=True,
+                                                 verbose=False)),
+                ("mode3 iwl1 use_pallas", mode3.replace(use_pallas=True)),
+                ("mode3 iwl1 use_pallas_hamming",
+                 mode3.replace(use_pallas_hamming=True))):
+            params = {k: 4.0 * v for k, v in memn2n.init_params(
+                cfg_s, data.dims, torch.Generator().manual_seed(cs.SEED),
+                device=dev).items()}
+            lr_t = torch.tensor(cfg_s.learning_rate, dtype=torch.float32,
+                                device=dev)
+            out["steps"][key] = busy(
+                lambda: train_step(params, batch0, lr_t, cfg_s), {})
+            report("steps", key)
+
+    if "state" in groups:
+        cfg2 = QmannConfig(use_pallas=True)
+        cfg3 = QmannConfig(iwl=1, attention_mode=3, use_pallas=True)
+        probes = {}
+        for mode, cfg_r in ((2, cfg2), (3, cfg3)):
+            *_, mask_t, (m, c, u) = cs.read_inputs(rng, cfg_r, 32, 19, 10, 6,
+                                                   dev)
+            rargs = (m, c, u, mask_t.to(torch.float32), cfg_r.fmt_att[0],
+                     cfg_r.fmt_bin, cfg_r.fmt_act[0], mode == 2, True, mode,
+                     cfg_r.num_bits_attention)
+            probes[f"read mode{mode} B32"] = (
+                lambda a=rargs: ar.fused_read(*a))
+        m, u = (torch.from_numpy(a).to(dev)
+                for a in cs.ham_inputs(rng, 1, 32, 10, 60))
+        probes["hamming iwl1 B32"] = (
+            lambda: ham.hamming_score_kernel(m, u, 1, 8, -3, 3))
+        a = torch.randn(8192, 8192, device=dev)
+
+        def clocks():
+            return subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip()
+
+        for i, state in enumerate(STATES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < (5 if state == "idle" else 3):
+                if state == "busy":
+                    a @ a
+                    torch.cuda.synchronize()
+                else:
+                    time.sleep(0.1)
+            entry = {"card_before": clocks()}
+            with torch.inference_mode():
+                for key, fn in probes.items():
+                    entry[key] = max((ms for ms, _ in
+                                      cs.device_ms(fn).values()),
+                                     default=float("nan"))
+            entry["card_after"] = clocks()
+            out["state"][f"{i} after {state}"] = entry
+            report("state", f"{i} after {state}")
 
     line = json.dumps(out)
     if args.out:

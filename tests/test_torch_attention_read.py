@@ -175,3 +175,60 @@ def test_mode3_fused_grads_match_jax(rng, fmt, sum_gq, used):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6, err_msg=name)
         assert np.isfinite(g).all()
     assert np.abs(got[0].numpy()).max() > 0     # the surrogate reaches m
+
+
+def _assert_geometry_covers(geo, B, M, D, smem_bytes):
+    """The blocks cover each query once; one block's score rounds give
+    each (query, row) G lanes of one warp that cover its D columns once;
+    its weighted sum's (row group, column) pairs cover each (row, column)
+    once; the partial sums fit the kernel's buffer of one float per
+    thread; shared memory fits the 227 KB a block may take, opted in
+    exactly above 48 KB."""
+    from qmann_tpu_torch.ops.cuda import geometry
+    qpb, T, G, R = (geo.queries_per_block, geo.threads, geo.lanes_per_row,
+                    geo.row_groups)
+    assert (geo.blocks - 1) * qpb < B <= geo.blocks * qpb
+    assert T % 32 == 0 and 32 <= T <= geometry.MAX_THREADS
+    assert G in (1, 2, 4, 8, 16, 32) and 1 <= R <= M
+    assert R == 1 or R * qpb * D <= T
+    assert geo.smem_bytes == smem_bytes(qpb, T) <= geometry.SMEM_LIMIT
+    assert geo.opt_in == (geo.smem_bytes > 48 * 1024)
+    for nq in {min(qpb, B), B - (geo.blocks - 1) * qpb}:
+        rows = nq * M
+        cols = np.zeros((rows, D), np.int64)
+        for t in range(-(-rows * G // T) * T):
+            task, g = divmod(t, G)
+            if task < rows:
+                assert (t % 32) // G == (t % 32 - g) // G   # one warp
+                cols[task, g::G] += 1
+        assert (cols == 1).all()
+        cover = np.zeros((M, nq * D), np.int64)
+        for t in range(nq * D * R):
+            rg, col = divmod(t, nq * D)
+            cover[rg::R, col] += 1
+        assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("M", [1, 10, 50, 64])
+@pytest.mark.parametrize("D", [1, 60, 256])
+def test_read_and_hamming_geometry_cover_every_query_and_row(M, D):
+    from qmann_tpu_torch.ops.cuda import hamming as ham
+    for B in (1, 7, 32, 33, 1024, 1025):
+        _assert_geometry_covers(
+            ar.read_geometry(B, M, D), B, M, D,
+            lambda qpb, t: ar.read_smem_bytes(qpb, M, D, t))
+        _assert_geometry_covers(
+            ham.hamming_geometry(B, M, D), B, M, D,
+            lambda qpb, _: ham.hamming_smem_bytes(qpb, M, D))
+
+
+def test_geometry_rule_at_the_training_shapes():
+    """The sweep's choices (PERF.md, section 6): one query per 256-thread
+    block at B=32 (512 threads at M=50), two queries per 256-thread block
+    at the B=1024 eval chunk."""
+    g = ar.read_geometry(32, 10, 60)
+    assert (g.queries_per_block, g.threads, g.blocks) == (1, 256, 32)
+    g = ar.read_geometry(32, 50, 60)
+    assert (g.queries_per_block, g.threads) == (1, 512)
+    g = ar.read_geometry(1024, 10, 60)
+    assert (g.queries_per_block, g.threads, g.blocks) == (2, 256, 512)

@@ -517,3 +517,176 @@ def test_chain_kernel_takes_cached_quantized_lin_maps(cuda, attention_mode):
     assert int(flipped.sum()) <= 1
     assert torch.equal(s_g[:, ~flipped], s_w[:, ~flipped])
     assert torch.equal(u_g[~flipped], u_w[~flipped])
+
+
+# ---------------------------------------------------------------------------
+# the redesigned read and Hamming kernels: every rounding mode, ragged
+# batches, M and D at 1 and at the kernels' limits, saturation, a binary
+# fmt_bin, samples with no live row, both sides of the word form
+# ---------------------------------------------------------------------------
+
+def _synthetic_read(B, M, D, dev, scale, seed=0):
+    """Gaussian m, c of sd `scale` (large enough that the att and act
+    formats saturate), u of sd 2, partial masks and, from B=7 on, a last
+    sample with no live row."""
+    rng = np.random.default_rng(seed + 1000 * M + D)
+    m = rng.normal(0.0, scale, (B, M, D)).astype(np.float32)
+    c = rng.normal(0.0, scale, (B, M, D)).astype(np.float32)
+    u = rng.normal(0.0, 2.0, (B, D)).astype(np.float32)
+    mask = (np.arange(M)[None, :]
+            < rng.integers(1, M + 1, B)[:, None]).astype(np.float32)
+    if B >= 7:
+        mask[-1] = 0.0
+    return [torch.from_numpy(a).to(dev) for a in (m, c, u, mask)]
+
+
+def _assert_read_matches(args, kw, quantized):
+    """One launch of the read kernel against its plain version under the
+    module docstring's tolerances; a sample with no live row gets p = 0."""
+    fmt_act = args[6]
+    before = ar.fused_read.launches
+    o_g, p_g, s_g = ar.fused_read(*args, **kw)
+    o_w, p_w, s_w = ar.fused_read_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert ar.fused_read.launches == before + 1
+    dead = args[3].sum(-1) == 0
+    assert (p_g[dead] == 0).all()
+    if not quantized:
+        for g, w in ((o_g, o_w), (p_g, p_w), (s_g, s_w)):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        return
+    assert torch.equal(s_g, s_w)
+    torch.testing.assert_close(p_g, p_w, rtol=0, atol=1e-6)
+    flipped = (float_quant(p_g, fmt_act) != float_quant(p_w, fmt_act)).any(-1)
+    assert int(flipped.sum()) <= 1
+    assert torch.equal(o_g[~flipped], o_w[~flipped])
+
+
+READ_SHAPES = [(B, M, D) for B in (1, 7, 32, 1024, 1025) for M in (1, 64)
+               for D in (1, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("attention_mode", [1, 2, 3])
+@pytest.mark.parametrize("B,M,D", READ_SHAPES)
+def test_read_kernel_every_rounding_mode(cuda, B, M, D, attention_mode,
+                                         quant_mode):
+    """Modes 1-3 at every rounding mode: Q5.2 scores with Q4.3 weighted
+    sums (mode 2; a binary fmt_bin too), the Hamming score at iwl 1 and
+    num_bit 8 in its three variants with a Q1.6 sum (mode 3), on inputs
+    that saturate the formats; the float read (mode 1)."""
+    qm = quant_mode
+    m, c, u, mask = _synthetic_read(B, M, D, cuda, scale=20.0)
+    if attention_mode == 1:
+        # small values: the float sums' rounding stays far below atol
+        fmt = QFormat(5, 2, qm)
+        _assert_read_matches((m / 400, c / 400, u / 40, mask, fmt, fmt, fmt,
+                              False, False),
+                             dict(attention_mode=1), quantized=False)
+    elif attention_mode == 2:
+        for fmt_bin in (QFormat(5, 2, qm), QFormat(0, 0, qm)):
+            args = (m, c, u, mask, QFormat(5, 2, qm), fmt_bin,
+                    QFormat(4, 3, qm), True, True)
+            _assert_read_matches(args, dict(attention_mode=2), True)
+    else:
+        fmt = QFormat(1, 6, qm)
+        for para, weighted in ((0, True), (-1, True), (0, False)):
+            args = (m / 8, c / 8, u / 2, mask, fmt, fmt, fmt, False, True)
+            _assert_read_matches(args, dict(
+                attention_mode=3, ham_num_bit=8, ham_weight_para=para,
+                ham_weighted=weighted), True)
+
+
+def _edge_pairs(iwl, seed=0):
+    """m [E, E, 1] and u [E, 1] that pair every value of the encode's edge
+    list with every other, beside Gaussian values across the range: one
+    term per row, so the row sum is the term itself."""
+    e = ham_edge_values(iwl)
+    rng = np.random.default_rng(seed + iwl)
+    vals = np.concatenate([e, rng.normal(0.0, 0.6 * 2.0 ** iwl, 40)
+                           .astype(np.float32)])
+    E = len(vals)
+    m = np.broadcast_to(vals[None, :, None], (E, E, 1)).copy()
+    u = vals[:, None].copy()
+    return m, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("iwl", [0, 1, 5, 31])
+@pytest.mark.parametrize("num_bit", [8, 25, 26])
+def test_hamming_kernel_every_rounding_mode(cuda, num_bit, iwl, quant_mode):
+    """Bit-identical in all three variants: every pair of the edge list
+    term by term (num_bit 25 takes the word form, 26 the loop), and the
+    Gaussian and edge-list inputs of ham_inputs at B=32, 1024 and the wide
+    layout at num_bit 8 (row sums exact)."""
+    cases = [tuple(torch.from_numpy(a).to(cuda) for a in _edge_pairs(iwl))]
+    if num_bit == 8:
+        cases += [tuple(torch.from_numpy(a).to(cuda)
+                        for a in ham_inputs(iwl, B, M, 60))
+                  for B, M in ((32, 10), (1024, 10), (32, 50))]
+    for m, u in cases:
+        for para, weighted in ((0, True), (-1, True), (0, False)):
+            args = (m, u, iwl, num_bit, -3, quant_mode, para, weighted)
+            before = ham.hamming_score_kernel.launches
+            got = ham.hamming_score_kernel(*args)
+            want = ham.hamming_score_reference(*args)
+            torch.cuda.synchronize()
+            assert ham.hamming_score_kernel.launches == before + 1
+            assert torch.equal(got, want), (tuple(m.shape), para, weighted)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_bit", list(range(20, 33)))
+def test_hamming_row_sums_above_num_bit_19(cuda, num_bit):
+    """From num_bit 20 on the weighted row sums may round, in another order
+    than the plain version's: the kernel stays within the float32 error of
+    two sums of D terms, |term| < 2^(const_scale - weight_para), plus one
+    step of the row requant's grid."""
+    iwl, D = 1, 60
+    m, u = (torch.from_numpy(a).to(cuda) for a in ham_inputs(iwl, 32, 10, D))
+    for para in (0, -1):
+        got = ham.hamming_score_kernel(m, u, iwl, num_bit, -3, 3, para)
+        want = ham.hamming_score_reference(m, u, iwl, num_bit, -3, 3, para)
+        bound = (2 * (D - 1) * 2.0 ** -24 * D * 2.0 ** (-3 - para)
+                 + 2.0 ** -(31 - iwl))
+        assert float((got - want).abs().max()) <= bound
+        got_u = ham.hamming_score_kernel(m, u, iwl, num_bit, -3, 3, para,
+                                         False)
+        want_u = ham.hamming_score_reference(m, u, iwl, num_bit, -3, 3, para,
+                                             False)
+        assert torch.equal(got_u, want_u)
+
+
+@pytest.mark.cuda
+def test_read_and_hamming_limits_raise_before_a_launch(cuda):
+    """M above 64 or D above 256 raises, naming the bound, and formats that
+    mix rounding modes in the read raise, before any launch (a binary
+    fmt_bin carries no mode, and an unused format is not checked)."""
+    fmt = QFormat(5, 2, 3)
+    counters = (ar.fused_read, ham.hamming_score_kernel)
+    before = [f.launches for f in counters]
+    for M, D in ((65, 8), (4, 257)):
+        m = torch.zeros((2, M, D), device=cuda)
+        u = torch.zeros((2, D), device=cuda)
+        mask = torch.ones((2, M), device=cuda)
+        with pytest.raises(ValueError, match="M<=64, 1<=D<=256"):
+            ar.fused_read(m, m, u, mask, fmt, fmt, fmt)
+        with pytest.raises(ValueError, match="M<=64, 1<=D<=256"):
+            ham.hamming_score_kernel(m, u, 1, 8)
+    m = torch.ones((2, 4, 8), device=cuda)
+    u = torch.ones((2, 8), device=cuda)
+    mask = torch.ones((2, 4), device=cuda)
+    for f_att, f_act, mode in ((QFormat(5, 2, 3), QFormat(5, 2, 0), 2),
+                               (QFormat(1, 6, 0), QFormat(1, 6, 3), 3)):
+        with pytest.raises(ValueError, match="rounding mode"):
+            ar.fused_read(m, m, u, mask, f_att, f_att, f_act,
+                          attention_mode=mode)
+    assert [f.launches for f in counters] == before
+    # a binary fmt_bin of another mode, and mode 1's unused formats, launch
+    ar.fused_read(m, m, u, mask, fmt, QFormat(0, 0, 1), fmt)
+    ar.fused_read(m, m, u, mask, fmt, fmt, QFormat(5, 2, 0), False, False,
+                  attention_mode=1)
+    torch.cuda.synchronize()
+    assert ar.fused_read.launches == before[0] + 2

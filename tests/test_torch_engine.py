@@ -172,3 +172,11 @@ def test_port_never_imports_jax():
     roots = _imported_roots(REPO / "chip_smoke.py")
     assert "qmann_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "qmann_tpu"}
+
+
+def test_kernel_times_never_imports_jax():
+    """The script that runs on the card's machine imports neither jax nor
+    the JAX package."""
+    roots = _imported_roots(REPO / "scripts/kernel_times.py")
+    assert not roots & {"jax", "jaxlib", "qmann_tpu"}
+    assert "qmann_tpu_torch" in roots
