@@ -76,9 +76,34 @@ Attention mode 3 (the Hamming attention):
                B=1000 on both routes and one train step on both routes
                (CUDA events, median of 7; the profiler's device time, busy
                time and idle share)
+The lattice past its whole-row limit, and the command-line run:
+ 13. lattice — qmatvec tiled over I (O*I + I > 12288 floats) against its
+               plain version, bit for bit, at the joint block's memory
+               embedding (O=60, I = 192 + 64 = 256; 32*64 and 1024*64 rows)
+               and at I=1024 (32*64 rows), at each rounding mode and with
+               binary fmt_w and binary fmt_x; its device and event times
+               and bounds beside the 320- and 10240-row times of phase 8
+ 14. cli     — seeded qa1-shaped stories written in the bAbI raw format
+               (tasks 1-2 and qa_joint) and the parsed format (task 1);
+               python -m qmann_tpu_torch's main() on cuda:0 at the flagship
+               widths with --use-pallas: tasks 1-2 for 2 epochs (gates:
+               result.csv and result_all.csv with one row per task, 10
+               qmatvec and 3 read launches per step and eval chunk, every
+               cost finite), its checkpoint reloaded with load_checkpoint
+               and served by prepare_inference + forward_prepared through
+               the chain kernel (predictions equal to the plain route's
+               but in a query whose Q(p, act) flipped, at most one); the
+               joint block (--joint --shuffle --dim-forced --max-dict-len
+               192 --max-sen-len 64 --use-pallas, 1 epoch: dim_input 256,
+               qmatvec launched at I=256, 10 + 3 launches per forward); mode
+               3 at iwl 1 with --use-pallas-hamming (1 epoch, 3 Hamming
+               launches per forward); bench/qps.py --synthetic (one JSON
+               line, four positive numbers); verify_kernels() on the card
+               (every entry passes)
 Then one JSON line of kernels (the read's and the Hamming kernel's with
-their eval-chunk and wide entries), the card's name and power limit, and
-as the last line {"ok": true, "device": {...}}.
+their eval-chunk and wide entries, qmatvec's with its tiled shapes), the
+card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
 Tolerances.  Chain (as tests/test_torch_chain.py) and mode-2 attention
 read: the scores bit-identical (hop 0's, for the chain); p within atol 1e-6
@@ -124,6 +149,7 @@ HAM_IWLS = (0, 1, 5, 31)
 HAM_VARIANTS = ((0, True), (-1, True), (0, False))   # weight_para, weighted
 HAM_WORD_MAX_BIT = 25   # the match word is exact as a fraction up to here
 ROUND_MODES = (3, 0, 1, 2)   # the config's default (truncation) first
+CLI_STORIES = (1000, 200)    # per task: train file (10% valid), test file
 
 
 def fail(msg):
@@ -288,6 +314,15 @@ def device_ms(fn, n_iter=20):
         if kernels:
             break
     return kernels
+
+
+def per_launch_ms(kernels):
+    """device_ms's result for a call that launches one kernel once -> the
+    kernel's device time per launch: its time over its records.  Late in
+    a long process the profiler keeps only some records (0.55 per call
+    in phase 13 of PR 6's runs), so a division by the calls under-reads."""
+    return max((ms / n for ms, n in kernels.values() if n > 0),
+               default=float("nan"))
 
 
 def ham_inputs(rng, iwl, B, M, D):
@@ -460,7 +495,11 @@ def time_steps(steps, tag):
         total = sum(ms for ms, _ in kernels.values())
         n_launch = sum(n for _, n in kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
+        dropped = any(abs(n - round(n)) > 1e-6 for _, n in kernels.values())
         print(f"[{tag}] {name}: event {t_steps[name]:.4f} ms; "
+              + ("the profiler dropped kernel records (a fractional count "
+                 "per call): busy and idle share under- and over-read; "
+                 if dropped else "")
               + (f"busy {total:.4f} ms over {n_launch:.0f} launches of "
                  f"{len(kernels)} kernels, idle share "
                  f"{1.0 - total / t_steps[name]:.3f}; top "
@@ -481,11 +520,59 @@ def time_kernels(pairs):
     out = {}
     with torch.inference_mode():
         for key, (kernel_fn, plain_fn) in pairs.items():
-            busy = device_ms(kernel_fn)
             out[key] = (cuda_ms(kernel_fn), cuda_ms(plain_fn),
-                        max((ms for ms, _ in busy.values()),
-                            default=float("nan")))
+                        per_launch_ms(device_ms(kernel_fn)))
     return out
+
+
+class _Tee:
+    """Collects what a call prints; echoes the lines that match `keep`."""
+
+    def __init__(self, keep):
+        self.keep, self.lines, self._part = keep, [], ""
+
+    def write(self, text):
+        self._part += text
+        *done, self._part = self._part.split("\n")
+        for line in done:
+            self.lines.append(line)
+            if self.keep.search(line):
+                sys.__stdout__.write(f"    | {line}\n")
+        return len(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def run_quiet(fn, argv, keep=r"ITR|err_test|Profile|^    \S+ +\d|Joint|Dim"):
+    """fn(argv) with its output collected (the lines matching keep echoed,
+    indented); returns (fn's result, the output's lines)."""
+    import contextlib
+    import re
+    tee = _Tee(re.compile(keep))
+    with contextlib.redirect_stdout(tee):
+        rc = fn(argv)
+    if tee._part:
+        tee.write("\n")
+    return rc, tee.lines
+
+
+def cli_costs(lines):
+    """(the number of epoch lines the CLI printed, whether each one's train
+    and valid losses are finite)."""
+    import re
+    pat = re.compile(r"loss: ([^,]+), ([^,]+), ")
+    costs = [float(v) for m in map(pat.search, lines) if m
+             for v in m.groups()]
+    return len(costs) // 2, all(map(math.isfinite, costs))
+
+
+def csv_rows(path):
+    """The task rows of a result CSV (after its header line)."""
+    lines = Path(path).read_text().splitlines()
+    head = max(i for i, ln in enumerate(lines)
+               if ln.startswith("ind_data_set"))
+    return [ln.split(",") for ln in lines[head + 1:]]
 
 
 def main():
@@ -1017,6 +1104,263 @@ def main():
           + ", ".join(f"{k} {v:.4f} ms" for k, v in t3_steps.items()),
           flush=True)
 
+
+    # 13. the lattice past the whole-row limit (O*I + I > 12288 floats):
+    # the kernel tiled over I, at the joint block's memory embedding (O=60,
+    # I = 192 + 64 = 256; B*M = 32*64 training rows, 1024*64 in an eval
+    # chunk) and at I=1024, bit for bit
+    cfg_j = QmannConfig(use_pallas=True, verbose=False)
+    tiled_shapes = {"joint_train": (TRAIN_BATCH, 192, 64, 7),
+                    "joint_eval": (EVAL_CHUNK, 192, 64, 7),
+                    "i1024": (TRAIN_BATCH, 960, 64, 7)}
+    tiled_args, tiled_err = {}, 0.0
+    for name, (B, V, M, W) in tiled_shapes.items():
+        dims, mem, _, _ = synthetic_batch(rng, B, V, M, W)
+        params = {k: 4.0 * v for k, v in memn2n.init_params(
+            cfg_j, dims, torch.Generator().manual_seed(SEED),
+            device=dev).items()}
+        rows = torch.from_numpy(mem).to(dev).reshape(-1, dims.dim_input)
+        geo = qmv.qmatvec_geometry(rows.shape[0], cfg_j.dim_emb,
+                                   dims.dim_input)
+        unequal = []
+        for rm in ROUND_MODES:
+            f = cfg_j.replace(quant_mode=rm).fmt_w[0]
+            for label, f_w, f_x in (("", f, f),
+                                    ("binary w", QFormat(0, 0, rm), f),
+                                    ("binary x", f, QFormat(0, 0, rm))):
+                got = qmv.quantized_matvec(params["A"], rows, f_w, f_x)
+                want = qmv.quantized_matvec_reference(params["A"], rows,
+                                                      f_w, f_x)
+                tiled_err = max(tiled_err, float((got - want).abs().max()))
+                if not torch.equal(got, want):
+                    unequal.append(f"round {rm} {label}".strip())
+                del got, want
+        torch.cuda.synchronize()
+        print(f"[13 lattice] qmatvec {name}: {rows.shape[0]} rows, "
+              f"I={dims.dim_input}, O={cfg_j.dim_emb}, tiles: "
+              f"{geo.rows_per_block} rows x {geo.o_tile} outputs x I by "
+              f"{geo.i_tile}, {geo.blocks} blocks; 12 calls (rounding modes {ROUND_MODES}, binary w "
+              f"and x); not bit-identical: {', '.join(unequal) or 'none'}",
+              flush=True)
+        if unequal:
+            fail(f"the tiled qmatvec differs from its plain version ({name})")
+        if (geo.o_tile, geo.i_tile) == (cfg_j.dim_emb, dims.dim_input):
+            fail(f"qmatvec {name} did not take the tiled kernel")
+        tiled_args[name] = (params["A"], rows, cfg_j.fmt_w[0],
+                            cfg_j.fmt_w[0])
+    t_tiled = {}
+    with torch.inference_mode():
+        for name, a in tiled_args.items():
+            big = name == "joint_eval"     # the plain lattice is 4 GB there
+            busy = device_ms(lambda a=a: qmv.quantized_matvec(*a))
+            t_tiled[name] = (
+                cuda_ms(lambda a=a: qmv.quantized_matvec(*a)),
+                cuda_ms(lambda a=a: qmv.quantized_matvec_reference(*a),
+                        n_iter=2 if big else 20, samples=3 if big else 7),
+                per_launch_ms(busy))
+            print(f"[13 lattice] profiler records for {name}: "
+                  + ", ".join(f"{k[:40]} {ms:.4f} ms per call, {n:.2f} "
+                              "records per call" for k, (ms, n)
+                              in busy.items()), flush=True)
+    b_tiled = {name: qmatvec_bound(*a[:2]) for name, a in tiled_args.items()}
+    print(f"[13 lattice] {card} | qmatvec device ms (event ms, bound ms): "
+          + "; ".join(f"{label} {t[2]:.4f} ({t[0]:.4f}, {b[0]:.4f} {b[1]})"
+                      for label, t, b in (
+                          ("320 rows I=29", k_times["qmatvec", "train"],
+                           qmatvec_bound(*qmv_args["train"][:2])),
+                          ("10240 rows I=29", k_times["qmatvec", "eval"],
+                           qmatvec_bound(*qmv_args["eval"][:2])),
+                          *((f"{tiled_args[n][1].shape[0]} rows I="
+                             f"{tiled_args[n][1].shape[1]}", t_tiled[n],
+                             b_tiled[n]) for n in tiled_args)))
+          + "; plain ms: " + ", ".join(f"{n} {t[1]:.4f}"
+                                       for n, t in t_tiled.items()),
+          flush=True)
+
+    # 14. the command-line run: python -m qmann_tpu_torch's main() on
+    # seeded qa1-shaped stories in the bAbI raw format (tasks 1-2 and
+    # qa_joint) and the parsed format (task 1), at the flagship widths
+    import tempfile
+    from qmann_tpu_torch import cli
+    from qmann_tpu_torch.bench import qps
+    from qmann_tpu_torch.data import (DataDims, load_test_split,
+                                      write_synthetic_corpus)
+    from qmann_tpu_torch.ops.losses import argmax_last
+    from qmann_tpu_torch.utils import load_checkpoint
+    from qmann_tpu_torch.utils.verification import verify_kernels
+
+    def forwards(epochs, n_file, n_test, extra_chunks=0):
+        """Training steps and eval chunks of a CLI task run: the train
+        file's last 10% is the validation split; the CLI's batch of 32."""
+        n_va, batch = int(n_file * 0.1), QmannConfig().size_batch
+        return (epochs * (math.ceil((n_file - n_va) / batch)
+                          + math.ceil(n_va / EVAL_CHUNK))
+                + math.ceil(n_test / EVAL_CHUNK) + extra_chunks)
+
+    n_file, n_test = CLI_STORIES
+    tmp = tempfile.TemporaryDirectory(prefix="qmann_cli_")
+    root = Path(tmp.name)
+    data_path, raw_path = write_synthetic_corpus(
+        str(root), np.random.default_rng(SEED), [1, 2], n_file, n_test,
+        parsed=[1])
+    files = ["--data-path", data_path, "--raw-data-path", raw_path,
+             "--device", str(dev)]
+    out = root / "run"
+    for fn in (qmv.quantized_matvec, ar.fused_read):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc, lines = run_quiet(cli.main, [
+        "1", "1", "2", "5", "--epochs", "2", "--use-pallas",
+        "--checkpoint-dir", str(out), "--out-dir", str(out), "--profile",
+        *files])
+    t_cli = time.perf_counter() - t0
+    cli_qmv, cli_ar = qmv.quantized_matvec.launches, ar.fused_read.launches
+    n_cli = 2 * forwards(2, n_file, n_test)
+    n_epochs, finite = cli_costs(lines)
+    rows = {n: csv_rows(out / n) for n in ("result.csv", "result_all.csv")}
+    print(f"[14 cli] tasks 1-2, 2 epochs, use_pallas, flagship widths: rc "
+          f"{rc}, {t_cli:.2f} s; result.csv tasks "
+          f"{[r[0] for r in rows['result.csv']]}, result_all.csv tasks "
+          f"{[r[0] for r in rows['result_all.csv']]}; {n_epochs} epoch "
+          f"lines, every cost finite: {finite}; {n_cli} forwards: "
+          f"qmatvec launches {cli_qmv} (want {10 * n_cli}), attention_read "
+          f"launches {cli_ar} (want {3 * n_cli})", flush=True)
+    if rc != 0 or any([r[0] for r in v] != ["1", "2"] for v in rows.values()):
+        fail("the CLI run did not write one result row per task")
+    if n_epochs != 4 or not finite:
+        fail("a CLI training or validation cost is not finite")
+    if (cli_qmv, cli_ar) != (10 * n_cli, 3 * n_cli):
+        fail("the CLI run did not launch the training kernels per forward")
+
+    # the checkpoint reloaded and served: the chain kernel against the
+    # plain route on task 1's test split
+    c_params, c_cfg, c_dims = load_checkpoint(
+        str(out / "qa1_single-supporting-fact_loop0"))
+    words = json.loads((out / "qa1_single-supporting-fact_loop0" /
+                        "dictionary.json").read_text())
+    c_dict = Dictionary()
+    for w in words[1:]:
+        c_dict.add(w)
+    c_dims = DataDims(**c_dims)
+    test = load_test_split("qa1_single-supporting-fact", data_path, c_dict,
+                           c_dims, raw_path=raw_path)
+    prep = memn2n.prepare_inference(
+        memn2n.params_from_jax(c_params, c_cfg, device=dev), c_cfg,
+        max_count=float(c_dims.max_word + 1),
+        max_rowsum=float(c_dims.max_word + 1))
+    batch_t = tuple(torch.from_numpy(a).to(dev) for a in (
+        test.memory, test.question, test.mask))
+    hop_chain.fused_hop_chain.launches = 0
+    with torch.inference_mode():
+        served = memn2n.forward_prepared(
+            prep, *batch_t, c_cfg.replace(use_fused_chain=True))
+        chain_served = hop_chain.fused_hop_chain.launches
+        plain = memn2n.forward_prepared(
+            prep, *batch_t, c_cfg.replace(use_fused_chain=False,
+                                          use_pallas=False))
+    flipped = torch.zeros(len(test), dtype=torch.bool, device=dev)
+    for h, fmt in enumerate(c_cfg.fmt_act):
+        flipped |= (float_quant(served.attention[h], fmt)
+                    != float_quant(plain.attention[h], fmt)).any(-1)
+    pred_s, pred_p = (argmax_last(o.logits) for o in (served, plain))
+    same = bool(torch.equal(pred_s[~flipped], pred_p[~flipped]))
+    print(f"[14 cli] checkpoint reloaded ({len(c_params)} weights, dims "
+          f"{c_dims.dim_input}, exact route {prep.fast}); {len(test)} test "
+          f"queries served: chain launches {chain_served}, predictions equal "
+          f"to the plain route's: {same} (queries with a flipped Q(p, act): "
+          f"{int(flipped.sum())}, prediction differences there "
+          f"{int((pred_s != pred_p).sum())}), accuracy "
+          f"{float((pred_s.cpu().numpy() == test.answer_index).mean()):.3f}",
+          flush=True)
+    if not prep.fast or chain_served < 1:
+        fail("the reloaded checkpoint did not serve through the chain kernel")
+    if not same or int(flipped.sum()) > 1:
+        fail("the chain's predictions on the reloaded checkpoint differ from "
+             "the plain route's")
+
+    # the joint block: dim_input 192 + 64 = 256, the tiled lattice.  A spy
+    # in the module's place records the lattice's I; the wrapper counts
+    # its launches on whatever the module's name holds meanwhile (the spy),
+    # so the launches are the two counts' sum
+    seen_i = set()
+    qmv_kernel = qmv.quantized_matvec
+
+    def qmv_spy(w, x, fmt_w, fmt_x):
+        seen_i.add(int(x.shape[-1]))
+        return qmv_kernel(w, x, fmt_w, fmt_x)
+
+    qmv_spy.launches = qmv_kernel.launches = 0
+    ar.fused_read.launches = 0
+    qmv.quantized_matvec = qmv_spy
+    t0 = time.perf_counter()
+    try:
+        rc, lines = run_quiet(cli.main, [
+            "1", "1", "2", "5", "--joint", "--shuffle", "--dim-forced",
+            "--max-dict-len", "192", "--max-sen-len", "64", "--use-pallas",
+            "--epochs", "1", "--checkpoint-dir", str(out / "joint"),
+            "--out-dir", str(out / "joint"), *files])
+    finally:
+        qmv.quantized_matvec = qmv_kernel
+    t_joint = time.perf_counter() - t0
+    joint_qmv = qmv_spy.launches + qmv_kernel.launches
+    joint_ar = ar.fused_read.launches
+    _, _, j_dims = load_checkpoint(str(out / "joint" / "qa_joint_loop0"))
+    n_joint = forwards(1, 2 * n_file, n_test, extra_chunks=2)
+    j_epochs, j_finite = cli_costs(lines)
+    j_finite &= j_epochs == 1
+    print(f"[14 cli] joint block (--joint --shuffle --dim-forced "
+          f"--max-dict-len 192 --max-sen-len 64 --use-pallas), 1 epoch: rc "
+          f"{rc}, {t_joint:.2f} s; dim_input {j_dims['dim_input']}; qmatvec "
+          f"at I = {sorted(seen_i)}, launches {joint_qmv} (want "
+          f"{10 * n_joint}), attention_read launches {joint_ar} (want "
+          f"{3 * n_joint}); costs finite: {j_finite}", flush=True)
+    if rc != 0 or j_dims["dim_input"] != 256 or 256 not in seen_i:
+        fail("the joint block did not train at dim_input 256")
+    if (joint_qmv, joint_ar) != (10 * n_joint, 3 * n_joint):
+        fail("the joint block did not launch the training kernels per "
+             "forward")
+    if not j_finite:
+        fail("a joint-block cost is not finite")
+
+    # attention mode 3 at iwl 1, the score through the Hamming kernel
+    ham.hamming_score_kernel.launches = 0
+    rc, lines = run_quiet(cli.main, [
+        "1", "1", "1", "1", "--attention-mode", "3", "--use-pallas-hamming",
+        "--epochs", "1", "--out-dir", str(out / "mode3"), *files])
+    ham_cli = ham.hamming_score_kernel.launches
+    n_m3 = forwards(1, n_file, n_test)
+    m3_epochs, m3_finite = cli_costs(lines)
+    m3_finite &= m3_epochs == 1
+    print(f"[14 cli] mode 3, iwl 1, --use-pallas-hamming, 1 epoch: rc {rc}; "
+          f"Hamming kernel launches {ham_cli} (want {3 * n_m3}); costs "
+          f"finite: {m3_finite}", flush=True)
+    if rc != 0 or ham_cli != 3 * n_m3:
+        fail("the mode-3 CLI run did not launch the Hamming kernel per hop")
+    if not m3_finite:
+        fail("a mode-3 CLI cost is not finite")
+
+    # the throughput tool
+    rc, lines = run_quiet(qps.main, [
+        "--synthetic", "--use-pallas", "--use-fused-chain", "--iters", "5",
+        "--train-iters", "1", "--requests", "512", "--max-samples", "2000",
+        "--device", str(dev)],
+        keep=r"^\{")
+    qps_line = next((json.loads(ln) for ln in reversed(lines)
+                     if ln.startswith("{")), {})
+    qps_keys = ("inference_qps", "serving_engine_qps",
+                "train_samples_per_sec", "epoch_seconds")
+    if rc != 0 or not all(qps_line.get(k, 0) > 0 for k in qps_keys):
+        fail("bench/qps.py did not print its four positive numbers")
+
+    # every hand kernel against its plain version, through the utility
+    checks = verify_kernels(device=dev)
+    for r in checks:
+        print(f"[14 verify] {r}", flush=True)
+    if not all(r.ok for r in checks):
+        fail("verify_kernels found a kernel that disagrees with its plain "
+             "version")
+    tmp.cleanup()
+
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
     b_qmv = qmatvec_bound(*qmv_args["train"][:2])
@@ -1068,7 +1412,16 @@ def main():
                   "plain_ms": k_times["qmatvec", "eval"][1],
                   "device_ms": k_times["qmatvec", "eval"][2],
                   "bound_ms": b_qmv_eval[0], "bound_by": b_qmv_eval[1]},
-         "mode3": {"launches": qmv3_launches}},
+         "mode3": {"launches": qmv3_launches},
+         "tiled_in": 6, "tiled_max_abs_err": tiled_err,
+         "cli_launches": cli_qmv, "joint_launches": joint_qmv,
+         **{name: {"rows": int(a[1].shape[0]),
+                   "dim_input": int(a[1].shape[1]), "ms": t_tiled[name][0],
+                   "plain_ms": t_tiled[name][1],
+                   "device_ms": t_tiled[name][2],
+                   "bound_ms": b_tiled[name][0],
+                   "bound_by": b_tiled[name][1]}
+            for name, a in tiled_args.items()}},
         {"name": "attention_read", "route": "cuda",
          "source": "qmann_tpu_torch/csrc/attention_read.cu",
          "replaces": "qmann_tpu/ops/pallas/qkernels.py:435",

@@ -1,23 +1,33 @@
 """bAbI data pipeline for the port (counterpart of
 ``qmann_tpu/data/babi.py``).
 
-Ported: ``Sample``, ``Dictionary``, ``DataDims``, ``compute_dims``,
-``VectorizedSplit``, ``vectorize`` (with the temporal encoding, the time
-noise and the position-encoding weights) and ``TaskData``, each held equal
-to the JAX module's by the tests; and synthetic stand-ins for the dataset,
-which is not in the repository: ``synthetic_batch`` (random qa1-shaped
-bag-of-words batches for serving) and ``synthetic_task`` (a learnable
-qa1-shaped task built through the vectorizer).  The parsers and
-``load_task`` come with the CLI (ROADMAP.md, Queue 1).  The module is plain
-numpy: the machine with the GPU has no jax, and ``qmann_tpu``'s package is
-the reference the tests compare against.
+Ported, each held equal to the JAX module's by the tests: the two parsers
+(``parse_parsed_file`` for the reference's '+NS+/+I+/+S+/+Q+/+A+' files,
+``parse_raw_file`` for the raw bAbI text, with the tokenization of the
+reference's offline parser folded in), ``Sample``, ``Dictionary``,
+``DataDims``, ``compute_dims``, ``VectorizedSplit``, ``vectorize`` (with
+the temporal encoding, the time noise and the position-encoding weights),
+``TaskData``, ``load_task`` (the train/valid split, EN_SAMPLE_SHUFFLED,
+DIM_FORCED, EN_JOINT's ``train_task_name``), ``resolve_task_file`` (parsed
+-> raw 10k -> sibling raw 'en'), ``load_samples`` (with the ``qa_joint``
+synthesis from tasks 1-20) and ``load_test_split``; and synthetic
+stand-ins for the dataset, which is not in the repository:
+``synthetic_batch`` (random qa1-shaped bag-of-words batches for serving)
+and ``synthetic_task`` (a learnable qa1-shaped task built through the
+vectorizer).  ``data/native.py`` binds the C++ parser.  The module is
+plain numpy: the machine with the GPU has no jax, and ``qmann_tpu``'s
+package is the reference the tests compare against.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from qmann_tpu_torch.config import BABI_TASKS
 
 
 @dataclasses.dataclass
@@ -25,6 +35,98 @@ class Sample:
     sentences: List[List[str]]   # most recent `max_sen_len` sentences
     question: List[str]
     answer: List[str]
+
+
+def _tokenize(sent: str) -> List[str]:
+    """parser.py:16-22: split including punctuation as separate tokens."""
+    return [x.strip() for x in re.split(r"(\W+)", sent) if x.strip()]
+
+
+def parse_parsed_file(path: str, max_sen_len: int = 50,
+                      limit: Optional[int] = None) -> List[Sample]:
+    """Parse the '+NS+' custom format (MemN2N/sample.c:87-249), keeping
+    only the most recent `max_sen_len` sentences per story
+    (sample_constructor truncation, sample.c:152-166)."""
+    with open(path, "r") as f:
+        lines = f.read().split("\n")
+    i = 0
+    # skip blank, +NS+, count (sample.c:119-121)
+    while lines[i].strip() != "+NS+":
+        i += 1
+    n_samples = int(lines[i + 1])
+    if limit is not None:
+        n_samples = min(n_samples, limit)
+    i += 2
+    samples: List[Sample] = []
+    while len(samples) < n_samples and i < len(lines):
+        while i < len(lines) and lines[i].strip() != "+I+":
+            i += 1
+        if i >= len(lines):
+            break
+        i += 2  # +I+, index
+        _expect(lines, i, "+S+", path)
+        n_sen_ori = int(lines[i + 1])
+        i += 2
+        sents = []
+        for k in range(n_sen_ori):
+            sents.append(_split_words(lines[i]))
+            i += 1
+        if n_sen_ori > max_sen_len:
+            sents = sents[n_sen_ori - max_sen_len:]
+        _expect(lines, i, "+Q+", path)
+        question = _split_words(lines[i + 1])
+        i += 2
+        _expect(lines, i, "+A+", path)
+        answer = _split_words(lines[i + 1])
+        i += 2
+        samples.append(Sample(sents, question, answer))
+    return samples
+
+
+def _expect(lines: List[str], i: int, tag: str, path: str) -> None:
+    """The parsed format's section tags (MemN2N/sample.c:87-249)."""
+    if i >= len(lines) or lines[i].strip() != tag:
+        raise ValueError(f"{path}: line {i + 1} should be {tag!r}")
+
+
+def _split_words(line: str) -> List[str]:
+    """strtok(line, " ") semantics (sample.c:180-196)."""
+    return [w for w in line.strip().split(" ") if w]
+
+
+def parse_raw_file(path: str, max_sen_len: int = 50,
+                   limit: Optional[int] = None) -> List[Sample]:
+    """Parse raw bAbI task text directly (folding in parser.py's
+    parse_stories + the parsed-format writer's transformations:
+    statements lose their trailing '.', questions lose their final token)."""
+    samples: List[Sample] = []
+    story: List[List[str]] = []
+    with open(path, "r") as f:
+        for raw in f:
+            raw = raw.strip()
+            if not raw:
+                continue
+            nid_str, rest = raw.split(" ", 1)
+            if int(nid_str) == 1:
+                story = []
+            if "\t" in rest:
+                fields = rest.split("\t")
+                q, a = fields[0], fields[1]  # supporting-fact field optional
+                q_tokens = _tokenize(q)[:-1]       # drop trailing '?'
+                substory = [s for s in story if s]
+                if len(substory) > max_sen_len:
+                    substory = substory[len(substory) - max_sen_len:]
+                samples.append(Sample([list(s) for s in substory],
+                                      list(q_tokens), [a.strip()]))
+                story.append([])
+                if limit is not None and len(samples) >= limit:
+                    break
+            else:
+                tokens = _tokenize(rest)
+                if tokens and tokens[-1] == ".":
+                    tokens = tokens[:-1]           # writer drops the period
+                story.append(tokens)
+    return samples
 
 
 class Dictionary:
@@ -219,6 +321,141 @@ class TaskData:
     dictionary: Dictionary
 
 
+def load_task(task_name: str, data_path: str, *, use_raw: bool = False,
+              raw_path: Optional[str] = None, enable_time: bool = True,
+              max_sen_len: int = 50, rate_valid: float = 0.1,
+              rand_noise_time: float = 0.0,
+              limit_train: Optional[int] = None,
+              limit_test: Optional[int] = None,
+              rng: Optional[np.random.Generator] = None,
+              dim_forced: bool = False, max_dict_len: int = 64,
+              pad_dict: int = 0, pad_line: int = 0,
+              en_pe: bool = False,
+              train_task_name: Optional[str] = None,
+              shuffle_split: bool = False,
+              split_seed: int = 0) -> TaskData:
+    """Load one bAbI task end to end.
+
+    The validation split is the LAST rate_valid fraction of the train file
+    in file order (MemN2N/MemN2N.c:636-637, :1866-1869 — shuffle is off by
+    default, EN_SAMPLE_SHUFFLED=false define.h:172).  With
+    shuffle_split=True the reference's EN_SAMPLE_SHUFFLED semantics apply:
+    ALL train-file samples are permuted ONCE up front and the valid split
+    is the TAIL of that permutation (MemN2N.c:1046-1052 builds the global
+    ind_sample_shuffled; :1868 takes valid indices from its tail) — i.e. a
+    random 10%, not the last 10% in file order.  This matters for
+    EN_JOINT, whose qa_joint train file is the task-ordered concatenation
+    of tasks 1-20 (dataset/.../qa_joint_gen.scr): without the shuffle the
+    entire validation set comes from qa19/qa20, which is why the
+    reference's joint config block sets EN_SAMPLE_SHUFFLED true
+    (define.h:177-191).
+
+    train_task_name: for joint mode (EN_JOINT) training reads qa_joint
+    while testing reads the per-task file (MemN2N.c:520-533).
+    """
+    tt = train_task_name or task_name
+    train_samples = load_samples(tt, "train", data_path, raw_path=raw_path,
+                                 use_raw=use_raw, max_sen_len=max_sen_len,
+                                 limit=limit_train)
+    test_samples = load_samples(task_name, "test", data_path,
+                                raw_path=raw_path, use_raw=use_raw,
+                                max_sen_len=max_sen_len, limit=limit_test)
+
+    dictionary = Dictionary.build(train_samples)
+    dims = compute_dims(train_samples, dictionary, enable_time,
+                        dim_forced=dim_forced, max_dict_len=max_dict_len,
+                        max_sen_len=max_sen_len, pad_dict=pad_dict,
+                        pad_line=pad_line)
+
+    if shuffle_split:
+        # permute AFTER Dictionary.build/compute_dims: the reference
+        # builds the dictionary in file order and only then shuffles
+        # sample indices (MemN2N.c: sample_init precedes rand_perm)
+        perm = np.random.default_rng(split_seed).permutation(
+            len(train_samples))
+        train_samples = [train_samples[i] for i in perm]
+    n_valid = int(len(train_samples) * rate_valid)
+    n_train = len(train_samples) - n_valid
+    tr = vectorize(train_samples[:n_train], dictionary, dims, enable_time,
+                   rand_noise_time, is_train=True, rng=rng,
+                   max_sen_len=max_sen_len, en_pe=en_pe)
+    va = vectorize(train_samples[n_train:], dictionary, dims, enable_time,
+                   en_pe=en_pe)
+    te = vectorize(test_samples, dictionary, dims, enable_time, en_pe=en_pe)
+    return TaskData(tr, va, te, dims, dictionary)
+
+
+def resolve_task_file(name: str, split: str, data_path: str, *,
+                      raw_path: Optional[str] = None,
+                      use_raw: bool = False):
+    """Single source of truth for the data fallback chain
+    (parsed -> raw 10k -> sibling raw 1k 'en'); returns
+    (path, is_raw) or None.  Shared by the Python and native loaders."""
+    parsed_path = os.path.join(data_path, f"{name}_{split}_set")
+    if not use_raw and os.path.exists(parsed_path):
+        return parsed_path, False
+    base = raw_path or data_path
+    candidates = [os.path.join(base, f"{name}_{split}.txt")]
+    if os.path.basename(base) != "en":
+        candidates.append(os.path.join(os.path.dirname(base), "en",
+                                       f"{name}_{split}.txt"))
+    for cand in candidates:
+        if os.path.exists(cand):
+            return cand, True
+    return None
+
+
+def load_samples(name: str, split: str, data_path: str, *,
+                 raw_path: Optional[str] = None, use_raw: bool = False,
+                 max_sen_len: int = 50,
+                 limit: Optional[int] = None) -> List[Sample]:
+    """Resolve and parse one task split.
+
+    Prefers the parsed format; falls back to raw bAbI text when the parsed
+    file is absent (the reference dataset ships with several parsed train
+    sets missing, e.g. qa2/qa3/qa5) — the two parsers produce identical
+    samples (tests/test_torch_data.py).  A further fallback to the sibling 1k
+    'en' directory covers qa3, whose 10k raw train file is also absent.
+
+    qa_joint (EN_JOINT, define.h:152): the 1k 'en' directory ships the
+    real qa_joint files; if no joint file exists anywhere, the set is
+    synthesized by concatenating tasks 1-20 in task order."""
+    resolved = resolve_task_file(name, split, data_path, raw_path=raw_path,
+                                 use_raw=use_raw)
+    if resolved is not None:
+        path, is_raw = resolved
+        parse = parse_raw_file if is_raw else parse_parsed_file
+        return parse(path, max_sen_len, limit)
+    if name == "qa_joint":
+        joint: List[Sample] = []
+        per_task = None if limit is None else max(1, limit // 20)
+        for t in BABI_TASKS[:20]:
+            joint.extend(load_samples(t, split, data_path, raw_path=raw_path,
+                                      use_raw=use_raw,
+                                      max_sen_len=max_sen_len,
+                                      limit=per_task))
+        return joint if limit is None else joint[:limit]
+    raise FileNotFoundError(
+        f"no parsed or raw data for task {name} ({split}) under "
+        f"{data_path} / {raw_path}")
+
+
+def load_test_split(task_name: str, data_path: str, dictionary: Dictionary,
+                    dims: DataDims, *, raw_path: Optional[str] = None,
+                    use_raw: bool = False, enable_time: bool = True,
+                    max_sen_len: int = 50,
+                    limit_test: Optional[int] = None,
+                    en_pe: bool = False) -> VectorizedSplit:
+    """Vectorize one task's TEST split against an existing (e.g. joint)
+    dictionary and dims — the EN_JOINT flow trains once on qa_joint and
+    tests every task with that model (MemN2N/MemN2N.c:520-533,
+    :2241-2244)."""
+    samples = load_samples(task_name, "test", data_path, raw_path=raw_path,
+                           use_raw=use_raw, max_sen_len=max_sen_len,
+                           limit=limit_test)
+    return vectorize(samples, dictionary, dims, enable_time, en_pe=en_pe)
+
+
 def synthetic_batch(rng: np.random.Generator, B: int, V: int, M: int,
                     W: int):
     """Random qa1-shaped bag-of-words stories (the recipe of
@@ -284,3 +521,84 @@ def synthetic_task(rng: np.random.Generator, n_train: int, n_valid: int,
     return TaskData(vectorize(train, dictionary, dims, is_train=True),
                     vectorize(valid, dictionary, dims),
                     vectorize(test, dictionary, dims), dims, dictionary)
+
+
+# qa1-shaped stories in the dataset's two file formats, for tests and for
+# chip_smoke.py: the bAbI files are not in the repository
+_QA1_NAMES = ("Mary", "John", "Sandra", "Daniel")
+_QA1_PLACES = ("bathroom", "hallway", "kitchen", "office", "garden",
+               "bedroom")
+_QA1_MOVES = ("moved to the", "went to the", "journeyed to the",
+              "travelled to the", "went back to the")
+
+
+def _synthetic_stories(rng: np.random.Generator, n: int,
+                       questions_per_story: int = 5):
+    """n qa1-shaped questions, ``questions_per_story`` to a story, each
+    after two statements "<name> <move> <place>": the raw file's lines
+    and, per question, the story's statements so far, the question and the
+    answer (where the asked-about person went last)."""
+    lines, samples = [], []
+    while len(samples) < n:
+        nid, statements, where, support = 0, [], {}, {}
+        for _ in range(questions_per_story):
+            if len(samples) == n:
+                break
+            for _ in range(2):
+                name = _QA1_NAMES[rng.integers(len(_QA1_NAMES))]
+                place = _QA1_PLACES[rng.integers(len(_QA1_PLACES))]
+                move = _QA1_MOVES[rng.integers(len(_QA1_MOVES))]
+                nid += 1
+                lines.append(f"{nid} {name} {move} {place}.")
+                statements.append(f"{name} {move} {place}".split())
+                where[name], support[name] = place, nid
+            name = list(where)[rng.integers(len(where))]
+            nid += 1
+            lines.append(f"{nid} Where is {name}? \t{where[name]}\t"
+                         f"{support[name]}")
+            samples.append(([list(s) for s in statements],
+                            ["Where", "is", name], [where[name]]))
+    return lines, samples
+
+
+def _write_parsed(path: str, samples) -> None:
+    """The reference's parsed format (MemN2N/sample.c:87-249)."""
+    out = ["+NS+", str(len(samples))]
+    for i, (sents, question, answer) in enumerate(samples):
+        out += ["+I+", str(i), "+S+", str(len(sents))]
+        out += [" ".join(sent) for sent in sents]
+        out += ["+Q+", " ".join(question), "+A+", " ".join(answer)]
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+
+
+def write_synthetic_corpus(root: str, rng: np.random.Generator,
+                           tasks: Sequence[int], n_train: int, n_test: int,
+                           parsed: Sequence[int] = (), joint: bool = True):
+    """Write seeded qa1-shaped stories for the bAbI tasks numbered
+    ``tasks`` (1-20) as raw text under root/en-10k, in the parsed format
+    too for the tasks in ``parsed`` (root/en_10k_parsed), and, with
+    ``joint``, qa_joint's raw files as the task-ordered concatenation of
+    the others.  Returns (parsed dir, raw dir): ``load_task``'s data_path
+    and raw_path."""
+    parsed_dir = os.path.join(root, "en_10k_parsed")
+    raw_dir = os.path.join(root, "en-10k")
+    os.makedirs(parsed_dir, exist_ok=True)
+    os.makedirs(raw_dir, exist_ok=True)
+    joint_lines = {"train": [], "test": []}
+    for t in tasks:
+        name = BABI_TASKS[t - 1]
+        for split, n in (("train", n_train), ("test", n_test)):
+            lines, samples = _synthetic_stories(rng, n)
+            joint_lines[split] += lines
+            with open(os.path.join(raw_dir, f"{name}_{split}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+            if t in parsed:
+                _write_parsed(os.path.join(parsed_dir, f"{name}_{split}_set"),
+                              samples)
+    if joint:
+        for split, lines in joint_lines.items():
+            with open(os.path.join(raw_dir, f"qa_joint_{split}.txt"),
+                      "w") as f:
+                f.write("\n".join(lines) + "\n")
+    return parsed_dir, raw_dir

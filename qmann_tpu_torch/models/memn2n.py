@@ -57,7 +57,8 @@ class ForwardResult(NamedTuple):
     scores: torch.Tensor         # [K, B, M] per-hop pre-softmax scores
 
 
-def _check_supported(cfg: QmannConfig) -> None:
+def check_supported(cfg: QmannConfig) -> None:
+    """Raise NotImplementedError for the model features not ported yet."""
     missing = [name for name, on in (
         (f"attention mode {cfg.attention_mode}",
          cfg.attention_mode not in (1, 2, 3, 4)),
@@ -96,7 +97,7 @@ def init_params(cfg: QmannConfig, dims, generator: torch.Generator,
     ``generator`` (a CPU generator) and moved to ``device``.  The draws
     differ from jax.random's; tests carry JAX weights over with
     ``params_from_jax``."""
-    _check_supported(cfg)
+    check_supported(cfg)
     dev = resolve_device(device)
     return {k: (0.1 * torch.randn(shape, generator=generator,
                                   dtype=torch.float32)).to(dev)
@@ -162,7 +163,7 @@ def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
         raise NotImplementedError(
             "linear start (remove_softmax) is not ported yet "
             "(ROADMAP.md, Queue 1)")
-    _check_supported(cfg)
+    check_supported(cfg)
     q = cfg.en_fixed_point
     fmt_w = cfg.fmt_w
     backend = "kernel" if cfg.use_pallas else "plain"
@@ -299,7 +300,7 @@ def prepare_inference(params: Params, cfg: QmannConfig,
     re-quantization of the embeddings is the identity and every partial
     sum is f32-exact; the check runs once, on the host, against the frozen
     weights."""
-    _check_supported(cfg)
+    check_supported(cfg)
     K = cfg.num_hops
     fmt_w = cfg.fmt_w
     fmts = tuple(fmt_w[h] for h in range(K)) * 2 + (fmt_w[0],)

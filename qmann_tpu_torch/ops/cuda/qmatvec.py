@@ -15,9 +15,11 @@ ctypes.
 ``quantized_matvec`` dispatches on the device of ``x``: a CPU tensor takes
 ``quantized_matvec_reference``; a CUDA tensor launches the kernel or
 raises (also when fmt_w and fmt_x mix rounding modes: the kernel fixes the
-mode at compile time).  ``qmatvec_geometry`` gives the launch's rows per
-block, blocks and shared memory.
-``quantized_matvec.launches`` counts kernel launches.
+mode at compile time).  It takes any O, I >= 1: shapes with
+O*I + I <= 12288 run the whole-row kernel, wider ones the kernel tiled over
+I and O.  ``qmatvec_geometry`` gives the launch's rows per block, tiles,
+blocks and shared memory.  ``quantized_matvec.launches`` counts kernel
+launches (one per call).
 """
 from __future__ import annotations
 
@@ -33,11 +35,17 @@ from qmann_tpu_torch.ops.cuda import _build
 
 SOURCE = _build.CSRC / "qmatvec.cu"
 
-# the kernel's operand limit, O*I + I <= 12288 floats, and its shared
-# memory, O*I + rows*I <= 12288 floats (48 KB: csrc/qmatvec.cu,
-# kSmemFloats); 256 threads per block
+# the whole-row kernel's operand limit, O*I + I <= 12288 floats, and its
+# shared memory, O*I + rows*I <= 12288 floats (48 KB: csrc/qmatvec.cu,
+# kSmemFloats); 256 threads per block.  Past the limit the tiled kernel
+# takes O in tiles of at most THREADS outputs and I in tiles of at most
+# MAX_I_TILE, with (o_tile + rows) * (i_tile | 1) floats of shared memory
+# (about 20 KB at O=60: 8 blocks of 256 threads stay resident per SM), and
+# keeps up to MAX_OUTPUTS raw sums per thread in registers (kMaxOutputs)
 MAX_SMEM_FLOATS = 12288
 THREADS = 256
+MAX_I_TILE = 64
+MAX_OUTPUTS = 4
 # geometry, chosen by measurement on the H100 (PERF.md, section 6): a base
 # tile of as many rows as one round of the threads covers, one output each
 # (at most 32 rows); doubled while the grid holds more blocks than the card
@@ -49,21 +57,41 @@ MAX_TILES = 4
 
 class QmatvecGeometry(NamedTuple):
     rows_per_block: int
+    o_tile: int           # O and I for the whole-row kernel
+    i_tile: int
     blocks: int
     smem_bytes: int       # dynamic shared memory of one block
 
 
+def _rows(B: int, o_tile: int, o_blocks: int) -> int:
+    """The base tile of rows (one round of the threads over o_tile
+    outputs, at most 32 rows), doubled up to MAX_TILES times while the grid
+    holds more blocks than the card runs at once."""
+    base = max(1, min(32, THREADS // o_tile))
+    rows = base
+    while (rows < MAX_TILES * base
+           and -(-B // rows) * o_blocks > RESIDENT_BLOCKS):
+        rows *= 2
+    return rows
+
+
 @functools.lru_cache(maxsize=None)
 def qmatvec_geometry(B: int, O: int, I: int) -> QmatvecGeometry:
-    """Rows of x per block (the kernel's grid is ceil(B / rows)): the base
-    tile, doubled as above, and no more than shared memory holds beside
-    Q(w)."""
-    base = max(1, min(32, THREADS // O))
-    rows = base
-    while rows < MAX_TILES * base and -(-B // rows) > RESIDENT_BLOCKS:
-        rows *= 2
-    rows = min(rows, (MAX_SMEM_FLOATS - O * I) // I)
-    return QmatvecGeometry(rows, -(-B // rows), 4 * (O * I + rows * I))
+    """The launch: whole rows (o_tile = O, i_tile = I; grid ceil(B / rows))
+    while Q(w) and one row of x fit in shared memory, rows no more than fit
+    beside Q(w); else tiles of O (at most THREADS outputs) and I (at most
+    MAX_I_TILE, and what shared memory holds beside the row tile), grid
+    ceil(B / rows) x ceil(O / o_tile)."""
+    if O * I + I <= MAX_SMEM_FLOATS:
+        rows = min(_rows(B, O, 1), (MAX_SMEM_FLOATS - O * I) // I)
+        return QmatvecGeometry(rows, O, I, -(-B // rows),
+                               4 * (O * I + rows * I))
+    o_tile = min(O, THREADS)
+    o_blocks = -(-O // o_tile)
+    rows = _rows(B, o_tile, o_blocks)
+    i_tile = min(I, MAX_I_TILE, MAX_SMEM_FLOATS // (o_tile + rows) - 1)
+    return QmatvecGeometry(rows, o_tile, i_tile, -(-B // rows) * o_blocks,
+                           4 * (o_tile + rows) * (i_tile | 1))
 
 
 def build() -> Tuple[Path, str]:
@@ -75,7 +103,8 @@ def build() -> Tuple[Path, str]:
 def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, "qmann_qmatvec",
                        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
 
 
 def quantized_matvec_reference(w: torch.Tensor, x: torch.Tensor,
@@ -105,11 +134,9 @@ def quantized_matvec(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
                          f"{tuple(x.shape)} do not form [O, I] x [B, I]")
     B, I = x.shape
     O = w.shape[0]
-    if not (B >= 1 and O >= 1 and I >= 1
-            and O * I + I <= MAX_SMEM_FLOATS):
-        raise ValueError(
-            f"quantized_matvec: B={B}, O={O}, I={I} outside the kernel's "
-            f"bounds B, O, I >= 1 and O*I + I <= {MAX_SMEM_FLOATS}")
+    if not (B >= 1 and O >= 1 and I >= 1):
+        raise ValueError(f"quantized_matvec: B={B}, O={O}, I={I} outside the "
+                         "kernel's bounds B, O, I >= 1")
     _build.check_one_rounding_mode((fmt_w, fmt_x), "quantized_matvec")
     w, x = w.contiguous(), x.contiguous()
     geo = qmatvec_geometry(B, O, I)
@@ -120,7 +147,8 @@ def quantized_matvec(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.qmann_qmatvec(w.data_ptr(), x.data_ptr(), out.data_ptr(),
-                               B, O, I, fmts, geo.rows_per_block, stream)
+                               B, O, I, fmts, geo.rows_per_block, geo.o_tile,
+                               geo.i_tile, stream)
     if rc != 0:
         raise RuntimeError(f"qmatvec kernel launch failed: CUDA error {rc}")
     quantized_matvec.launches += 1

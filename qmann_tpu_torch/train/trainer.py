@@ -10,8 +10,9 @@ no read back to the host.  The host reads the epoch's summed cost and
 matches once per epoch.  Entry points run on the card unless the caller
 passes ``device="cpu"``.
 
-Not ported yet (ROADMAP.md, Queue 1): linear start, the similarity
-analysis dumps and the device mesh.
+With ``en_similarity_analysis`` each epoch dumps the attention softmax's
+inputs and outputs on the validation split (``utils/analysis.py``).  Not
+ported yet (ROADMAP.md, Queue 1): linear start and the device mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from qmann_tpu_torch.models import memn2n
 from qmann_tpu_torch.ops.losses import cross_entropy
 from qmann_tpu_torch.train.optim import (lr_schedule, sgd_update,
                                          zero_null_columns)
+from qmann_tpu_torch.utils.analysis import SimilarityAnalyzer
 
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
@@ -57,6 +59,17 @@ class TrainResult:
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to qmann_tpu_torch yet "
                                "(ROADMAP.md, Queue 1)")
+
+
+def check_ported(cfg: QmannConfig, mesh=None) -> None:
+    """Raise NotImplementedError for what ``train_task`` cannot run yet: a
+    device mesh, linear start, and the model features ``memn2n`` refuses
+    (the CLI calls this before it reads any data)."""
+    if mesh is not None:
+        raise _not_ported("training on a device mesh")
+    if cfg.en_linear_start:
+        raise _not_ported("linear start (en_linear_start)")
+    memn2n.check_supported(cfg)
 
 
 def _batched_arrays(split: VectorizedSplit, batch_size: int
@@ -191,9 +204,35 @@ def eval_split(params: Params, split: VectorizedSplit, cfg: QmannConfig,
         preds.append(p[:e - s])
     if not costs:
         return 0.0, 1.0, np.zeros(0, np.int64)
-    cost = float(torch.stack(costs).sum())
+    # the chunk costs added in float64, in chunk order, as the JAX
+    # package adds its Python floats (cost_valid feeds the best-model test)
+    cost = sum(torch.stack(costs).tolist())
     err = 1.0 - int(torch.stack(matches).sum()) / max(n, 1)
     return cost, err, torch.cat(preds).cpu().numpy()
+
+
+@torch.no_grad()
+def _similarity_dump(analyzer, itr: int, params: Params,
+                     valid: VectorizedSplit, cfg: QmannConfig,
+                     dev: torch.device) -> None:
+    """EN_SIMILARITY_ANALYSIS (MemN2N/MemN2N.c:1416-1475): the attention
+    softmax's inputs and outputs on the first ``similarity_probe_size``
+    validation samples (0: the whole split), in zero-padded chunks of at
+    most 512, the pad rows sliced off before recording."""
+    n_valid = len(valid)
+    probe = (n_valid if cfg.similarity_probe_size == 0
+             else min(cfg.similarity_probe_size, n_valid))
+    chunk = min(512, probe) if probe else 0
+    for s in range(0, probe, max(chunk, 1)):
+        e = min(s + chunk, probe)
+
+        def pad(x):
+            return torch.from_numpy(_pad_to(x[s:e], chunk)).to(dev)
+
+        out = memn2n.forward(params, pad(valid.memory), pad(valid.question),
+                             pad(valid.mask), cfg)
+        analyzer.record(itr, out.scores[:, :e - s], out.attention[:, :e - s],
+                        valid.mask[s:e], sample_offset=s)
 
 
 def train_task(cfg: QmannConfig, data: TaskData,
@@ -203,12 +242,7 @@ def train_task(cfg: QmannConfig, data: TaskData,
 
     params: initial weights (copied to ``device``; the caller's tensors are
     not modified), else ``init_params`` from ``cfg.seed``."""
-    if mesh is not None:
-        raise _not_ported("training on a device mesh")
-    if cfg.en_linear_start:
-        raise _not_ported("linear start (en_linear_start)")
-    if cfg.en_similarity_analysis:
-        raise _not_ported("the similarity analysis (en_similarity_analysis)")
+    check_ported(cfg, mesh)
     dev = resolve_device(device)
     if params is None:
         params = memn2n.init_params(cfg, data.dims,
@@ -229,6 +263,8 @@ def train_task(cfg: QmannConfig, data: TaskData,
             data.train.mask))
 
     history: List[EpochMetrics] = []
+    analyzer = (SimilarityAnalyzer(cfg.similarity_analysis_dir, cfg.num_itr)
+                if cfg.en_similarity_analysis else None)
     best_params = None
     err_valid_best, cost_valid_best = float("inf"), float("inf")
     ind_early_stopping = 0
@@ -248,6 +284,8 @@ def train_task(cfg: QmannConfig, data: TaskData,
 
         cost_valid, err_valid, _ = eval_split(params, data.valid, cfg,
                                               device=dev)
+        if analyzer is not None:
+            _similarity_dump(analyzer, itr, params, data.valid, cfg, dev)
 
         # best-model tracking
         if err_valid <= err_valid_best and cost_valid <= cost_valid_best:

@@ -178,10 +178,16 @@ def test_attention_read_kernel_matches_plain(cuda, V, M, W, B, mode):
 
 @pytest.mark.cuda
 def test_training_kernels_reject_what_they_cannot_take(cuda):
+    """qmatvec refuses an empty x; O*I + I past 12288 floats, which it
+    refused before it was tiled over I, now runs (the tiled kernel)."""
     fmt = QFormat(5, 2)
     with pytest.raises(ValueError, match="bounds"):
         qmv.quantized_matvec(torch.zeros((200, 100), device=cuda),
-                             torch.zeros((4, 100), device=cuda), fmt, fmt)
+                             torch.zeros((0, 100), device=cuda), fmt, fmt)
+    w = torch.full((200, 100), 0.75, device=cuda)
+    x = torch.full((4, 100), 2.0, device=cuda)
+    assert torch.equal(qmv.quantized_matvec(w, x, fmt, fmt),
+                       qmv.quantized_matvec_reference(w, x, fmt, fmt))
     with pytest.raises(TypeError, match="float32"):
         qmv.quantized_matvec(torch.zeros((6, 5), device=cuda).double(),
                              torch.zeros((4, 5), device=cuda), fmt, fmt)
@@ -690,3 +696,57 @@ def test_read_and_hamming_limits_raise_before_a_launch(cuda):
                   attention_mode=1)
     torch.cuda.synchronize()
     assert ar.fused_read.launches == before[0] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("O", [1, 60, 203])
+@pytest.mark.parametrize("I", [202, 256, 1024, 6145])
+def test_qmatvec_kernel_tiled_over_i(cuda, I, O, quant_mode):
+    """Past O*I + I = 12288 floats the kernel tiles I (and O above 256) and
+    requantizes each output once after the last I-tile: bit-identical to
+    the plain version at every rounding mode, on bag-of-words and Gaussian
+    x, with binary fmt_w and binary fmt_x (nothing is padded), at ragged B
+    (as many rows as the plain version's [B, O, I] lattice allows)."""
+    rng = np.random.default_rng(I * 16 + O * 4 + quant_mode)
+
+    def t(*shape, counts=False):
+        a = (rng.integers(0, 4, shape) if counts
+             else rng.normal(0.0, 1.5, shape))
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    m = quant_mode
+    w = t(O, I)
+    for B in [b for b in (1, 37, 2049) if b * O * I <= 2 ** 27]:
+        geo = qmv.qmatvec_geometry(B, O, I)
+        assert ((geo.o_tile, geo.i_tile) != (O, I)) == (O * I + I > 12288)
+        x = t(B, I, counts=True)
+        for x_, f_w, f_x in ((x, QFormat(5, 2, m), QFormat(5, 2, m)),
+                             (t(B, I), QFormat(6, 1, m), QFormat(2, 5, m)),
+                             (x, QFormat(0, 0, m), QFormat(5, 2, m)),
+                             (x, QFormat(5, 2, m), QFormat(0, 0, m))):
+            before = qmv.quantized_matvec.launches
+            got = qmv.quantized_matvec(w, x_, f_w, f_x)
+            want = qmv.quantized_matvec_reference(w, x_, f_w, f_x)
+            torch.cuda.synchronize()
+            assert qmv.quantized_matvec.launches == before + 1
+            assert torch.equal(got, want), (B, f_w, f_x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O,I,tiled", [(203, 60, False), (1, 6144, False),
+                                       (60, 201, False), (60, 202, True),
+                                       (1, 6145, True), (257, 48, True)])
+def test_qmatvec_whole_row_path_kept_at_the_old_limit(cuda, O, I, tiled):
+    """Up to O*I + I = 12288 floats the launch keeps the whole-row kernel
+    (o_tile = O, i_tile = I); one float past it takes the tiled kernel;
+    both bit-identical."""
+    rng = np.random.default_rng(O + I)
+    w = torch.from_numpy(rng.normal(0, 1.5, (O, I)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(0, 4, (33, I)).astype(np.float32))
+    geo = qmv.qmatvec_geometry(33, O, I)
+    assert ((geo.o_tile, geo.i_tile) != (O, I)) == tiled
+    fmt = QFormat(5, 2)
+    got = qmv.quantized_matvec(w.to(cuda), x.to(cuda), fmt, fmt)
+    assert torch.equal(got.cpu(), qmv.quantized_matvec_reference(w, x, fmt,
+                                                                 fmt))

@@ -177,3 +177,42 @@ def test_qmatvec_geometry_covers_every_row_once(O, I):
     # the measured choices at the flagship embedding (O=60, I=29)
     assert [qmv.qmatvec_geometry(B, 60, 29).rows_per_block
             for B in (320, 4096, 6144, 10240, 100000)] == [4, 4, 8, 16, 16]
+
+
+@pytest.mark.parametrize("O,I", [(60, 202), (60, 256), (60, 1024), (1, 6145),
+                                 (203, 6145), (257, 48), (600, 300),
+                                 (5000, 3)])
+def test_tiled_qmatvec_geometry_covers_every_output_once(O, I):
+    """Past O*I + I = 12288 floats: O-tiles of at most THREADS outputs,
+    I-tiles of at most MAX_I_TILE; the rows per block follow the
+    whole-row rule on the O-tile; each block's (rows x o_tile) outputs fit
+    MAX_OUTPUTS per thread, its Q(w) and Q(x) tiles (odd row stride) fit
+    48 KB; the grid covers every output (b, o) exactly once and the I-tiles
+    every column."""
+    assert O * I + I > qmv.MAX_SMEM_FLOATS
+    for B in (1, 7, 32, 2048, 2049, 65536, 100001):
+        geo = qmv.qmatvec_geometry(B, O, I)
+        R, TO, TI = geo.rows_per_block, geo.o_tile, geo.i_tile
+        assert TO == min(O, qmv.THREADS) and 1 <= TI <= qmv.MAX_I_TILE
+        assert R * TO <= qmv.MAX_OUTPUTS * qmv.THREADS
+        assert geo.smem_bytes == 4 * (TO + R) * (TI | 1) <= 48 * 1024
+        o_blocks = -(-O // TO)
+        assert geo.blocks == -(-B // R) * o_blocks
+        base = max(1, min(32, qmv.THREADS // TO))
+        tiles = 1
+        while (tiles < qmv.MAX_TILES
+               and -(-B // (base * tiles)) * o_blocks > qmv.RESIDENT_BLOCKS):
+            tiles *= 2
+        assert R == base * tiles
+        if B <= 2049:
+            covered = np.zeros((B, O), np.int64)
+            for bx in range(-(-B // R)):
+                for by in range(o_blocks):
+                    covered[bx * R:(bx + 1) * R, by * TO:(by + 1) * TO] += 1
+            assert (covered == 1).all()
+        cols = np.zeros(I, np.int64)
+        for i0 in range(0, I, TI):
+            cols[i0:i0 + TI] += 1
+        assert (cols == 1).all()
+    # the joint block's memory embedding: 4 rows x 60 outputs per block
+    assert qmv.qmatvec_geometry(2048, 60, 256)[:3] == (4, 60, 64)

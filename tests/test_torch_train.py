@@ -363,13 +363,46 @@ def test_eval_split_pads_chunks():
     assert parts[2].shape == (45,)
 
 
+@pytest.mark.parametrize("kw", [dict(), dict(use_pallas=True,
+                                             attention_mode=3, iwl=1)])
+def test_eval_split_matches_jax_over_three_chunks(kw):
+    """A 2500-sample split is three 1024-sample chunks (the last padded):
+    the port adds the chunk costs in float64 in chunk order, as JAX adds its
+    Python floats.  Errors and predictions equal; the cost within rtol 1e-6
+    (each chunk's float32 sum runs in another order)."""
+    cfg_kw = dict(dim_emb=16, num_hops=2, verbose=False,
+                  **{k: v for k, v in kw.items() if k != "use_pallas"})
+    data = babi.synthetic_task(np.random.default_rng(6), 1, 1, 2500, V, M, W)
+    pj = jax_params(cfg_kw, data.dims, seed=6)
+    jcost, jerr, jpred = jtrainer.eval_split(
+        {k: jnp.asarray(v) for k, v in pj.items()},
+        to_jax_task(data).test, JaxConfig(**cfg_kw))
+    tcfg = QmannConfig(**cfg_kw, use_pallas=kw.get("use_pallas", False))
+    cost, err, pred = trainer.eval_split(
+        memn2n.params_from_jax(pj, tcfg, device="cpu"), data.test, tcfg,
+        device="cpu")
+    assert isinstance(cost, float) and err == jerr and 0 < err < 1
+    np.testing.assert_array_equal(pred, np.asarray(jpred))
+    np.testing.assert_allclose(cost, jcost, rtol=1e-6)
+
+
 @pytest.mark.parametrize("kw,what", [(dict(en_linear_start=True), "linear"),
                                      (dict(en_similarity_analysis=True),
                                       "similarity"),
                                      (dict(), "mesh")])
-def test_train_task_refuses_what_is_not_ported(kw, what):
+def test_train_task_refuses_what_is_not_ported(kw, what, tmp_path):
+    """Linear start and the mesh raise.  The similarity analysis is ported:
+    its case now checks that the run is not refused and writes the first
+    25-epoch bucket's two CSVs."""
     data = babi.synthetic_task(np.random.default_rng(0), 4, 1, 1, V, M, W)
     extra = {"mesh": object()} if what == "mesh" else {}
+    if what == "similarity":
+        cfg = QmannConfig(dim_emb=8, num_itr=1, verbose=False,
+                          similarity_analysis_dir=str(tmp_path), **kw)
+        trainer.train_task(cfg, data, device="cpu")
+        assert sorted(p.name for p in tmp_path.iterdir()) == [
+            "softmax_input_0to24.csv", "softmax_output_0to24.csv"]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.train_task(QmannConfig(dim_emb=8, **kw), data, device="cpu",
                            **extra)
