@@ -100,9 +100,29 @@ The lattice past its whole-row limit, and the command-line run:
                launches per forward); bench/qps.py --synthetic (one JSON
                line, four positive numbers); verify_kernels() on the card
                (every entry passes)
+The model features (on the unfused hop, as JAX's envelope routes them):
+ 15. features — at the flagship widths on the same synthetic_task, on
+               cuda:0: train_task with linear start (2 epochs without the
+               softmax, then 1; gates: 10 lattice and 0 read launches per
+               step in the first two, 10 + 3 in the third, costs finite,
+               one step without the softmax equal across the routes on a
+               full and the partial batch); each feature head (EN_SC_ATT,
+               the shift-based and exp_plan softmax, cosine similarity,
+               maxout, the score shift and clip) at mode 2 iwl 5: one step
+               equal across the routes (full and partial batch), 10
+               lattice launches per step and nothing else, every value
+               finite; mode 3 iwl 1 with EN_SC_ATT: one epoch at 10 lattice
+               + 3 Hamming launches per forward and no read, one step
+               equal across the routes; an engine with EN_SC_ATT,
+               use_pallas and use_fused_chain answers ~100 requests with
+               the plain route's answers, 3 lattice launches per wave (the
+               lin maps) and no chain launch.  Each path's step is timed
+               on the kernel route (event time, busy time, launches,
+               idle share; findings, not gates)
 Then one JSON line of kernels (the read's and the Hamming kernel's with
-their eval-chunk and wide entries, qmatvec's with its tiled shapes), the
-card's name and power limit, and as the last line
+their eval-chunk and wide entries, qmatvec's with its tiled shapes, each
+with its launches on phase 15's paths), the card's name and power limit,
+and as the last line
 {"ok": true, "device": {...}}.
 
 Tolerances.  Chain (as tests/test_torch_chain.py) and mode-2 attention
@@ -440,8 +460,8 @@ def train_route(cfg, data, dev, tag, route):
               f"{h.err_valid:.4f}, lr {h.lr}", flush=True)
         finite &= math.isfinite(h.cost_train) and math.isfinite(h.cost_valid)
     print(f"[{tag}] {route} route: test cost {res.cost_test:.6f}, err "
-          f"{res.err_test:.4f}; {res.time_train:.3f} s for {cfg.num_itr} "
-          "epochs", flush=True)
+          f"{res.err_test:.4f}; {res.time_train:.3f} s for "
+          f"{len(res.history)} epochs", flush=True)
     return res, finite
 
 
@@ -453,10 +473,12 @@ def n_forwards(cfg, data):
     return steps, chunks
 
 
-def sgd_steps_agree(routes, base, batches_np, dev, tag):
+def sgd_steps_agree(routes, base, batches_np, dev, tag,
+                    remove_softmax=False):
     """One SGD step from `base` on a full batch and on the last (partial)
     one, on each route of `routes` (the first is the reference); fails
-    unless they agree within rtol 1e-5, atol 1e-6."""
+    unless they agree within rtol 1e-5, atol 1e-6, and unless every
+    parameter and cost is finite."""
     import torch
     from qmann_tpu_torch.train import train_step
     lr_t = torch.tensor(routes[0].learning_rate, dtype=torch.float32,
@@ -468,8 +490,14 @@ def sgd_steps_agree(routes, base, batches_np, dev, tag):
         after = []
         for route_cfg in routes:
             stepped = {k: v.clone() for k, v in base.items()}
-            train_step(stepped, batch, lr_t, route_cfg)
+            cost, _ = train_step(stepped, batch, lr_t, route_cfg,
+                                 remove_softmax)
             after.append(stepped)
+            if not (bool(torch.isfinite(cost))
+                    and all(bool(torch.isfinite(v).all())
+                            for v in stepped.values())):
+                fail(f"one SGD step gives a value that is not finite "
+                     f"({tag}, {label})")
         for other in after[1:]:
             diff = max(float((other[k] - after[0][k]).abs().max())
                        for k in base)
@@ -485,10 +513,11 @@ def sgd_steps_agree(routes, base, batches_np, dev, tag):
                      f"{label})")
 
 
-def time_steps(steps, tag):
+def time_steps(steps, tag, card=None):
     """Event time and device busy time per call of each step; prints the
     busy time, launches and idle share (the rest of the event time is the
-    device waiting on the host).  Returns {name: event ms}."""
+    device waiting on the host), after the card's name and power limit
+    when given.  Returns {name: event ms}."""
     t_steps = {name: cuda_ms(fn) for name, fn in steps.items()}
     busy = {name: device_ms(fn) for name, fn in steps.items()}
     for name, kernels in busy.items():
@@ -496,7 +525,8 @@ def time_steps(steps, tag):
         n_launch = sum(n for _, n in kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:4]
         dropped = any(abs(n - round(n)) > 1e-6 for _, n in kernels.values())
-        print(f"[{tag}] {name}: event {t_steps[name]:.4f} ms; "
+        print(f"[{tag}] {name}: " + (f"{card} | " if card else "")
+              + f"event {t_steps[name]:.4f} ms (median of 7); "
               + ("the profiler dropped kernel records (a fractional count "
                  "per call): busy and idle share under- and over-read; "
                  if dropped else "")
@@ -1361,6 +1391,170 @@ def main():
              "version")
     tmp.cleanup()
 
+    # 15. the model features on the unfused hop (JAX's envelope keeps
+    # them out of the fused read and the chain): linear start, each
+    # feature head, mode 3 with EN_SC_ATT, and an engine with EN_SC_ATT;
+    # the lattice (and in mode 3 the Hamming kernel) carries them, the read
+    # and the chain do not launch
+    from qmann_tpu_torch.train import trainer as trainer_mod
+    counters = {"qmatvec": qmv.quantized_matvec, "attention_read":
+                ar.fused_read, "hamming_score": ham.hamming_score_kernel,
+                "hop_chain": hop_chain.fused_hop_chain}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def want_counts(qmatvec=0, attention_read=0, hamming_score=0):
+        return {"qmatvec": qmatvec, "attention_read": attention_read,
+                "hamming_score": hamming_score, "hop_chain": 0}
+
+    def feature_base(cfg_f):
+        return {k: 4.0 * v for k, v in memn2n.init_params(
+            cfg_f, data.dims, torch.Generator().manual_seed(SEED),
+            device=dev).items()}
+
+    feature_launches = {}
+    n_steps_epoch = math.ceil(len(data.train) / TRAIN_BATCH)
+    cfg15 = QmannConfig(use_pallas=True, verbose=False)
+
+    # (a) linear start: 2 epochs without the softmax, then 1 with it; a spy
+    # in train_epoch's place reads the counts around each epoch
+    cfg_ls = cfg15.replace(en_linear_start=True, num_itr_linear_start=2,
+                           num_itr=1)
+    per_epoch, epoch_real = [], trainer_mod.train_epoch
+
+    def epoch_spy(params, batches, lr, cfg, remove_softmax=False):
+        before = counts()
+        out = epoch_real(params, batches, lr, cfg, remove_softmax)
+        per_epoch.append((remove_softmax, {k: v - before[k]
+                                           for k, v in counts().items()}))
+        return out
+
+    trainer_mod.train_epoch = epoch_spy
+    zero_counts()
+    try:
+        _, finite = train_route(cfg_ls, data, dev, "15 features",
+                                "linear start, kernel")
+    finally:
+        trainer_mod.train_epoch = epoch_real
+    ls_total = counts()
+    n_chunks_ls = (3 * math.ceil(len(data.valid) / EVAL_CHUNK)
+                   + math.ceil(len(data.test) / EVAL_CHUNK))
+    want_total = want_counts(
+        qmatvec=10 * (3 * n_steps_epoch + n_chunks_ls),
+        attention_read=3 * (n_steps_epoch + n_chunks_ls))
+    print(f"[15 features] linear start: epochs (softmax removed, launches "
+          f"per step) "
+          + "; ".join(f"{rm}: " + ", ".join(
+              f"{k} {v / n_steps_epoch:g}" for k, v in c.items())
+              for rm, c in per_epoch)
+          + f"; whole run {ls_total} (want {want_total})", flush=True)
+    if [rm for rm, _ in per_epoch] != [True, True, False]:
+        fail("linear start did not run 2 epochs without the softmax, then 1")
+    for rm, c in per_epoch:
+        want = want_counts(qmatvec=10 * n_steps_epoch, attention_read=(
+            0 if rm else 3 * n_steps_epoch))
+        if c != want:
+            fail(f"a linear-start epoch (softmax removed: {rm}) launched "
+                 f"{c}, want {want}")
+    if ls_total != want_total or not finite:
+        fail("the linear-start run launched other counts than expected or "
+             "gave a cost that is not finite")
+    feature_launches["linear_start"] = ls_total
+    base_ls = feature_base(cfg_ls)
+    zero_counts()
+    sgd_steps_agree((cfg_ls.replace(use_pallas=False), cfg_ls), base_ls,
+                    batches_np, dev, "15 features linear start",
+                    remove_softmax=True)
+    if counts() != want_counts(qmatvec=20):
+        fail(f"the linear-start steps launched {counts()}, want 10 lattice "
+             "launches per step and nothing else")
+
+    # (b) each feature head, mode 2 iwl 5: one step on each route (a full
+    # and the partial batch), 10 lattice launches per step, nothing else
+    heads = {"sc_att": dict(en_sc_att=True),
+             "shift_sm": dict(en_shift_based_sm=True),
+             "exp_plan": dict(en_exp_table_based=True),
+             "cosine": dict(en_cosine_sim=True),
+             "maxout": dict(test_maxout=True),
+             "att_shift": dict(en_att_shift=True),
+             "att_clip": dict(en_att_clip=True)}
+    step_cfgs = {"linear start": (cfg_ls, base_ls, True)}
+    for name, kw in heads.items():
+        cfg_f = cfg15.replace(**kw)
+        base_f = feature_base(cfg_f)
+        zero_counts()
+        sgd_steps_agree((cfg_f.replace(use_pallas=False), cfg_f), base_f,
+                        batches_np, dev, f"15 features {name}")
+        got = counts()
+        feature_launches[name] = got
+        print(f"[15 features] {name}: launches in 2 kernel-route steps "
+              f"{got}", flush=True)
+        if got != want_counts(qmatvec=20):
+            fail(f"the {name} steps launched {got}, want 10 lattice launches "
+                 "per step and nothing else")
+        step_cfgs[name] = (cfg_f, base_f, False)
+
+    # (c) mode 3 at iwl 1 with EN_SC_ATT: one epoch, the score on the
+    # Hamming kernel
+    cfg_m3 = QmannConfig(iwl=1, attention_mode=3, use_pallas=True,
+                         en_sc_att=True, num_itr=1, verbose=False)
+    zero_counts()
+    _, finite = train_route(cfg_m3, data, dev, "15 features",
+                            "mode 3 sc_att, kernel")
+    m3_steps, m3_chunks = n_forwards(cfg_m3, data)
+    n_m3 = m3_steps + m3_chunks
+    got = counts()
+    feature_launches["mode3_sc_att"] = got
+    want = want_counts(qmatvec=10 * n_m3, hamming_score=3 * n_m3)
+    print(f"[15 features] mode 3 sc_att iwl 1: {n_m3} forwards, launches "
+          f"{got} (want {want})", flush=True)
+    if got != want or not finite:
+        fail("the mode-3 EN_SC_ATT epoch launched other counts than "
+             "expected or gave a cost that is not finite")
+    base_m3 = feature_base(cfg_m3)
+    sgd_steps_agree((cfg_m3.replace(use_pallas=False), cfg_m3), base_m3,
+                    batches_np, dev, "15 features mode 3 sc_att")
+    step_cfgs["mode 3 sc_att"] = (cfg_m3, base_m3, False)
+
+    # (d) serving with EN_SC_ATT: the chain's envelope excludes it, the
+    # embeddings take the exact GEMM and the lattice only the lin maps
+    cfg_sv = QmannConfig(en_sc_att=True, use_pallas=True,
+                         use_fused_chain=True)
+    _, params_sv, _ = scaled_prepared(cfg_sv, serve_dims, mem0, dev)
+    engine_sv, answers, want_sv, launched, logits_ok = serve_requests(
+        params_sv, cfg_sv, cfg_sv.replace(use_pallas=False,
+                                          use_fused_chain=False),
+        serve_dims, dictionary, stories, dev, list(counters.values()))
+    st = engine_sv.stats
+    got = dict(zip(counters, launched))
+    feature_launches["serve_sc_att"] = got
+    want = want_counts(qmatvec=3 * st.waves)
+    print(f"[15 features] engine, sc_att, use_pallas + use_fused_chain: "
+          f"{len(answers)} answers over {st.waves} waves, failed_waves "
+          f"{st.failed_waves}, exact route {engine_sv.prepared.fast}, "
+          f"launches {got} (want {want}), equal to plain route: "
+          f"{answers == want_sv}", flush=True)
+    if (st.failed_waves or st.requests != len(stories)
+            or not engine_sv.prepared.fast or got != want):
+        fail("the EN_SC_ATT engine failed waves, left the exact route or "
+             "launched other kernels than the lattice for its lin maps")
+    if answers != want_sv or not logits_ok:
+        fail("EN_SC_ATT engine answers differ from the plain route")
+
+    # the step of each feature path, timed on the kernel route
+    lr_t = torch.tensor(cfg15.learning_rate, dtype=torch.float32, device=dev)
+    feature_steps = {}
+    for name, (cfg_f, base_f, rm) in step_cfgs.items():
+        p_f = {k: v.clone() for k, v in base_f.items()}
+        feature_steps[name] = (lambda p=p_f, c=cfg_f, r=rm: train_step(
+            p, batch0, lr_t, c, r))
+    time_steps(feature_steps, "15 features step", card=card)
+
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
     b_qmv = qmatvec_bound(*qmv_args["train"][:2])
@@ -1392,6 +1586,8 @@ def main():
          "bound_by": b_chain[1], "library_ms": None,
          "raw_h": {"ms": t_chain["raw H"][0],
                    "device_ms": t_chain["raw H"][2]},
+         "features": {"serve_sc_att":
+                      feature_launches["serve_sc_att"]["hop_chain"]},
          "mode3": {"launches": chain3_launches, "max_abs_err": chain3_err,
                    "ms": k3["hop_chain", "cached"][0],
                    "plain_ms": k3["hop_chain", "cached"][1],
@@ -1413,6 +1609,7 @@ def main():
                   "device_ms": k_times["qmatvec", "eval"][2],
                   "bound_ms": b_qmv_eval[0], "bound_by": b_qmv_eval[1]},
          "mode3": {"launches": qmv3_launches},
+         "features": {k: v["qmatvec"] for k, v in feature_launches.items()},
          "tiled_in": 6, "tiled_max_abs_err": tiled_err,
          "cli_launches": cli_qmv, "joint_launches": joint_qmv,
          **{name: {"rows": int(a[1].shape[0]),
@@ -1431,6 +1628,8 @@ def main():
          "device_ms": k_times["attention_read", "train"][2],
          "bound_ms": b_read[0], "bound_by": b_read[1], "library_ms": None,
          "redesigned_in": 5,
+         "features": {k: v["attention_read"]
+                      for k, v in feature_launches.items()},
          **at_shapes(k_times, "attention_read", read_args,
                      lambda a: attention_read_bound(*a[:4])),
          "mode3": {"launches": ar3_launches, "max_abs_err": ar3_err,
@@ -1450,6 +1649,8 @@ def main():
          "device_ms": k3["hamming", "train"][2],
          "bound_ms": b_ham[0], "bound_by": b_ham[1], "library_ms": None,
          "redesigned_in": 5,
+         "features": {"mode3_sc_att":
+                      feature_launches["mode3_sc_att"]["hamming_score"]},
          **at_shapes(k3, "hamming", ham_args,
                      lambda a: hamming_bound(*a[:2], num_bit=nb3))},
     ]}))

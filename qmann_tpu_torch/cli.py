@@ -6,9 +6,8 @@ Mirrors the reference CLI (MemN2N/MemN2N.c:211-274):
 
 with every flag of ``python -m qmann_tpu`` and its defaults, plus
 ``--device`` (default ``cuda``; without a card it raises unless given
-``--device cpu``).  Flags whose features are not ported yet (``--mesh``,
-``--linear-start``, ``--sc-att``, ``--shift-based-sm``, ``--att-shift``,
-``--att-clip``) raise NotImplementedError before any data is read.  Writes
+``--device cpu``).  Every flag runs but ``--mesh`` (the device mesh is not
+ported), which raises NotImplementedError before any data is read.  Writes
 ``result.csv`` and ``result_all.csv`` in the reference's shape to
 ``--out-dir`` and, with ``--checkpoint-dir``, one checkpoint per task loop
 (``utils/checkpoint.py``, readable by either package).

@@ -8,7 +8,8 @@ The parameter layout is the JAX package's (float32 master weights):
   tying type 1 (adjacent):
     E [K+1, D, I] with A_h = E[h], C_h = E[h+1], B = E[0], W = E[K]^T;
     H [K, D, D] when the linear map is on
-  scale [K] with EN_SC_ATT
+  scale [K] with EN_SC_ATT (starts at ones)
+  maxout_w, maxout_b [5] with the maxout attention trial (test_maxout)
 
 ``params_from_jax`` / ``params_to_jax`` carry weights across, so the port
 computes exactly what JAX computes on the same weights.
@@ -24,10 +25,16 @@ similarity, ``ops/attention.py``) ``cfg.use_pallas_hamming`` sends the
 score alone through the Hamming kernel (``ops/cuda/hamming.py``), as does
 ``use_pallas`` wherever the fused read is not used.
 
-Ported: attention modes 1 to 4 with no feature head.  EN_SC_ATT, maxout,
-cosine similarity, shift-based and exp_plan softmax, the score mitigations
-and linear start raise NotImplementedError; they wait for later PRs
-(ROADMAP.md, Queue 1).
+Every model feature of the JAX package runs: attention modes 1 to 4,
+EN_SC_ATT (a learnable scale per hop before the softmax), the maxout
+attention, cosine similarity, the shift-based and exp_plan softmax, the
+score mitigations ("shift", "clip") and linear start (``remove_softmax``:
+no softmax).  As in JAX, the fused read takes only the plain mode-1/2/3
+hop with a softmax; a feature head, a score mitigation or linear start
+runs the unfused hop, where the lattice kernel still carries the
+embeddings and linear maps and, in mode 3, the Hamming kernel the score.
+Under cosine similarity a zero memory row (every padded one) gets a zero
+gradient through its norm, where JAX's gives NaN (ROADMAP.md, Queue 3).
 """
 from __future__ import annotations
 
@@ -40,9 +47,11 @@ from qmann_tpu_torch.config import QmannConfig
 from qmann_tpu_torch.device import resolve_device
 from qmann_tpu_torch.numerics import (fixed_max_float, float_quant,
                                       float_quant_blocks)
-from qmann_tpu_torch.ops import (CEMetrics, activation, exact_matmul,
-                                 qembed_mat_multi, qmatvec, qsum,
-                                 qweighted_sum, softmax)
+from qmann_tpu_torch.models.maxout import (init_maxout_params,
+                                           maxout_attention)
+from qmann_tpu_torch.ops import (CEMetrics, activation, apply_softmax,
+                                 exact_matmul, qembed_mat_multi, qmatvec,
+                                 qsum, qweighted_sum, scale_apply)
 from qmann_tpu_torch.ops.attention import attention_score
 from qmann_tpu_torch.ops.cuda import fused_hop_chain
 from qmann_tpu_torch.ops.fused import fused_attention_read
@@ -55,24 +64,6 @@ class ForwardResult(NamedTuple):
     logits: torch.Tensor         # [B, dim_input]
     attention: torch.Tensor      # [K, B, M] per-hop attention probabilities
     scores: torch.Tensor         # [K, B, M] per-hop pre-softmax scores
-
-
-def check_supported(cfg: QmannConfig) -> None:
-    """Raise NotImplementedError for the model features not ported yet."""
-    missing = [name for name, on in (
-        (f"attention mode {cfg.attention_mode}",
-         cfg.attention_mode not in (1, 2, 3, 4)),
-        ("en_sc_att", cfg.en_sc_att),
-        ("test_maxout", cfg.test_maxout),
-        ("en_cosine_sim", cfg.en_cosine_sim),
-        ("en_shift_based_sm", cfg.en_shift_based_sm),
-        ("en_exp_table_based", cfg.en_exp_table_based),
-        (f"score_mod {cfg.att_score_mod!r}", cfg.att_score_mod != "none"),
-    ) if on]
-    if missing:
-        raise NotImplementedError(
-            f"not ported to qmann_tpu_torch yet: {', '.join(missing)} "
-            "(ROADMAP.md, Queue 1)")
 
 
 def param_shapes(cfg: QmannConfig, dim_input: int) -> Dict[str, tuple]:
@@ -88,20 +79,28 @@ def param_shapes(cfg: QmannConfig, dim_input: int) -> Dict[str, tuple]:
             shapes["H"] = (D, D)
     if cfg.en_sc_att:
         shapes["scale"] = (K,)
+    if cfg.test_maxout:
+        shapes["maxout_w"] = shapes["maxout_b"] = (5,)
     return shapes
 
 
 def init_params(cfg: QmannConfig, dims, generator: torch.Generator,
                 device="cuda") -> Params:
-    """Gaussian(0, 0.1) init of every weight matrix, drawn from
-    ``generator`` (a CPU generator) and moved to ``device``.  The draws
-    differ from jax.random's; tests carry JAX weights over with
-    ``params_from_jax``."""
-    check_supported(cfg)
+    """Gaussian(0, 0.1) init of every weight matrix and of the maxout
+    pieces, drawn from ``generator`` (a CPU generator) and moved to
+    ``device``; the scales start at 1.  The draws differ from jax.random's;
+    tests carry JAX weights over with ``params_from_jax``."""
     dev = resolve_device(device)
-    return {k: (0.1 * torch.randn(shape, generator=generator,
-                                  dtype=torch.float32)).to(dev)
-            for k, shape in param_shapes(cfg, dims.dim_input).items()}
+    params = {}
+    for k, shape in param_shapes(cfg, dims.dim_input).items():
+        if k == "scale":
+            params[k] = torch.ones(shape, dtype=torch.float32)
+        elif not k.startswith("maxout"):
+            params[k] = 0.1 * torch.randn(shape, generator=generator,
+                                          dtype=torch.float32)
+    if cfg.test_maxout:
+        params["maxout_w"], params["maxout_b"] = init_maxout_params(generator)
+    return {k: v.to(dev) for k, v in params.items()}
 
 
 def params_from_jax(params: Mapping[str, np.ndarray], cfg: QmannConfig,
@@ -158,12 +157,8 @@ def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
     """Batched K-hop forward on the lattice route (differentiable).
 
     memory [B, M, dim_input] bag-of-words rows; question [B, dim_input];
-    mask [B, M] bool validity of memory rows."""
-    if remove_softmax:
-        raise NotImplementedError(
-            "linear start (remove_softmax) is not ported yet "
-            "(ROADMAP.md, Queue 1)")
-    check_supported(cfg)
+    mask [B, M] bool validity of memory rows; remove_softmax is linear
+    start (the attention softmax bypassed)."""
     q = cfg.en_fixed_point
     fmt_w = cfg.fmt_w
     backend = "kernel" if cfg.use_pallas else "plain"
@@ -174,11 +169,19 @@ def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
     embeds = qembed_mat_multi(
         memory, [w[0] for w in hop_w] + [w[1] for w in hop_w],
         [fmt_w[h] for h in range(K)] * 2, quantized=q, backend=backend)
-    return _hop_stack(params, cfg, u, embeds, mask, backend)
+    return _hop_stack(params, cfg, u, embeds, mask, remove_softmax, backend)
+
+
+def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    """x over its L2 norm on the last axis, floored at 1e-12.  The norm's
+    backward at 0 is 0, so a zero row gets a zero gradient."""
+    norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x / torch.clamp_min(norm, 1e-12)
 
 
 def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
-               mask: torch.Tensor, backend: str = "plain") -> ForwardResult:
+               mask: torch.Tensor, remove_softmax: bool = False,
+               backend: str = "plain") -> ForwardResult:
     """The K-hop controller loop given the query embedding u and the 2K
     memory embeddings (A_0..A_{K-1}, C_0..C_{K-1})."""
     q = cfg.en_fixed_point
@@ -192,12 +195,11 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
     wsum_q = cfg.wsum_quantized
     wsum_gq = cfg.wsum_grad_quantized
     # the fused read covers the plain mode-1/2/3 hop chain; feature heads,
-    # softmax variants and the EN_GRAD_QUANT backward placement (the fused
-    # backward is raw-float) keep the unfused chain.  The guard of
-    # qmann_tpu/models/memn2n.py; its linear-start term is vacuous here
-    # (forward refuses remove_softmax).
+    # softmax variants, linear start and the EN_GRAD_QUANT backward
+    # placement (the fused backward is raw-float) keep the unfused chain,
+    # as in qmann_tpu/models/memn2n.py
     use_fused = (backend == "kernel" and cfg.attention_mode in (1, 2, 3)
-                 and not gq
+                 and not remove_softmax and not gq
                  and cfg.att_score_mod == "none"
                  and not (cfg.en_sc_att or cfg.test_maxout
                           or cfg.en_cosine_sim or cfg.en_shift_based_sm
@@ -221,13 +223,27 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
                 sum_quantized=wsum_q, attention_mode=cfg.attention_mode,
                 sum_grad_quantized=wsum_gq, **ham)
         else:
+            if cfg.en_cosine_sim and cfg.attention_mode in (1, 2):
+                m_sc, u_sc = _l2_normalize(m), _l2_normalize(u)
+            else:
+                m_sc, u_sc = m, u
             scores = attention_score(
-                m, u, cfg.attention_mode, fmt_att[h], cfg.fmt_bin,
+                m_sc, u_sc, cfg.attention_mode, fmt_att[h], cfg.fmt_bin,
                 num_bit=cfg.num_bits_attention,
                 const_scale=cfg.attention_const_scale, backend=att_backend,
+                score_mod=cfg.att_score_mod,
                 hamming_weight_para=cfg.hamming_weight_para,
                 hamming_weighted=cfg.hamming_weighted, grad_quantized=gq)
-            p = softmax(scores, mask)
+            if cfg.en_sc_att and not remove_softmax:
+                scores = scale_apply(params["scale"][h], scores)
+            if cfg.test_maxout:
+                p = maxout_attention(scores, params["maxout_w"],
+                                     params["maxout_b"], mask)
+            else:
+                p = apply_softmax(scores, mask,
+                                  shift_based=cfg.en_shift_based_sm,
+                                  use_exp_plan=cfg.en_exp_table_based,
+                                  remove=remove_softmax)
             o = qweighted_sum(c, p, mask_f, fmt_act[h], quantized=wsum_q,
                               grad_quantized=wsum_gq)
         if cfg.en_linear_mapping:
@@ -300,7 +316,6 @@ def prepare_inference(params: Params, cfg: QmannConfig,
     re-quantization of the embeddings is the identity and every partial
     sum is f32-exact; the check runs once, on the host, against the frozen
     weights."""
-    check_supported(cfg)
     K = cfg.num_hops
     fmt_w = cfg.fmt_w
     fmts = tuple(fmt_w[h] for h in range(K)) * 2 + (fmt_w[0],)
@@ -381,5 +396,5 @@ def forward_prepared(prep: PreparedInference, memory: torch.Tensor,
     flatq = float_quant_blocks(
         flat, tuple(fmt_w[i % K] for i in range(2 * K)), (D,) * (2 * K))
     embeds = torch.split(flatq, D, dim=-1)
-    return _hop_stack(prep.raw, cfg, u, embeds, mask,
+    return _hop_stack(prep.raw, cfg, u, embeds, mask, False,
                       "kernel" if cfg.use_pallas else "plain")

@@ -14,11 +14,12 @@ same semantics bit for bit on float32 inputs:
   * saturation is decided on the pre-conversion value;
   * iwl+frac == 0 binarizes to +/-1 with 0 -> +1.
 
-It also holds the 32-bit sign-magnitude encode/decode that the Hamming
-attention compares bit by bit (``encode_sign_magnitude``,
-``decode_sign_magnitude``) and the gray-code helpers (``bin2gray``,
-``gray2bin``).  The straight-through quantizer is not ported yet (see
-ROADMAP.md).
+It also holds the fixed-point arithmetic macros (``fixed_mul``,
+``fixed_add``, ``fixed_mac``), the straight-through quantizer
+(``quantize_ste``: float_quant forward, identity backward), the 32-bit
+sign-magnitude encode/decode that the Hamming attention compares bit by
+bit (``encode_sign_magnitude``, ``decode_sign_magnitude``) and the
+gray-code helpers (``bin2gray``, ``gray2bin``).
 """
 from __future__ import annotations
 
@@ -50,6 +51,12 @@ class QFormat(NamedTuple):
         return (self.iwl + self.frac) == 0
 
 
+def qformat_from_wl(iwl: int, wl: int = 8,
+                    mode: int = ROUND_TOWARD_ZERO) -> QFormat:
+    """BW_WL-style format: frac = wl - 1 - iwl."""
+    return QFormat(iwl, wl - 1 - iwl, mode)
+
+
 @functools.lru_cache(maxsize=None)
 def fixed_max_float(iwl: int, frac: int) -> float:
     """Saturation upper bound (float)((1<<(iwl+frac))-1) / (float)(1<<frac)
@@ -59,6 +66,11 @@ def fixed_max_float(iwl: int, frac: int) -> float:
     num = np.float32((1 << (iwl + frac)) - 1)
     den = np.float32(1 << frac)
     return float(np.float32(num / den))
+
+
+def fixed_min_float(iwl: int, frac: int) -> float:
+    """The symmetric lower bound -max (sign-magnitude)."""
+    return -fixed_max_float(iwl, frac)
 
 
 def _convert(scaled: torch.Tensor, mode: int) -> torch.Tensor:
@@ -114,6 +126,41 @@ def float_quant_blocks(x: torch.Tensor, fmts: Sequence[QFormat],
         wrap = cols(full31, torch.bool)
         deq = torch.where(wrap & (scaled <= -_INT32_SAT_F32), 0.0, deq)
     return torch.where(x > maxf, maxf, torch.where(x < -maxf, -maxf, deq))
+
+
+def fixed_mul(a: torch.Tensor, b: torch.Tensor, fmt_a: QFormat,
+              fmt_b: QFormat) -> torch.Tensor:
+    """Quantize each operand in its own format, multiply in float,
+    requantize the product to fmt_a (the first operand's format)."""
+    return float_quant(float_quant(a, fmt_a) * float_quant(b, fmt_b), fmt_a)
+
+
+def fixed_add(a: torch.Tensor, b: torch.Tensor, fmt_a: QFormat,
+              fmt_b: QFormat) -> torch.Tensor:
+    """Q(Q(a, fmt_a) + Q(b, fmt_b), fmt_a)."""
+    return float_quant(float_quant(a, fmt_a) + float_quant(b, fmt_b), fmt_a)
+
+
+def fixed_mac(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+              fmt_a: QFormat, fmt_b: QFormat) -> torch.Tensor:
+    """Float accumulate of the per-product-quantized multiply."""
+    return acc + fixed_mul(a, b, fmt_a, fmt_b)
+
+
+class _QuantizeSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fmt):
+        return float_quant(x, fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def quantize_ste(x: torch.Tensor, fmt: QFormat) -> torch.Tensor:
+    """float_quant with the identity (straight-through) gradient: the
+    reference's backward passes see raw float tensors."""
+    return _QuantizeSTE.apply(x, fmt)
 
 
 # ---------------------------------------------------------------------------

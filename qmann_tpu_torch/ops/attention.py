@@ -233,18 +233,17 @@ def attention_score(m: torch.Tensor, u: torch.Tensor, attention_mode: int,
                     grad_quantized: bool = False) -> torch.Tensor:
     """Dispatch over the four attention modes.  Mode 3 takes its iwl and
     rounding mode from fmt_att and, by default, num_bit = 1 + iwl + frac;
-    backend selects the Hamming forward's route.  Only score_mod="none" is
-    ported."""
-    if score_mod != "none":
-        raise NotImplementedError(
-            f"score_mod {score_mod!r} is not ported to qmann_tpu_torch yet "
-            "(ROADMAP.md, Queue 1)")
+    backend selects the Hamming forward's route.  score_mod ("none",
+    "shift", "clip", see ``qlinear.qscore``) applies to the quantized dot
+    of mode 2 only: mode 1 is float (the softmax is shift-invariant and
+    nothing saturates) and the scores of modes 3 and 4 are bounded far
+    below the format's bound."""
     if attention_mode == 1:
         return qscore(m, u, fmt_att, fmt_bin, quantized=False,
                       grad_quantized=grad_quantized)
     if attention_mode == 2:
         return qscore(m, u, fmt_att, fmt_bin, quantized=True,
-                      grad_quantized=grad_quantized)
+                      score_mod=score_mod, grad_quantized=grad_quantized)
     if attention_mode == 3:
         nb = num_bit if num_bit is not None else 1 + fmt_att.iwl + fmt_att.frac
         return hamming_score(m, u, fmt_att.iwl, nb, const_scale,

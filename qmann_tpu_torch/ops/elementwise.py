@@ -1,6 +1,7 @@
 """Element-wise ops with the reference's backwards (counterpart of
-``qmann_tpu/ops/elementwise.py``): the hop residual sum and the
-NULL/SIGMOID/RELU activation."""
+``qmann_tpu/ops/elementwise.py``): the hop residual sum, the
+NULL/SIGMOID/RELU activation, the learnable scale (EN_SC_ATT), the
+element-wise multiply and maxout."""
 from __future__ import annotations
 
 from typing import Optional
@@ -77,3 +78,42 @@ def activation(x: torch.Tensor, kind: str, fmt: Optional[QFormat],
     quantized only under grad_quantized (EN_GRAD_QUANT): without it the
     derivative stays float even in a fixed-point run."""
     return _Activation.apply(x, kind, fmt, quantized, grad_quantized)
+
+
+def scale_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out = w * x with a scalar w.  Plain autograd gives the reference's
+    backward: dw = sum(g * x), dx = w * g.  The scale's SGD divisor
+    (batch size times the score length) is ``train.optim``'s."""
+    return w * x
+
+
+class _QMult(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, fmt, quantized):
+        ctx.save_for_backward(a, b)
+        if not quantized:
+            return a * b
+        return float_quant(float_quant(a, fmt) * float_quant(b, fmt), fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        # float cross-gradients on the raw inputs
+        a, b = ctx.saved_tensors
+        return g * b, g * a, None, None
+
+
+def qmult(a: torch.Tensor, b: torch.Tensor, fmt: QFormat,
+          quantized: bool = True) -> torch.Tensor:
+    """Element-wise multiply: Q(Q(a) * Q(b)) when fixed, a * b otherwise;
+    the backward is the float g * b, g * a on the raw inputs."""
+    return _QMult.apply(a, b, fmt, quantized)
+
+
+def maxout(x: torch.Tensor, num_pieces: int) -> torch.Tensor:
+    """Maxout over groups of num_pieces consecutive features: [...,
+    K * num_pieces] -> [..., K].  ``amax`` splits the gradient evenly
+    between tied maxima, as JAX's max does."""
+    *lead, d = x.shape
+    if d % num_pieces:
+        raise ValueError("the feature dim must be divisible by num_pieces")
+    return x.reshape(*lead, d // num_pieces, num_pieces).amax(-1)

@@ -1,5 +1,5 @@
-"""Cross-entropy loss, the reference's metrics and the ties-to-last argmax
-(counterpart of ``qmann_tpu/ops/losses.py``).
+"""Cross-entropy loss, the reference's metrics, the ties-to-last argmax
+and the squared error (counterpart of ``qmann_tpu/ops/losses.py``).
 
 The loss is the standard -sum(y * log_softmax(logits)), whose gradient is
 the reference's h - y injected at the output softmax's input.  The
@@ -37,3 +37,8 @@ def cross_entropy(logits: torch.Tensor, y_onehot: torch.Tensor) -> CEMetrics:
     hit = torch.gather(y_onehot, -1, pred[..., None])[..., 0]
     matches = (hit == 1.0).sum().to(torch.int32)
     return CEMetrics(loss=loss, cost=cost, matches=matches, pred=pred)
+
+
+def squared_error(h: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The se layer: cost 0.5 * sum((h - y)^2), whose gradient is h - y."""
+    return 0.5 * ((h - y) ** 2).sum()

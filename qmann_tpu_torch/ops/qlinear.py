@@ -25,8 +25,11 @@ lattice.  Both give the same result and the same backward.  The JAX ops'
 runtime exact-GEMM fast paths are not ported on this route: the serving
 path decides its exact GEMM once in ``models.memn2n.prepare_inference``.
 
-``qscore_partial_sum`` / ``qweighted_partial_sum`` (memory-sharded
-execution) are not ported yet (ROADMAP.md, Queue 1).
+``qscore``'s ``score_mod`` ("shift", "clip") adjusts the raw score sums
+before the output requant and changes only the forward.
+``qscore_partial_sum`` / ``qweighted_partial_sum`` are the two ops
+without their output requant, the building blocks of memory-sharded
+execution, with the same backwards.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from qmann_tpu_torch.numerics import QFormat, float_quant
+from qmann_tpu_torch.numerics import QFormat, fixed_max_float, float_quant
 
 BACKENDS = ("plain", "kernel")
 
@@ -215,13 +218,43 @@ def qembed_mat_multi(s: torch.Tensor, weights: Sequence[torch.Tensor],
 # qscore: scores = M @ u  (attention modes 1/2)
 # ---------------------------------------------------------------------------
 
-def qscore_forward(m: torch.Tensor, u: torch.Tensor, fmt_m: QFormat,
-                   fmt_u: QFormat, quantized: bool = True) -> torch.Tensor:
-    """qscore's forward without autograd (see ``qscore``)."""
+SCORE_MODS = ("none", "shift", "clip")
+
+
+def _apply_score_mod(raw: torch.Tensor, fmt: QFormat,
+                     score_mod: str) -> torch.Tensor:
+    """The pre-requant adjustment of the raw score sums: "shift" subtracts
+    the row max over all rows (padded ones included), "clip" clips at
+    +-(maxf - 2^-frac)."""
+    if score_mod == "shift":
+        return raw - raw.amax(-1, keepdim=True)
+    if score_mod == "clip":
+        bound = fixed_max_float(fmt.iwl, fmt.frac) - 2.0 ** (-fmt.frac)
+        return torch.clamp(raw, -bound, bound)
+    if score_mod != "none":
+        raise ValueError(f"unknown score_mod {score_mod!r}; expected one of "
+                         f"{SCORE_MODS}")
+    return raw
+
+
+def qscore_partial_forward(m: torch.Tensor, u: torch.Tensor, fmt_m: QFormat,
+                           fmt_u: QFormat,
+                           quantized: bool = True) -> torch.Tensor:
+    """The score's raw sums: the quantized products summed in float32, no
+    output requant (the float dot product when quantized=False)."""
     if not quantized:
         return torch.einsum("...md,...d->...m", m, u)
-    prod = _qproducts(m, u[..., None, :], fmt_m, fmt_u, fmt_m)
-    return float_quant(prod.sum(-1), fmt_m)
+    return _qproducts(m, u[..., None, :], fmt_m, fmt_u, fmt_m).sum(-1)
+
+
+def qscore_forward(m: torch.Tensor, u: torch.Tensor, fmt_m: QFormat,
+                   fmt_u: QFormat, quantized: bool = True,
+                   score_mod: str = "none") -> torch.Tensor:
+    """qscore's forward without autograd (see ``qscore``)."""
+    raw = qscore_partial_forward(m, u, fmt_m, fmt_u, quantized)
+    if not quantized:
+        return raw
+    return float_quant(_apply_score_mod(raw, fmt_m, score_mod), fmt_m)
 
 
 def qscore_backward(m: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
@@ -246,41 +279,66 @@ def qscore_backward(m: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
 
 class _QScore(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, m, u, fmt_m, fmt_u, quantized, grad_quantized):
+    def forward(ctx, m, u, fmt_m, fmt_u, quantized, score_mod,
+                grad_quantized, partial):
         ctx.save_for_backward(m, u)
         ctx.fmt_m, ctx.grad_quantized = fmt_m, grad_quantized
-        return qscore_forward(m, u, fmt_m, fmt_u, quantized)
+        if partial:
+            return qscore_partial_forward(m, u, fmt_m, fmt_u, quantized)
+        return qscore_forward(m, u, fmt_m, fmt_u, quantized, score_mod)
 
     @staticmethod
     def backward(ctx, g):
         m, u = ctx.saved_tensors
         dm, du = qscore_backward(m, u, g, ctx.fmt_m, ctx.grad_quantized)
-        return dm, du, None, None, None, None
+        return dm, du, None, None, None, None, None, None
 
 
 def qscore(m: torch.Tensor, u: torch.Tensor, fmt_m: QFormat, fmt_u: QFormat,
-           quantized: bool = True, grad_quantized: bool = False
-           ) -> torch.Tensor:
+           quantized: bool = True, score_mod: str = "none",
+           grad_quantized: bool = False) -> torch.Tensor:
     """Attention score m [..., M, D] x u [..., D] -> [..., M]: per-product
     requant to fmt_m, row-sum requant to fmt_m (mode 2); the float dot
-    product when quantized=False (mode 1).  Only score_mod="none" is
-    ported.  grad_quantized selects the EN_GRAD_QUANT backward."""
-    return _QScore.apply(m, u, fmt_m, fmt_u, quantized, grad_quantized)
+    product when quantized=False (mode 1).  score_mod "shift" / "clip"
+    adjusts the raw sums before the requant (quantized path only); the
+    backward is the same raw-float one either way.  grad_quantized selects
+    the EN_GRAD_QUANT backward."""
+    return _QScore.apply(m, u, fmt_m, fmt_u, quantized, score_mod,
+                         grad_quantized, False)
+
+
+def qscore_partial_sum(m: torch.Tensor, u: torch.Tensor, fmt_m: QFormat,
+                       fmt_u: QFormat, quantized: bool = True
+                       ) -> torch.Tensor:
+    """qscore without the output requant: each memory shard's sum of
+    quantized products (exact on the 2^-frac grid), for a global shift and
+    requant after the shards are combined.  The float backward of
+    qscore."""
+    return _QScore.apply(m, u, fmt_m, fmt_u, quantized, "none", False, True)
 
 
 # ---------------------------------------------------------------------------
 # qweighted_sum: o = C^T p  (memory read)
 # ---------------------------------------------------------------------------
 
+def qweighted_partial_forward(c: torch.Tensor, p: torch.Tensor,
+                              row_mask: torch.Tensor, fmt: QFormat,
+                              quantized: bool = True) -> torch.Tensor:
+    """The weighted sum's raw sums: the masked quantized products summed
+    in float32, no output requant (the float product when
+    quantized=False)."""
+    if not quantized:
+        return torch.einsum("...md,...m->...d", c, p * row_mask)
+    prod = _qproducts(p[..., :, None], c, fmt, fmt, fmt)
+    return (prod * row_mask[..., :, None]).sum(-2)
+
+
 def qweighted_sum_forward(c: torch.Tensor, p: torch.Tensor,
                           row_mask: torch.Tensor, fmt: QFormat,
                           quantized: bool = True) -> torch.Tensor:
     """qweighted_sum's forward without autograd (see ``qweighted_sum``)."""
-    if not quantized:
-        return torch.einsum("...md,...m->...d", c, p * row_mask)
-    prod = _qproducts(p[..., :, None], c, fmt, fmt, fmt)
-    prod = prod * row_mask[..., :, None]
-    return float_quant(prod.sum(-2), fmt)
+    raw = qweighted_partial_forward(c, p, row_mask, fmt, quantized)
+    return float_quant(raw, fmt) if quantized else raw
 
 
 def qweighted_sum_backward(c: torch.Tensor, p: torch.Tensor,
@@ -305,9 +363,12 @@ def qweighted_sum_backward(c: torch.Tensor, p: torch.Tensor,
 
 class _QWeightedSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, c, p, row_mask, fmt, quantized, grad_quantized):
+    def forward(ctx, c, p, row_mask, fmt, quantized, grad_quantized,
+                partial):
         ctx.save_for_backward(c, p, row_mask)
         ctx.fmt, ctx.grad_quantized = fmt, grad_quantized
+        if partial:
+            return qweighted_partial_forward(c, p, row_mask, fmt, quantized)
         return qweighted_sum_forward(c, p, row_mask, fmt, quantized)
 
     @staticmethod
@@ -315,7 +376,7 @@ class _QWeightedSum(torch.autograd.Function):
         c, p, row_mask = ctx.saved_tensors
         dc, dp = qweighted_sum_backward(c, p, row_mask, g, ctx.fmt,
                                         ctx.grad_quantized)
-        return dc, dp, None, None, None, None
+        return dc, dp, None, None, None, None, None
 
 
 def qweighted_sum(c: torch.Tensor, p: torch.Tensor, row_mask: torch.Tensor,
@@ -326,4 +387,17 @@ def qweighted_sum(c: torch.Tensor, p: torch.Tensor, row_mask: torch.Tensor,
     per-product quantization (the binary format maps 0 to +1).
     grad_quantized selects the quantized backward contractions (the
     EN_GRAD_QUANT placement, and always in fixed-point mode 3)."""
-    return _QWeightedSum.apply(c, p, row_mask, fmt, quantized, grad_quantized)
+    return _QWeightedSum.apply(c, p, row_mask, fmt, quantized, grad_quantized,
+                               False)
+
+
+def qweighted_partial_sum(c: torch.Tensor, p: torch.Tensor,
+                          row_mask: torch.Tensor, fmt: QFormat,
+                          quantized: bool = True,
+                          grad_quantized: bool = False) -> torch.Tensor:
+    """qweighted_sum without the output requant: each memory shard's sum
+    of masked quantized products, for one requant after the shards are
+    added.  The backward of qweighted_sum: dc is per memory row and dp
+    reduces over the unsharded D axis, so it is shard-local."""
+    return _QWeightedSum.apply(c, p, row_mask, fmt, quantized, grad_quantized,
+                               True)

@@ -1,11 +1,13 @@
 from qmann_tpu_torch.train.optim import (
-    lr_schedule, rowsum_l2_norm, sgd_update, zero_null_columns,
+    adamax_update, lr_schedule, rmsprop_update, rowsum_l2_norm,
+    sgd_momentum_update, sgd_update, zero_null_columns,
 )
 from qmann_tpu_torch.train.trainer import (
     EpochMetrics, TrainResult, eval_split, evaluate, train_epoch, train_step,
     train_task,
 )
 
-__all__ = ["lr_schedule", "rowsum_l2_norm", "sgd_update",
+__all__ = ["adamax_update", "lr_schedule", "rmsprop_update",
+           "rowsum_l2_norm", "sgd_momentum_update", "sgd_update",
            "zero_null_columns", "EpochMetrics", "TrainResult", "eval_split",
            "evaluate", "train_epoch", "train_step", "train_task"]

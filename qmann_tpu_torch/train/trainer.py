@@ -10,9 +10,12 @@ no read back to the host.  The host reads the epoch's summed cost and
 matches once per epoch.  Entry points run on the card unless the caller
 passes ``device="cpu"``.
 
-With ``en_similarity_analysis`` each epoch dumps the attention softmax's
-inputs and outputs on the validation split (``utils/analysis.py``).  Not
-ported yet (ROADMAP.md, Queue 1): linear start and the device mesh.
+With ``en_linear_start`` the first ``num_itr_linear_start`` epochs train
+with the attention softmax removed, at half the learning rate
+(``optim.lr_schedule``); evaluation always keeps the softmax.  With
+``en_similarity_analysis`` each epoch dumps the attention softmax's inputs
+and outputs on the validation split (``utils/analysis.py``).  Not ported
+yet (ROADMAP.md, Queue 1): training on a device mesh.
 """
 from __future__ import annotations
 
@@ -56,20 +59,13 @@ class TrainResult:
     time_test: float
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to qmann_tpu_torch yet "
-                               "(ROADMAP.md, Queue 1)")
-
-
 def check_ported(cfg: QmannConfig, mesh=None) -> None:
     """Raise NotImplementedError for what ``train_task`` cannot run yet: a
-    device mesh, linear start, and the model features ``memn2n`` refuses
-    (the CLI calls this before it reads any data)."""
+    device mesh (the CLI calls this before it reads any data)."""
     if mesh is not None:
-        raise _not_ported("training on a device mesh")
-    if cfg.en_linear_start:
-        raise _not_ported("linear start (en_linear_start)")
-    memn2n.check_supported(cfg)
+        raise NotImplementedError("training on a device mesh is not ported "
+                                  "to qmann_tpu_torch yet (ROADMAP.md, "
+                                  "Queue 1)")
 
 
 def _batched_arrays(split: VectorizedSplit, batch_size: int
@@ -131,13 +127,16 @@ def train_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
             params, batch["memory"], batch["question"], batch["answer"],
             batch["mask"], batch["sample_mask"], cfg, remove_softmax)
         # a weight that no gradient reaches (A in attention mode 4, whose
-        # binarized score passes none) gets zeros, as under jax.grad
+        # binarized score passes none; the scale during linear start) gets
+        # zeros, as under jax.grad
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
             leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
     finally:
         for t in leaves:
             t.requires_grad_(False)
-    sgd_update(params, dict(zip(names, grads)), lr, batch["size_b"], cfg)
+    # the scale's divisor takes the padded memory length as its dim
+    sgd_update(params, dict(zip(names, grads)), lr, batch["size_b"], cfg,
+               scale_dim=batch["mask"].shape[-1])
     zero_null_columns(params, cfg)
     return met.cost.detach(), met.matches
 
@@ -263,7 +262,10 @@ def train_task(cfg: QmannConfig, data: TaskData,
             data.train.mask))
 
     history: List[EpochMetrics] = []
-    analyzer = (SimilarityAnalyzer(cfg.similarity_analysis_dir, cfg.num_itr)
+    # the dump's buckets cover the linear-start epochs too
+    total_epochs = cfg.num_itr + (cfg.num_itr_linear_start
+                                  if cfg.en_linear_start else 0)
+    analyzer = (SimilarityAnalyzer(cfg.similarity_analysis_dir, total_epochs)
                 if cfg.en_similarity_analysis else None)
     best_params = None
     err_valid_best, cost_valid_best = float("inf"), float("inf")

@@ -133,14 +133,34 @@ def test_main_joint_mode_on_the_cpu(corpus, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--mesh", "2,1"], ["--linear-start"],
                                   ["--sc-att"], ["--shift-based-sm"],
                                   ["--att-shift"], ["--att-clip"]])
-def test_unported_flags_raise_before_reading_data(tmp_path, flag):
-    """No data exists at the paths given: the refusal comes first."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["1", "1", "1", "5", *flag, "--device", "cpu",
-                  "--data-path", str(tmp_path / "none"),
-                  "--raw-data-path", str(tmp_path / "none"),
-                  "--out-dir", str(tmp_path)])
-    assert os.listdir(tmp_path) == []
+def test_unported_flags_raise_before_reading_data(tmp_path, request, flag):
+    """--mesh raises before any data is read (no data exists at the paths
+    given).  The feature flags are ported: each runs task 1 on 32 stories
+    of the files the fixture writes (--linear-start: 1 epoch after the 5
+    linear-start ones), writes its result row and a checkpoint whose config
+    carries the flag."""
+    if flag[0] == "--mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(["1", "1", "1", "5", *flag, "--device", "cpu",
+                      "--data-path", str(tmp_path / "none"),
+                      "--raw-data-path", str(tmp_path / "none"),
+                      "--out-dir", str(tmp_path)])
+        assert os.listdir(tmp_path) == []
+        return
+    corpus = request.getfixturevalue("corpus")
+    out = tmp_path / "out"
+    assert cli.main(["1", "1", "1", "5", *flag, "--max-samples", "32",
+                     *_small(*corpus, out)]) == 0
+    assert [r[0] for r in _rows(out / "result.csv")] == ["1"]
+    params, cfg, _ = checkpoint.load_checkpoint(
+        str(out / "ckpt" / "qa1_single-supporting-fact_loop0"))
+    field = {"--linear-start": "en_linear_start", "--sc-att": "en_sc_att",
+             "--shift-based-sm": "en_shift_based_sm",
+             "--att-shift": "en_att_shift",
+             "--att-clip": "en_att_clip"}[flag[0]]
+    assert getattr(cfg, field)
+    assert ("scale" in params) == (flag[0] == "--sc-att")
+    assert all(np.isfinite(v).all() for v in params.values())
 
 
 def test_cli_and_qps_default_to_the_card(corpus, tmp_path):

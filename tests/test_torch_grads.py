@@ -1,5 +1,7 @@
 """Every autograd.Function of the port against jax.grad of the JAX op on the
-same numpy inputs, both EN_GRAD_QUANT branches where the op has them.
+same numpy inputs, both EN_GRAD_QUANT branches where the op has them; the
+feature heads' ops (the score mods, the partial sums, the softmax variants,
+the scale, qmult, maxout and the maxout attention) too.
 
 The loss is sum(out * ct) with a seeded random cotangent per output.
 Tolerance: rtol 1e-5, atol 1e-6 on every gradient, because the float sums
@@ -21,12 +23,19 @@ from qmann_tpu.ops import losses as jlosses  # noqa: E402
 from qmann_tpu.ops import qlinear as jq  # noqa: E402
 from qmann_tpu.ops.softmax import softmax as j_softmax  # noqa: E402
 from qmann_tpu.ops.fused import fused_attention_read as j_fused  # noqa: E402
+from qmann_tpu.models import maxout as jmaxout  # noqa: E402
 from qmann_tpu_torch.numerics import QFormat  # noqa: E402
 from qmann_tpu_torch.ops import elementwise as tel  # noqa: E402
 from qmann_tpu_torch.ops import losses as tlosses  # noqa: E402
 from qmann_tpu_torch.ops import qlinear as tq  # noqa: E402
 from qmann_tpu_torch.ops.softmax import softmax as t_softmax  # noqa: E402
 from qmann_tpu_torch.ops.fused import fused_attention_read  # noqa: E402
+from qmann_tpu_torch.models import maxout as tmaxout  # noqa: E402
+import importlib  # noqa: E402
+
+# the packages' ops/__init__ export the function softmax over the module
+jsm = importlib.import_module("qmann_tpu.ops.softmax")
+tsm = importlib.import_module("qmann_tpu_torch.ops.softmax")
 
 
 def check_grads(rng, jfn, tfn, inputs, argnums, used=None):
@@ -125,7 +134,7 @@ def test_qscore_grads(rng, quantized, grad_quantized):
         lambda m, u: jq.qscore(m, u, JQ(*fm), JQ(*fu), quantized, "none",
                                grad_quantized),
         lambda m, u: tq.qscore(m, u, QFormat(*fm), QFormat(*fu), quantized,
-                               grad_quantized),
+                               grad_quantized=grad_quantized),
         [normal(rng, 4, 6, 8), normal(rng, 4, 8)], (0, 1))
 
 
@@ -220,3 +229,113 @@ def test_fused_attention_read_grads(rng, mode, sum_gq, used):
     check_grads(rng, jfn, tfn,
                 [normal(rng, B, M, D, sd=sd), normal(rng, B, M, D, sd=sd),
                  normal(rng, B, D, sd=sd)], (0, 1, 2), used=used)
+
+
+@pytest.mark.parametrize("score_mod", ["shift", "clip"])
+def test_qscore_score_mod_grads(rng, score_mod):
+    """The score mods change only the forward: against jax.grad, and equal
+    to the port's own "none" gradients bit for bit.  Scores past the Q5.2
+    bound, where clip and shift act."""
+    fm = (5, 2)
+    m, u = normal(rng, 4, 6, 8, sd=3.0), normal(rng, 4, 8, sd=3.0)
+    check_grads(
+        rng,
+        lambda m_, u_: jq.qscore(m_, u_, JQ(*fm), JQ(*fm), True, score_mod),
+        lambda m_, u_: tq.qscore(m_, u_, QFormat(*fm), QFormat(*fm), True,
+                                 score_mod),
+        [m, u], (0, 1))
+    ct = torch.from_numpy(normal(rng, 4, 6))
+    grads = []
+    for mod in ("none", score_mod):
+        mt, ut = (torch.tensor(a, requires_grad=True) for a in (m, u))
+        out = tq.qscore(mt, ut, QFormat(*fm), QFormat(*fm), True, mod)
+        grads.append(torch.autograd.grad((out * ct).sum(), [mt, ut]))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quantized,grad_quantized",
+                         [(True, False), (True, True), (False, False)])
+def test_partial_sum_grads(rng, quantized, grad_quantized):
+    """qscore_partial_sum and qweighted_partial_sum: forwards bit for bit
+    (quantized; float rtol 1e-6) and gradients against jax.grad."""
+    fmt = (5, 2) if quantized else (2, 5)
+    fmt_c = (2, 5)       # p in [0, 1] quantizes to 0 at Q5.2
+    m, u = normal(rng, 4, 6, 8), normal(rng, 4, 8)
+    mask = live_mask(rng, 4, 6).astype(np.float32)
+    p = rng.dirichlet(np.ones(6), 4).astype(np.float32) * mask
+    pairs = [
+        (lambda m_, u_: jq.qscore_partial_sum(m_, u_, JQ(*fmt), JQ(*fmt),
+                                              quantized),
+         lambda m_, u_: tq.qscore_partial_sum(m_, u_, QFormat(*fmt),
+                                              QFormat(*fmt), quantized),
+         [m, u]),
+        (lambda c, p_: jq.qweighted_partial_sum(
+            c, p_, jnp.asarray(mask), JQ(*fmt_c), quantized, grad_quantized),
+         lambda c, p_: tq.qweighted_partial_sum(
+             c, p_, torch.from_numpy(mask), QFormat(*fmt_c), quantized,
+             grad_quantized),
+         [m, p])]
+    for jfn, tfn, inputs in pairs:
+        want = np.asarray(jfn(*(jnp.asarray(a) for a in inputs)))
+        got = tfn(*(torch.from_numpy(a) for a in inputs)).numpy()
+        if quantized:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        if grad_quantized and jfn is pairs[0][0]:
+            continue        # the score's partial sum has no such branch
+        check_grads(rng, jfn, tfn, inputs, (0, 1))
+
+
+@pytest.mark.parametrize("variant", ["shift", "exp_plan", "exp2", "remove"])
+def test_softmax_variant_grads(rng, variant):
+    """The shift-based softmax's 0.7-scaled backward, exp_plan and exp2 as
+    compositions, and the linear-start pass-through, against jax.grad.
+    exp_plan and exp2 get a live entry in every row (JAX gives a row
+    without one NaN, tests/test_torch_features.py); the others a padded
+    sample as well."""
+    dead = 0 if variant in ("exp_plan", "exp2") else 1
+    mask = live_mask(rng, 6, 7, dead=dead) if dead else \
+        np.arange(7)[None, :] < rng.integers(1, 8, 6)[:, None]
+    fns = {"shift": (lambda x, m: jsm.shift_softmax(x, m, 0),
+                     tsm.shift_softmax),
+           "exp_plan": (jsm.exp_plan_softmax, tsm.exp_plan_softmax),
+           "exp2": (jsm.exp2_softmax, tsm.exp2_softmax),
+           "remove": (lambda x, m: jsm.apply_softmax(x, m, remove=True),
+                      lambda x, m: tsm.apply_softmax(x, m, remove=True))}
+    jfn, tfn = fns[variant]
+    check_grads(rng, lambda x: jfn(x, jnp.asarray(mask)),
+                lambda x: tfn(x, torch.from_numpy(mask)),
+                [normal(rng, 6, 7)], (0,))
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+def test_scale_and_qmult_grads(rng, quantized):
+    """scale_apply's plain autodiff (dw = sum(g x), dx = w g) and qmult's
+    float cross-gradients on the raw inputs."""
+    check_grads(rng, jel.scale_apply, tel.scale_apply,
+                [np.float32(1.25), normal(rng, 4, 6)], (0, 1))
+    fmt = (2, 5)
+    check_grads(rng,
+                lambda a, b: jel.qmult(a, b, JQ(*fmt), quantized),
+                lambda a, b: tel.qmult(a, b, QFormat(*fmt), quantized),
+                [normal(rng, 4, 6), normal(rng, 4, 6)], (0, 1))
+
+
+def test_maxout_grads_split_between_ties(rng):
+    """maxout and the maxout attention: amax splits the gradient between
+    tied maxima as JAX's max does (a max(dim) would route it to one)."""
+    x = normal(rng, 3, 10)
+    x[0, :5] = 1.0                                   # a five-way tie
+    x[1, 5:7] = 2.0                                  # a two-way tie
+    check_grads(rng, lambda a: jel.maxout(a, 5),
+                lambda a: tel.maxout(a, 5), [x], (0,))
+    mask = live_mask(rng, 5, 6)
+    check_grads(rng,
+                lambda s, w, b: jmaxout.maxout_attention(s, w, b,
+                                                         jnp.asarray(mask)),
+                lambda s, w, b: tmaxout.maxout_attention(
+                    s, w, b, torch.from_numpy(mask)),
+                [normal(rng, 5, 6, sd=2.0), normal(rng, 5, sd=0.5),
+                 np.abs(normal(rng, 5, sd=0.5)) + 0.5], (0, 1, 2))

@@ -162,17 +162,15 @@ def test_init_params_layout():
                                 dict(test_maxout=True),
                                 dict(en_att_shift=True)])
 def test_unported_features_raise(kw):
-    cfg = QmannConfig(dim_emb=8, verbose=False, **kw)
-    dims, mem, que, mask = qa1_batch(4, 0)
-    pt = memn2n.params_from_jax(
-        jax_params(dict(dim_emb=8, verbose=False), dims, scale=1.0),
-        QmannConfig(dim_emb=8, verbose=False), device="cpu")
-    args = (torch.from_numpy(mem), torch.from_numpy(que),
-            torch.from_numpy(mask))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        memn2n.forward(pt, *args, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        memn2n.prepare_inference(pt, cfg)
+    """Every feature head is ported (none raises): the forward, and
+    prepare_inference + forward_prepared with use_fused_chain, against
+    JAX.  A feature head is outside the chain's envelope on both sides, so
+    the prepared forward takes the unfused hops after the exact GEMMs (the
+    scale and maxout weights ride along in the prepared raw params)."""
+    cfg_kw = dict(dim_emb=8, verbose=False, use_fused_chain=True, **kw)
+    _compare(cfg_kw, 12, seed=5, prepared=False)
+    got = _compare(cfg_kw, 12, seed=5)
+    assert got.attention.shape == (3, 12, M)
 
 
 def test_cross_entropy_and_argmax_last_match_jax(rng):

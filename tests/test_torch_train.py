@@ -143,10 +143,17 @@ def test_synthetic_task_layout_and_answers():
                                 dict(lambda_=0.01, max_grad_l2_norm=5.0),
                                 dict(en_grad_quant=True,
                                      grad_quant_placement="update"),
-                                dict(en_max_grad_l2_norm=False)])
+                                dict(en_max_grad_l2_norm=False),
+                                dict(en_sc_att=True, test_maxout=True,
+                                     lambda_=0.01),
+                                dict(en_sc_att=True, test_maxout=True,
+                                     en_grad_quant=True,
+                                     grad_quant_placement="update")])
 @pytest.mark.parametrize("grad_sd", [0.05, 3.0])
 def test_sgd_update_matches_jax(rng, kw, grad_sd):
-    """The clip both idle (small gradients) and firing (large ones)."""
+    """The clip both idle (small gradients) and firing (large ones); the
+    scale (divided by batch_size * scale_dim, no clip, no "update"
+    quantization) and the maxout pieces (plain SGD) when present."""
     cfg_kw = dict(dim_emb=8, verbose=False, **kw)
     shapes = memn2n.param_shapes(QmannConfig(**cfg_kw), 17)
     params = {k: rng.normal(0, 0.5, s).astype(np.float32)
@@ -156,18 +163,67 @@ def test_sgd_update_matches_jax(rng, kw, grad_sd):
     want = joptim.sgd_update({k: jnp.asarray(v) for k, v in params.items()},
                              {k: jnp.asarray(v) for k, v in grads.items()},
                              jnp.float32(0.3), jnp.float32(27.0),
-                             JaxConfig(**cfg_kw))
+                             JaxConfig(**cfg_kw), scale_dim=10)
     got = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     out = optim.sgd_update(got, {k: torch.from_numpy(v)
                                  for k, v in grads.items()},
                            torch.tensor(0.3), torch.tensor(27.0),
-                           QmannConfig(**cfg_kw))
+                           QmannConfig(**cfg_kw), scale_dim=10)
     assert out is got          # in place
     for k in params:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-6, atol=1e-7, err_msg=k)
     # (the "update" grad-quant placement rounds small gradients to 0)
     assert any(not np.array_equal(got[k].numpy(), params[k]) for k in params)
+
+
+@pytest.mark.parametrize("variant", ["momentum", "rmsprop", "adamax"])
+def test_optimizer_variants_match_jax(rng, variant):
+    """sgd_momentum_update, rmsprop_update and adamax_update over three
+    steps on a params dict with a scale and maxout pieces: parameters and
+    state rtol 1e-6, atol 1e-7 (the same float32 operations in the same
+    order; XLA may contract a multiply-add)."""
+    from qmann_tpu.train.optim import (adamax_update as j_adamax,
+                                       rmsprop_update as j_rmsprop,
+                                       sgd_momentum_update as j_momentum)
+    cfg_kw = dict(dim_emb=8, verbose=False, lambda_=0.01, en_sc_att=True,
+                  test_maxout=True)
+    shapes = memn2n.param_shapes(QmannConfig(**cfg_kw), 17)
+    params = {k: rng.normal(0, 0.5, s).astype(np.float32)
+              for k, s in shapes.items()}
+    zeros = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
+    jfn, tfn = {"momentum": (j_momentum, optim.sgd_momentum_update),
+                "rmsprop": (j_rmsprop, optim.rmsprop_update),
+                "adamax": (j_adamax, optim.adamax_update)}[variant]
+
+    def jax_tree(d):
+        return {k: jnp.asarray(v) for k, v in d.items()}
+
+    def torch_tree(d):
+        return {k: torch.from_numpy(v) for k, v in d.items()}
+
+    jp, tp = jax_tree(params), torch_tree(params)
+    if variant == "adamax":       # (first moment, infinity norm)
+        jstate = (jax_tree(zeros), jax_tree(zeros))
+        tstate = (torch_tree(zeros), torch_tree(zeros))
+    else:
+        jstate, tstate = jax_tree(zeros), torch_tree(zeros)
+    for _ in range(3):
+        grads = {k: rng.normal(0, 1.0, s).astype(np.float32)
+                 for k, s in shapes.items()}
+        jp, jstate = jfn(jp, jax_tree(grads), jstate, jnp.float32(0.1),
+                         jnp.float32(4.0), JaxConfig(**cfg_kw))
+        tp, tstate = tfn(tp, torch_tree(grads), tstate, torch.tensor(0.1),
+                         torch.tensor(4.0), QmannConfig(**cfg_kw))
+    for k in params:
+        np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+        assert not np.array_equal(tp[k].numpy(), params[k]), k
+    for t_st, j_st in (zip(tstate, jstate) if variant == "adamax"
+                       else [(tstate, jstate)]):
+        for k in params:      # jax.tree.map returns the keys sorted
+            np.testing.assert_allclose(t_st[k].numpy(), np.asarray(j_st[k]),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
 
 
 @pytest.mark.parametrize("tying", [1, 2])
@@ -391,9 +447,14 @@ def test_eval_split_matches_jax_over_three_chunks(kw):
                                       "similarity"),
                                      (dict(), "mesh")])
 def test_train_task_refuses_what_is_not_ported(kw, what, tmp_path):
-    """Linear start and the mesh raise.  The similarity analysis is ported:
-    its case now checks that the run is not refused and writes the first
-    25-epoch bucket's two CSVs."""
+    """The mesh raises.  Linear start and the similarity analysis are
+    ported: the linear case runs a 3-epoch train_task (2 linear-start
+    epochs, softmax removed at half the lr, then 1) on the kernel route
+    against JAX's history from the same weights (errors and lr exact,
+    costs rtol 1e-4, as test_train_task_history_matches_jax; the plain
+    route's steps are held to JAX in tests/test_torch_features.py); the
+    similarity case checks that
+    the run writes the first 25-epoch bucket's two CSVs."""
     data = babi.synthetic_task(np.random.default_rng(0), 4, 1, 1, V, M, W)
     extra = {"mesh": object()} if what == "mesh" else {}
     if what == "similarity":
@@ -403,9 +464,59 @@ def test_train_task_refuses_what_is_not_ported(kw, what, tmp_path):
         assert sorted(p.name for p in tmp_path.iterdir()) == [
             "softmax_input_0to24.csv", "softmax_output_0to24.csv"]
         return
+    if what == "linear":
+        cfg_kw = dict(dim_emb=8, num_hops=2, num_itr=1,
+                      num_itr_linear_start=2, learning_rate=0.1,
+                      verbose=False, **kw)
+        data = babi.synthetic_task(np.random.default_rng(12), 70, 20, 20, V,
+                                   M, W)
+        pj = jax_params(cfg_kw, data.dims, seed=12)
+        want = jtrainer.train_task(JaxConfig(**cfg_kw), to_jax_task(data),
+                                   {k: jnp.asarray(v) for k, v in pj.items()})
+        tcfg = QmannConfig(use_pallas=True, **cfg_kw)
+        got = trainer.train_task(
+            tcfg, data, memn2n.params_from_jax(pj, tcfg, device="cpu"),
+            device="cpu")
+        assert len(got.history) == len(want.history) == 3
+        assert [h.lr for h in got.history] == [0.05, 0.05, 0.1]
+        for g, w in zip(got.history, want.history):
+            assert (g.err_train, g.err_valid, g.lr) == \
+                (w.err_train, w.err_valid, w.lr)
+            np.testing.assert_allclose([g.cost_train, g.cost_valid],
+                                       [w.cost_train, w.cost_valid],
+                                       rtol=1e-4)
+            assert np.isfinite([g.cost_train, g.cost_valid]).all()
+        assert got.err_test == want.err_test
+        np.testing.assert_allclose(got.cost_test, want.cost_test, rtol=1e-4)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.train_task(QmannConfig(dim_emb=8, **kw), data, device="cpu",
                            **extra)
+
+
+def test_similarity_dump_covers_linear_start_epochs(tmp_path, monkeypatch):
+    """The analyzer is sized to num_itr + num_itr_linear_start epochs, as
+    JAX sizes it (sized to num_itr alone, 24 + 2 epochs would lose epoch
+    25, past the last bucket), and records every epoch of a linear-start
+    run."""
+    sizes = []
+
+    class Spy(trainer.SimilarityAnalyzer):
+        def __init__(self, out_dir, num_itr):
+            sizes.append(num_itr)
+            super().__init__(out_dir, num_itr)
+
+    monkeypatch.setattr(trainer, "SimilarityAnalyzer", Spy)
+    data = babi.synthetic_task(np.random.default_rng(0), 4, 2, 1, V, M, W)
+    cfg = QmannConfig(dim_emb=8, num_hops=1, num_itr=1,
+                      en_linear_start=True, num_itr_linear_start=2,
+                      en_similarity_analysis=True, similarity_probe_size=2,
+                      similarity_analysis_dir=str(tmp_path), verbose=False)
+    trainer.train_task(cfg, data, device="cpu")
+    assert sizes == [3]
+    epochs = {int(ln.split(",")[0]) for ln in
+              (tmp_path / "softmax_input_0to24.csv").read_text().split()}
+    assert epochs == {0, 1, 2}
 
 
 def test_entry_points_default_to_the_card():

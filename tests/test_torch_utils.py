@@ -75,7 +75,8 @@ def test_write_run_outputs_is_byte_identical(tmp_path, n_loops):
 
 @pytest.mark.parametrize("kw", [dict(), dict(type_weight_tying=1, iwl=3),
                                 dict(attention_mode=3, iwl=1,
-                                     en_linear_mapping=False)])
+                                     en_linear_mapping=False),
+                                dict(en_sc_att=True, test_maxout=True)])
 def test_checkpoints_load_in_either_package(tmp_path, kw):
     cfg_kw = dict(dim_emb=12, num_hops=2, **kw)
     dims = babi.DataDims(19, 10, 6, 7, 29)
