@@ -119,10 +119,45 @@ The model features (on the unfused hop, as JAX's envelope routes them):
                lin maps) and no chain launch.  Each path's step is timed
                on the kernel route (event time, busy time, launches,
                idle share; findings, not gates)
+The family trainer (train/multi.py), at the flagship widths and
+megasweep's padded layout (V=64, M=50: dim_input 114), use_pallas:
+ 16. family  — the run.sh family, 20 synthetic qa1-shaped tasks (train
+               sizes 905..1000, valid and test 100) x 10 seeds = 200 runs,
+               weights x4: the R-axis lattice at the family's memory
+               embedding (200 x 1600 rows) bit-identical to its stacked
+               plain version at each rounding mode and binary fmt_w /
+               fmt_x; 2 epochs of train_tasks_multi with a spy on
+               family_step (gates: 10 lattice + 3 read launches in every
+               family step, as one run's, and per eval chunk; costs
+               finite); one family step against train_step of 3 sampled
+               runs (the first, the last, one of the shortest task) on the
+               first and the last batch (an all-padding batch leaves its
+               run's weights untouched); the sampled runs' 2-epoch
+               histories and err_test against train_task (errors equal,
+               costs within rtol 2e-4); the sweep_fixed.sh family (mode 3,
+               iwl 1, 20 tasks x 2 seeds, 1 epoch) on use_pallas (10 + 3
+               read launches per forward) and use_pallas_hamming (3
+               Hamming launches per forward); megasweep.main() at its
+               default route (integer fast path, no use_pallas; R = 200, 1
+               epoch, no kernel launch; how many (weight, run) pairs took
+               the slow branch, read by a spy on the fast path's
+               decisions).  Each kernel at the shapes the family's path
+               gives it, against its plain version: the lattice at an eval
+               chunk (200 x 6400 rows, each hop's format; bit-identical),
+               the mode-2 read at the folded training batch (200 x 32) and
+               eval chunk (200 x 128 = 25,600 queries), and the mode-3
+               read and the Hamming kernel at the sweep_fixed family's
+               folded batches (40 x 32 = 1280 and 40 x 128 = 5120 queries,
+               M=50, D=60; on its initial weights, and for the Hamming
+               kernel also on phase 9's edge inputs; bit-identical).
+               Findings: the family's epoch against R single-run epochs,
+               the family step's event and busy time, and each of those
+               kernels and the one-run 1600-row lattice against their
+               plain versions and bounds
 Then one JSON line of kernels (the read's and the Hamming kernel's with
 their eval-chunk and wide entries, qmatvec's with its tiled shapes, each
-with its launches on phase 15's paths), the card's name and power limit,
-and as the last line
+with its launches on phase 15's paths, and each one's family entry), the
+card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Tolerances.  Chain (as tests/test_torch_chain.py) and mode-2 attention
@@ -170,6 +205,9 @@ HAM_VARIANTS = ((0, True), (-1, True), (0, False))   # weight_para, weighted
 HAM_WORD_MAX_BIT = 25   # the match word is exact as a fraction up to here
 ROUND_MODES = (3, 0, 1, 2)   # the config's default (truncation) first
 CLI_STORIES = (1000, 200)    # per task: train file (10% valid), test file
+FAMILY_TASKS, FAMILY_SEEDS = 20, 10     # run.sh: 20 tasks x 10 loops
+FAMILY_LAYOUT = (64, 50, 6)             # megasweep's pad_dict, pad_line
+FAMILY_VALID = FAMILY_TEST = 100
 
 
 def fail(msg):
@@ -237,10 +275,11 @@ def _nbytes(*tensors):
 
 def qmatvec_bound(w, x):
     """Quantize w and x once, then per product a multiply, a requant and
-    an add; requant each output."""
-    (B, I), O = x.shape, w.shape[0]
-    ops = Q_OPS * (O * I + B * I + B * O) + B * O * I * (2 + Q_OPS)
-    return _bound(_nbytes(w, x) + 4 * B * O, ops)
+    an add; requant each output (per run of a family w [R, O, I])."""
+    (B, I), O = x.shape[-2:], w.shape[-2]
+    R = w.shape[0] if w.dim() == 3 else 1
+    ops = R * (Q_OPS * (O * I + B * I + B * O) + B * O * I * (2 + Q_OPS))
+    return _bound(_nbytes(w, x) + 4 * R * B * O, ops)
 
 
 def ham_score_ops(B, M, D, num_bit):
@@ -343,6 +382,16 @@ def per_launch_ms(kernels):
     in phase 13 of PR 6's runs), so a division by the calls under-reads."""
     return max((ms / n for ms, n in kernels.values() if n > 0),
                default=float("nan"))
+
+
+def recorded_ms(fn):
+    """per_launch_ms of fn, profiled again (with more calls) while the
+    profiler keeps no record of its kernel; None if it never does."""
+    for n_iter in (5, 20, 50):
+        ms = per_launch_ms(device_ms(fn, n_iter=n_iter))
+        if math.isfinite(ms):
+            return ms
+    return None
 
 
 def ham_inputs(rng, iwl, B, M, D):
@@ -603,6 +652,112 @@ def csv_rows(path):
     head = max(i for i, ln in enumerate(lines)
                if ln.startswith("ind_data_set"))
     return [ln.split(",") for ln in lines[head + 1:]]
+
+
+def family_tasks(rng, pool, sizes):
+    """{task index: TaskData}: each task a different random subset of the
+    pool's stories, of its own train size, with FAMILY_VALID and
+    FAMILY_TEST stories of the pool's other splits."""
+    import dataclasses
+    import numpy as np
+    from qmann_tpu_torch.data.babi import TaskData, VectorizedSplit
+
+    def subset(split, n):
+        idx = np.sort(rng.permutation(len(split))[:n])
+        return VectorizedSplit(*(getattr(split, f.name)[idx]
+                                 for f in dataclasses.fields(split)))
+
+    return {t + 1: TaskData(subset(pool.train, n),
+                            subset(pool.valid, FAMILY_VALID),
+                            subset(pool.test, FAMILY_TEST), pool.dims,
+                            pool.dictionary)
+            for t, n in enumerate(sizes)}
+
+
+def family_batch(tasks, run_task, i, batch, dev, split="train"):
+    """Batch i of the family's grid over a split (no shuffle), built here
+    from the tasks' arrays: each run's samples i*batch... of its task,
+    padding past its count (sample 0, masked out), as train_tasks_multi
+    lays them out.  Returns the [R, batch, ...] device batch and the runs
+    whose batch is all padding."""
+    import numpy as np
+    import torch
+    split = [getattr(tasks[t], split) for t in run_task]
+    rows = np.arange(i * batch, (i + 1) * batch)
+    n = np.array([len(s) for s in split])
+    idx = np.where(rows[None] < n[:, None], rows[None], 0)
+    out = {"memory": np.stack([s.memory[j] for s, j in zip(split, idx)]),
+           "question": np.stack([s.question[j] for s, j in zip(split, idx)]),
+           "answer": np.stack([s.answer[j] for s, j in zip(split, idx)]),
+           "mask": np.stack([s.mask[j] for s, j in zip(split, idx)]),
+           "sample_mask": (rows[None] < n[:, None]).astype(np.float32)}
+    out["size_b"] = out["sample_mask"].sum(-1)
+    return ({k: torch.from_numpy(v).to(dev) for k, v in out.items()},
+            np.flatnonzero(out["size_b"] == 0))
+
+
+def family_read_inputs(params, cfg, batch):
+    """Hop 0's read operands from a family batch on the kernel route, the
+    run axis folded into the queries as the model folds it: (m, c
+    [R*B, M, D], u [R*B, D], the float mask [R*B, M])."""
+    import torch
+    from qmann_tpu_torch.ops.qlinear import qembed_mat_forward, qmatvec_forward
+    f0 = cfg.fmt_w[0]
+    with torch.inference_mode():
+        u = qmatvec_forward(params["B"], batch["question"], f0, f0,
+                            backend="kernel")
+        m, c = (qembed_mat_forward(batch["memory"], params[w], f0,
+                                   backend="kernel") for w in "AC")
+    M, D = m.shape[-2:]
+    return (m.reshape(-1, M, D), c.reshape(-1, M, D), u.reshape(-1, D),
+            batch["mask"].reshape(-1, M).to(torch.float32))
+
+
+def fast_path_tally(memn2n):
+    """Put a spy in memn2n._integer_fast_decisions' place that tallies the
+    integer fast path's (weight, run) decisions: returns (the tally
+    {"gemm", "lattice"}, a function that puts the real one back)."""
+    import numpy as np
+    tally, real = {"gemm": 0, "lattice": 0}, memn2n._integer_fast_decisions
+
+    def spy(*args):
+        fast_q, fast_m = real(*args)
+        for f in ([] if fast_q is None else [fast_q]) + list(fast_m or []):
+            f = np.asarray(f, bool)
+            tally["gemm"] += int(f.sum())
+            tally["lattice"] += f.size - int(f.sum())
+        return fast_q, fast_m
+
+    memn2n._integer_fast_decisions = spy
+    return tally, lambda: setattr(memn2n, "_integer_fast_decisions", real)
+
+
+def run_family(multi, cfg, tasks, seeds, dev, counts, params=None):
+    """train_tasks_multi on the card with a spy in family_step's place:
+    returns (result, launches per step, launches of the whole run)."""
+    per_step, real = [], multi.family_step
+
+    def spy(*args, **kw):
+        before = counts()
+        out = real(*args, **kw)
+        per_step.append({k: v - before[k] for k, v in counts().items()})
+        return out
+
+    multi.family_step = spy
+    try:
+        res = multi.train_tasks_multi(cfg, tasks, seeds, params=params,
+                                      device=dev)
+    finally:
+        multi.family_step = real
+    return res, per_step, counts()
+
+
+def family_finite(res):
+    import numpy as np
+    return (all(np.isfinite(h[k]).all() for h in res.history
+                for k in ("cost_train", "cost_valid"))
+            and np.isfinite(res.cost_test).all())
+
 
 
 def main():
@@ -1555,6 +1710,396 @@ def main():
             p, batch0, lr_t, c, r))
     time_steps(feature_steps, "15 features step", card=card)
 
+    # 16. the family trainer: R = (tasks x seeds) runs as one stacked step
+    # (train/multi.py) at the flagship widths and megasweep's padded layout
+    import tempfile
+    from qmann_tpu_torch.bench import megasweep
+    from qmann_tpu_torch.train import multi, train_task
+
+    V16, M16, W16 = FAMILY_LAYOUT
+    rng16 = np.random.default_rng(SEED + 16)
+    t0 = time.perf_counter()
+    pool = synthetic_task(rng16, 2000, 4 * FAMILY_VALID, 4 * FAMILY_TEST,
+                          V16, M16, W16)
+    # train sizes 905..1000 in a shuffled order: the shortest task sits
+    # mid-family, and the shorter tasks meet all-padding batches
+    sizes = [1000 - 5 * ((7 * t) % FAMILY_TASKS)
+             for t in range(FAMILY_TASKS)]
+    fam = family_tasks(rng16, pool, sizes)
+    seeds16 = list(range(FAMILY_SEEDS))
+    run_task = [t for t in fam for _ in seeds16]
+    run_seed = [s for _ in fam for s in seeds16]
+    R16 = len(run_task)
+    dims16 = pool.dims
+    cfg16 = QmannConfig(use_pallas=True, num_itr=2, verbose=False)
+    fw16 = cfg16.fmt_w
+    inits = [memn2n.init_params(cfg16, dims16,
+                                torch.Generator().manual_seed(s), device=dev)
+             for s in run_seed]
+    stacked = {k: torch.stack([4.0 * p[k] for p in inits]) for k in inits[0]}
+    nb16 = math.ceil(max(sizes) / TRAIN_BATCH)
+    shortest = sizes.index(min(sizes)) + 1
+    sampled = [0, R16 - 1,
+               run_task.index(shortest) + min(3, FAMILY_SEEDS - 1)]
+    print(f"[16 family] {card} | run.sh family: {FAMILY_TASKS} tasks x "
+          f"{FAMILY_SEEDS} seeds = {R16} runs, train sizes {min(sizes)}.."
+          f"{max(sizes)} ({nb16} batches of {TRAIN_BATCH}), valid and test "
+          f"{FAMILY_VALID} each, V={V16} M={M16} (dim_input "
+          f"{dims16.dim_input}), weights x4; sampled runs {sampled} (task "
+          f"{[run_task[r] for r in sampled]}); data made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # (a) the R-axis lattice at the family's memory embedding against its
+    # stacked plain version, each rounding mode and the binary formats
+    lr16 = torch.tensor(cfg16.learning_rate, dtype=torch.float32,
+                        device=dev)
+    batch16, _ = family_batch(fam, run_task, 0, TRAIN_BATCH, dev)
+    rows16 = batch16["memory"].reshape(R16, -1, dims16.dim_input)
+    f0 = fw16[0]
+    fam_cases = ([(f"round {rm}", QFormat(f0.iwl, f0.frac, rm),
+                   QFormat(f0.iwl, f0.frac, rm)) for rm in ROUND_MODES]
+                 + [("binary w", QFormat(0, 0, f0.mode), f0),
+                    ("binary x", f0, QFormat(0, 0, f0.mode))])
+    fam_err, unequal = 0.0, []
+    for label, f_w, f_x in fam_cases:
+        got = qmv.quantized_matvec(stacked["A"], rows16, f_w, f_x)
+        want = qmv.quantized_matvec_reference(stacked["A"], rows16, f_w, f_x)
+        fam_err = max(fam_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            unequal.append(label)
+        del got, want
+    torch.cuda.synchronize()
+    print(f"[16 family] R-axis lattice w {tuple(stacked['A'].shape)} x "
+          f"{tuple(rows16.shape)}: {len(fam_cases)} calls (rounding modes "
+          f"{ROUND_MODES}, binary w and x); not bit-identical: "
+          f"{', '.join(unequal) or 'none'}", flush=True)
+    if unequal:
+        fail("the family's lattice differs from its stacked plain version")
+
+    # (b) the family's 2 epochs; a spy in family_step's place reads the
+    # launch counts around each step
+    zero_counts()
+    res16, steps16, total16 = run_family(multi, cfg16, fam, seeds16, dev,
+                                         counts, params=stacked)
+    n_chunks16 = (cfg16.num_itr * math.ceil(FAMILY_VALID / 128)
+                  + math.ceil(FAMILY_TEST / 128))
+    n_fwd16 = cfg16.num_itr * nb16 + n_chunks16
+    step_want = want_counts(qmatvec=10, attention_read=3)
+    want16 = want_counts(qmatvec=10 * n_fwd16, attention_read=3 * n_fwd16)
+    odd = [i for i, c in enumerate(steps16) if c != step_want]
+    print(f"[16 family] train_tasks_multi, {cfg16.num_itr} epochs: "
+          f"{len(steps16)} family steps (want {cfg16.num_itr * nb16}), "
+          f"steps launching other than {step_want}: {odd or 'none'}; whole "
+          f"run {total16} (want {want16}, eval chunks of 128 included); "
+          f"train {res16.time_train:.3f} s, test {res16.time_test:.3f} s; "
+          f"mean err_test {float(res16.err_test.mean()):.4f}", flush=True)
+    if len(steps16) != cfg16.num_itr * nb16 or odd or total16 != want16:
+        fail("a family step launched other kernels than one run's step")
+    if not family_finite(res16):
+        fail("the family gave a cost that is not finite")
+
+    # (c) one family SGD step against the single-run step of the sampled
+    # runs, on the first batch and on the last (a partial batch for the
+    # longest task, all padding for the shorter ones)
+    for i in (0, nb16 - 1):
+        fb, padding = family_batch(fam, run_task, i, TRAIN_BATCH, dev)
+        p_fam = {k: v.clone() for k, v in stacked.items()}
+        multi.family_step(p_fam, fb, lr16, cfg16, padding_runs=padding)
+        for r in sampled:
+            if r in padding:
+                same = all(torch.equal(p_fam[k][r], v[r])
+                           for k, v in stacked.items())
+                print(f"[16 family] batch {i}, run {r}: all padding, "
+                      f"weights untouched: {same}", flush=True)
+                if not same:
+                    fail("an all-padding batch changed its run's weights")
+                continue
+            p_r = {k: v[r].clone() for k, v in stacked.items()}
+            train_step(p_r, {k: v[r] for k, v in fb.items()}, lr16, cfg16)
+            diff = max(float((p_fam[k][r] - v).abs().max())
+                       for k, v in p_r.items())
+            print(f"[16 family] batch {i}, run {r} "
+                  f"({int(fb['size_b'][r])} live samples): family step "
+                  f"against train_step, max |difference| {diff:.3g}",
+                  flush=True)
+            if not all(torch.allclose(p_fam[k][r], v, rtol=1e-5, atol=1e-6)
+                       for k, v in p_r.items()):
+                fail("a family step differs from the single-run step")
+
+    # (d) the sampled runs' 2-epoch histories against train_task
+    single_epoch_s = []
+    for r in sampled:
+        ref = train_task(cfg16.replace(seed=run_seed[r]), fam[run_task[r]],
+                         params={k: v[r] for k, v in stacked.items()},
+                         device=dev)
+        single_epoch_s.append(ref.time_train / len(ref.history))
+        got = [[h[k][r] for k in ("err_train", "err_valid", "cost_train",
+                                  "cost_valid")] for h in res16.history]
+        want = [[h.err_train, h.err_valid, h.cost_train, h.cost_valid]
+                for h in ref.history]
+        errs_equal = (np.allclose(np.array(got)[:, :2], np.array(want)[:, :2],
+                                  rtol=0, atol=1e-6)
+                      and abs(res16.err_test[r] - ref.err_test) <= 1e-6)
+        cost_diff = float(np.max(np.abs(np.array(got)[:, 2:]
+                                        - np.array(want)[:, 2:])
+                                 / np.abs(np.array(want)[:, 2:])))
+        print(f"[16 family] run {r} (task {run_task[r]}, seed "
+              f"{run_seed[r]}): family (err_train, err_valid, cost_train, "
+              f"cost_valid) per epoch {np.array(got).round(6).tolist()}, "
+              f"err_test {res16.err_test[r]:.4f}; train_task "
+              f"{np.array(want).round(6).tolist()}, err_test "
+              f"{ref.err_test:.4f}; errors equal {errs_equal}, largest cost "
+              f"rel. difference {cost_diff:.3g}", flush=True)
+        if not (errs_equal and cost_diff <= 2e-4):
+            fail("a sampled run's history differs from its train_task")
+
+    # (e) findings: the family's epoch against R single-run epochs, the
+    # step's event and busy time, and the kernels at the family's shapes
+    fam_epoch = res16.time_train / len(res16.history)
+    one_epoch = statistics.median(single_epoch_s)
+    print(f"[16 family] {card} | epoch seconds (host clock, validation "
+          f"included): family {fam_epoch:.3f} s for {R16} runs; single run "
+          f"{one_epoch:.3f} s (median of {len(sampled)}) x {R16} = "
+          f"{one_epoch * R16:.2f} s: {one_epoch * R16 / fam_epoch:.1f}x",
+          flush=True)
+    p_t = {k: v.clone() for k, v in stacked.items()}
+    p_s = {k: v[0].clone() for k, v in stacked.items()}
+    b_one = {k: v[0] for k, v in batch16.items()}
+    time_steps({f"family step R={R16}": lambda: multi.family_step(
+                    p_t, batch16, lr16, cfg16),
+                "single-run step": lambda: train_step(p_s, b_one, lr16,
+                                                      cfg16)},
+               "16 family", card=card)
+    # the kernels at the shapes the family's path gives them: the lattice
+    # and the read at a training batch (R x 32 queries) and at an eval
+    # chunk (R x 128), each held against its plain version
+    fam_args = (stacked["A"], rows16, f0, f0)
+    wide_args = (stacked["A"][0].contiguous(), rows16[0].contiguous(), f0, f0)
+    ev16, _ = family_batch(fam, run_task, 0, 128, dev, split="valid")
+    rows_ev16 = ev16["memory"].reshape(R16, -1, dims16.dim_input)
+    ev_args = (stacked["A"], rows_ev16, f0, f0)
+    ev_err, unequal = 0.0, []
+    for f_h in sorted(set(fw16[:cfg16.num_hops]), key=str):
+        got = qmv.quantized_matvec(stacked["A"], rows_ev16, f_h, f_h)
+        want = qmv.quantized_matvec_reference(stacked["A"], rows_ev16, f_h,
+                                              f_h)
+        ev_err = max(ev_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            unequal.append(str(f_h))
+        del got, want
+    print(f"[16 family] R-axis lattice at an eval chunk, w "
+          f"{tuple(stacked['A'].shape)} x {tuple(rows_ev16.shape)}, each hop "
+          f"format: max|diff| {ev_err:.3g}; not bit-identical: "
+          f"{', '.join(unequal) or 'none'}", flush=True)
+    if unequal:
+        fail("the family's lattice differs from its stacked plain version "
+             "at an eval chunk")
+    read_fmts = (cfg16.fmt_att[0], cfg16.fmt_bin, cfg16.fmt_act[0])
+    read16 = family_read_inputs(stacked, cfg16, batch16) + read_fmts
+    read_ev16 = family_read_inputs(stacked, cfg16, ev16) + read_fmts
+    read16_err = {}
+    for label, args in (("training batch", read16), ("eval chunk", read_ev16)):
+        diffs, flips, good, _ = check_read(ar.fused_read(*args),
+                                           ar.fused_read_reference(*args),
+                                           cfg16.fmt_act[0], True)
+        read16_err[label] = max(diffs.values())
+        print(f"[16 family] the read at the folded {label}, B={R16}x"
+              f"{args[0].shape[0] // R16}={args[0].shape[0]}: max|diff| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items())
+              + f"; flipped Q(p, act) queries {flips}", flush=True)
+        if not good:
+            fail(f"the read kernel disagrees with its plain version at the "
+                 f"family's {label}")
+    with torch.inference_mode():
+        t16 = {name: (cuda_ms(fn, n_iter=n), cuda_ms(plain, n_iter=n_p,
+                                                     samples=s_p),
+                      recorded_ms(fn))
+               for name, (fn, plain, n, n_p, s_p) in {
+                   "family": (lambda: qmv.quantized_matvec(*fam_args),
+                              lambda: qmv.quantized_matvec_reference(
+                                  *fam_args), 5, 1, 3),
+                   "family eval": (lambda: qmv.quantized_matvec(*ev_args),
+                                   lambda: qmv.quantized_matvec_reference(
+                                       *ev_args), 5, 1, 3),
+                   "wide": (lambda: qmv.quantized_matvec(*wide_args),
+                            lambda: qmv.quantized_matvec_reference(
+                                *wide_args), 20, 20, 7),
+                   "read": (lambda: ar.fused_read(*read16),
+                            lambda: ar.fused_read_reference(*read16),
+                            20, 20, 7),
+                   "read eval": (lambda: ar.fused_read(*read_ev16),
+                                 lambda: ar.fused_read_reference(
+                                     *read_ev16), 20, 5, 7)}.items()}
+    b16 = {"family": qmatvec_bound(*fam_args[:2]),
+           "family eval": qmatvec_bound(*ev_args[:2]),
+           "wide": qmatvec_bound(*wide_args[:2]),
+           "read": attention_read_bound(*read16[:4]),
+           "read eval": attention_read_bound(*read_ev16[:4])}
+    for name, desc in (
+            ("family", f"lattice R={R16} x {rows16.shape[1]} rows, "
+                       f"I={dims16.dim_input}"),
+            ("family eval", f"lattice R={R16} x {rows_ev16.shape[1]} rows, "
+                            f"I={dims16.dim_input}"),
+            ("wide", f"lattice {rows16.shape[1]} rows (one run), "
+                     f"I={dims16.dim_input}"),
+            ("read", f"read B={read16[0].shape[0]}, M={M16}"),
+            ("read eval", f"read B={read_ev16[0].shape[0]}, M={M16}")):
+        (t_k, t_p, t_dev), b = t16[name], b16[name]
+        dev_txt = ("not measured (the profiler kept no record)"
+                   if t_dev is None else
+                   f"{t_dev:.4f} ms, {b[0] / t_dev:.1%} of the bound")
+        print(f"[16 family] {card} | {desc}: kernel {t_k:.4f} ms (device "
+              f"{dev_txt}), plain {t_p:.4f} ms, bound {b[0]:.4f} ms "
+              f"({b[1]})", flush=True)
+
+    # (f) the sweep_fixed.sh family: mode 3 at iwl 1, 20 tasks x 2 seeds,
+    # 1 epoch, on the mode-3 read and on the Hamming kernel
+    fam3_launches = {}
+    for label, kw, step_want in (
+            ("use_pallas", dict(use_pallas=True),
+             want_counts(qmatvec=10, attention_read=3)),
+            ("use_pallas_hamming", dict(use_pallas_hamming=True),
+             want_counts(hamming_score=3))):
+        cfg_f3 = QmannConfig(iwl=1, attention_mode=3, num_itr=1,
+                             verbose=False, **kw)
+        zero_counts()
+        tally3, restore = fast_path_tally(memn2n)
+        try:
+            res3, steps3, total3 = run_family(multi, cfg_f3, fam, [0, 1],
+                                              dev, counts)
+        finally:
+            restore()
+        n_fwd3 = nb16 + math.ceil(FAMILY_VALID / 128) + math.ceil(
+            FAMILY_TEST / 128)
+        want3 = {k: v * n_fwd3 for k, v in step_want.items()}
+        odd3 = [i for i, c in enumerate(steps3) if c != step_want]
+        fam3_launches[label] = total3
+        print(f"[16 family] sweep_fixed family, mode 3 iwl 1, {label}: "
+              f"{len(res3.err_test)} runs, {len(steps3)} steps, odd steps "
+              f"{odd3 or 'none'}, launches {total3} (want {want3}); fast "
+              f"path (weight, run) pairs {tally3}; train "
+              f"{res3.time_train:.3f} s; mean err_test "
+              f"{float(res3.err_test.mean()):.4f}", flush=True)
+        if odd3 or total3 != want3 or not family_finite(res3):
+            fail(f"the mode-3 family ({label}) launched other counts than "
+                 "expected or gave a cost that is not finite")
+
+    # the mode-3 read and the Hamming kernel at the sweep_fixed family's
+    # folded batches (R x 32 queries at training, R x 128 at an eval
+    # chunk), on the family's initial weights and, for the Hamming kernel,
+    # also on the edge inputs of phase 9, against their plain versions
+    cfg_f3 = QmannConfig(iwl=1, attention_mode=3, verbose=False)
+    run_task3 = [t for t in fam for _ in (0, 1)]
+    p3 = multi._initial_params(cfg_f3, dims16,
+                               [s for _ in fam for s in (0, 1)], None, dev)
+    fa3 = cfg_f3.fmt_att[0]
+    ham_kw3 = (cfg_f3.num_bits_attention, cfg_f3.attention_const_scale,
+               cfg_f3.hamming_weight_para, cfg_f3.hamming_weighted)
+    read3_err, ham3_err, fam3_args = 0.0, 0.0, {}
+    for label, bs, split in (("train", TRAIN_BATCH, "train"),
+                             ("eval", 128, "valid")):
+        b3, _ = family_batch(fam, run_task3, 0, bs, dev, split=split)
+        m3, c3, u3, mask3 = family_read_inputs(p3, cfg_f3, b3)
+        r_args = (m3, c3, u3, mask3, fa3, cfg_f3.fmt_bin, cfg_f3.fmt_act[0],
+                  False, cfg_f3.wsum_quantized, 3, *ham_kw3)
+        diffs, flips, good, _ = check_read(ar.fused_read(*r_args),
+                                           ar.fused_read_reference(*r_args),
+                                           cfg_f3.fmt_act[0], True)
+        read3_err = max(read3_err, *diffs.values())
+        h_cases = {"family": (m3, u3)}
+        h_cases["edge"] = tuple(torch.from_numpy(a).to(dev) for a in
+                                ham_inputs(rng16, fa3.iwl, *m3.shape))
+        unequal = []
+        for name, (m, u) in h_cases.items():
+            h_args = (m, u, fa3.iwl, ham_kw3[0], ham_kw3[1], fa3.mode,
+                      *ham_kw3[2:])
+            got = ham.hamming_score_kernel(*h_args)
+            want = ham.hamming_score_reference(*h_args)
+            ham3_err = max(ham3_err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                unequal.append(name)
+        fam3_args[label] = (r_args, (m3, u3) + h_args[2:])
+        print(f"[16 family] sweep_fixed family's folded {label} batch "
+              f"B={m3.shape[0]} M={m3.shape[1]} D={m3.shape[2]}: mode-3 read "
+              f"max|diff| " + ", ".join(f"{k} {v:.3g}"
+                                        for k, v in diffs.items())
+              + f", flipped Q(p, act) queries {flips}; Hamming kernel (family "
+              f"and edge inputs) not bit-identical: "
+              f"{', '.join(unequal) or 'none'}", flush=True)
+        if not good or unequal:
+            fail(f"the mode-3 read or the Hamming kernel disagrees with its "
+                 f"plain version at the sweep_fixed family's {label} batch")
+    with torch.inference_mode():
+        t3 = {(k, label): (cuda_ms(fn, n_iter=20),
+                           cuda_ms(plain, n_iter=2, samples=3),
+                           recorded_ms(fn))
+              for label, (r_args, h_args) in fam3_args.items()
+              for k, (fn, plain) in {
+                  "read": (lambda a=r_args: ar.fused_read(*a),
+                           lambda a=r_args: ar.fused_read_reference(*a)),
+                  "hamming": (lambda a=h_args: ham.hamming_score_kernel(*a),
+                              lambda a=h_args: ham.hamming_score_reference(
+                                  *a))}.items()}
+    b3 = {(k, label): (attention_read_bound(*r_args[:4],
+                                            num_bit=ham_kw3[0])
+                       if k == "read" else
+                       hamming_bound(*h_args[:2], num_bit=ham_kw3[0]))
+          for label, (r_args, h_args) in fam3_args.items()
+          for k in ("read", "hamming")}
+    for (k, label), (t_k, t_p, t_dev) in t3.items():
+        b = b3[k, label]
+        dev_txt = ("not measured (the profiler kept no record)"
+                   if t_dev is None else
+                   f"{t_dev:.4f} ms, {b[0] / t_dev:.1%} of the bound")
+        print(f"[16 family] {card} | mode-3 {k} B="
+              f"{fam3_args[label][0][0].shape[0]}, M={M16}: kernel "
+              f"{t_k:.4f} ms (device {dev_txt}), plain {t_p:.4f} ms, bound "
+              f"{b[0]:.4f} ms ({b[1]})", flush=True)
+
+    # (g) megasweep's main() at its default route (the integer fast path,
+    # no use_pallas) on seeded bAbI-format files of the family's tasks
+    # (1-20) and seeds (0-9): R = 200
+    tmp16 = tempfile.TemporaryDirectory(prefix="qmann_mega_")
+    root16 = Path(tmp16.name)
+    data16, raw16 = write_synthetic_corpus(
+        str(root16), np.random.default_rng(SEED),
+        list(range(1, FAMILY_TASKS + 1)), *CLI_STORIES, joint=False)
+    zero_counts()
+    tally16, restore = fast_path_tally(memn2n)
+    t0 = time.perf_counter()
+    try:
+        rc, _ = run_quiet(megasweep.main, [
+            "--tasks", f"1-{FAMILY_TASKS}", "--seeds",
+            f"0-{FAMILY_SEEDS - 1}", "--epochs", "1", "--data-path", data16,
+            "--raw-data-path", raw16, "--out-dir", str(root16 / "mega"),
+            "--device", str(dev)], keep=r"ITR|sweep_mean")
+    finally:
+        restore()
+    wall16 = time.perf_counter() - t0
+    mega = root16 / "mega"
+    summary16 = json.loads((mega / "summary.json").read_text())
+    meta16 = json.loads((mega / "meta.json").read_text())
+    hist16 = np.load(mega / "history.npz")
+    mega_finite = all(np.isfinite(hist16[f"iwl5_{k}"]).all()
+                      for k in ("cost_train", "cost_valid"))
+    mega_counts = counts()
+    print(f"[16 family] {card} | megasweep.main, default route: rc {rc}, "
+          f"{len(summary16)} summary rows of "
+          f"{len(summary16[0]['errs']) if summary16 else 0} seeds, "
+          f"{meta16['stages'][0]['runs']} runs, train "
+          f"{meta16['stages'][0]['time_train']:.3f} s, {wall16:.2f} s in "
+          f"all; kernel launches {mega_counts}; the integer fast path's "
+          f"(weight, run) pairs: {tally16['gemm']} on the GEMM, "
+          f"{tally16['lattice']} on the slow branch; "
+          f"costs finite {mega_finite}", flush=True)
+    if (rc != 0 or len(summary16) != FAMILY_TASKS
+            or any(len(r["errs"]) != FAMILY_SEEDS for r in summary16)
+            or meta16["stages"][0]["runs"] != R16 or not mega_finite
+            or mega_counts != want_counts()):
+        fail("megasweep's default route failed, launched a kernel or gave "
+             "a cost that is not finite")
+    tmp16.cleanup()
+
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
     b_qmv = qmatvec_bound(*qmv_args["train"][:2])
@@ -1575,6 +2120,16 @@ def main():
                           "ms": t_k, "plain_ms": t_p, "device_ms": t_dev,
                           "bound_ms": b[0], "bound_by": b[1]}
         return out
+    def fam3_shapes(kname):
+        """The kernels-line entries of kname at the sweep_fixed family's
+        folded batches: times, and the bound from that batch's inputs."""
+        return {label: {"batch": int(fam3_args[label][0][0].shape[0]),
+                        "ms": t3[kname, label][0],
+                        "plain_ms": t3[kname, label][1],
+                        "device_ms": t3[kname, label][2],
+                        "bound_ms": b3[kname, label][0],
+                        "bound_by": b3[kname, label][1]}
+                for label in fam3_args}
     print(json.dumps({"kernels": [
         {"name": "hop_chain", "route": "cuda", "redesigned_in": 4,
          "source": "qmann_tpu_torch/csrc/hop_chain.cu",
@@ -1612,6 +2167,27 @@ def main():
          "features": {k: v["qmatvec"] for k, v in feature_launches.items()},
          "tiled_in": 6, "tiled_max_abs_err": tiled_err,
          "cli_launches": cli_qmv, "joint_launches": joint_qmv,
+         "family": {"extended_in": 8, "runs": R16,
+                    "rows": int(rows16.shape[1]),
+                    "dim_input": dims16.dim_input,
+                    "launches": total16["qmatvec"],
+                    "mode3_launches": fam3_launches["use_pallas"]["qmatvec"],
+                    "max_abs_err": max(fam_err, ev_err),
+                    "ms": t16["family"][0], "plain_ms": t16["family"][1],
+                    "device_ms": t16["family"][2],
+                    "bound_ms": b16["family"][0],
+                    "bound_by": b16["family"][1], "library_ms": None,
+                    "eval": {"rows": int(rows_ev16.shape[1]),
+                             "max_abs_err": ev_err,
+                             "ms": t16["family eval"][0],
+                             "plain_ms": t16["family eval"][1],
+                             "device_ms": t16["family eval"][2],
+                             "bound_ms": b16["family eval"][0],
+                             "bound_by": b16["family eval"][1]}},
+         "wide": {"rows": int(wide_args[1].shape[0]),
+                  "dim_input": dims16.dim_input, "ms": t16["wide"][0],
+                  "plain_ms": t16["wide"][1], "device_ms": t16["wide"][2],
+                  "bound_ms": b16["wide"][0], "bound_by": b16["wide"][1]},
          **{name: {"rows": int(a[1].shape[0]),
                    "dim_input": int(a[1].shape[1]), "ms": t_tiled[name][0],
                    "plain_ms": t_tiled[name][1],
@@ -1630,6 +2206,22 @@ def main():
          "redesigned_in": 5,
          "features": {k: v["attention_read"]
                       for k, v in feature_launches.items()},
+         "family": {"batch": int(read16[0].shape[0]),
+                    "launches": total16["attention_read"],
+                    "max_abs_err": max(read16_err.values()),
+                    "ms": t16["read"][0], "plain_ms": t16["read"][1],
+                    "device_ms": t16["read"][2], "bound_ms": b16["read"][0],
+                    "bound_by": b16["read"][1],
+                    "eval": {"batch": int(read_ev16[0].shape[0]),
+                             "max_abs_err": read16_err["eval chunk"],
+                             "ms": t16["read eval"][0],
+                             "plain_ms": t16["read eval"][1],
+                             "device_ms": t16["read eval"][2],
+                             "bound_ms": b16["read eval"][0],
+                             "bound_by": b16["read eval"][1]},
+                    "mode3": {"launches": fam3_launches["use_pallas"][
+                        "attention_read"], "max_abs_err": read3_err,
+                        **fam3_shapes("read")}},
          **at_shapes(k_times, "attention_read", read_args,
                      lambda a: attention_read_bound(*a[:4])),
          "mode3": {"launches": ar3_launches, "max_abs_err": ar3_err,
@@ -1651,6 +2243,9 @@ def main():
          "redesigned_in": 5,
          "features": {"mode3_sc_att":
                       feature_launches["mode3_sc_att"]["hamming_score"]},
+         "family": {"launches": fam3_launches["use_pallas_hamming"][
+             "hamming_score"], "max_abs_err": ham3_err,
+             **fam3_shapes("hamming")},
          **at_shapes(k3, "hamming", ham_args,
                      lambda a: hamming_bound(*a[:2], num_bit=nb3))},
     ]}))

@@ -1,6 +1,7 @@
 // The quantized mat-vec lattice:
 //   out[b, o] = Q(sum_i Q(Q(w[o,i], fmt_w) * Q(x[b,i], fmt_x), fmt_w), fmt_w)
-// w [O, I], x [B, I] -> out [B, O], float32, row-major and contiguous.
+// w [O, I], x [B, I] -> out [B, O], float32, row-major and contiguous (or
+// per run of a family: w [R, O, I], x [R, B, I] -> out [R, B, O]).
 //
 // Replaces the TPU kernel qmatvec_pallas / _qmatvec_kernel
 // (qmann_tpu/ops/pallas/qkernels.py).  The XNOR-net scale of a binary
@@ -73,6 +74,19 @@
 // I=114 the tiled kernel is 69% slower than the whole-row one: a tile of I
 // per thread leaves each output's requant chain as long as before.
 //
+// The family axis.  The family trainer (train/multi.py) stacks R runs'
+// weights, w [R, O, I] against x [R, B, I] -> out [R, B, O], as JAX's vmap
+// of the TPU kernel gives it a leading grid axis.  Both kernels take the
+// run from blockIdx.z and offset w, x and out by it: each block stages its
+// own run's Q(w), so a block's work and numerics are those of the 2-D call
+// (R = 1, unchanged in grid and results).  At the run.sh family (R = 200)
+// a memory embedding is 200 x 1600 rows at I = 114, 320,000 rows in one
+// launch; each block then pays Q(w) once for 16 rows (the wrapper's rows
+// rule counts the blocks of all runs), ~6% of its products.  Measured on
+// one H100 80GB HBM3 at 700 W (chip_smoke.py phase 16; PERF.md, section
+// 6): 0.95 ms at 200 x 1600 rows, 21% of the 0.20 ms operation bound and
+// 70% of the family step's device time; one run's 1600 rows take 11 us.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -I csrc  (qmann_tpu_torch/ops/cuda/_build.py does it).
 #include <cuda_runtime.h>
@@ -90,12 +104,16 @@ constexpr int kSmemFloats = 12288;  // 48 KB: no opt-in attribute needed
 
 template <class Q>
 __global__ void __launch_bounds__(kThreads)
-qmatvec_kernel(const float* __restrict__ w,   // [O, I] raw
-               const float* __restrict__ x,   // [B, I] raw
-               float* __restrict__ out,       // [B, O]
+qmatvec_kernel(const float* __restrict__ w,   // [R, O, I] raw
+               const float* __restrict__ x,   // [R, B, I] raw
+               float* __restrict__ out,       // [R, B, O]
                int B, int O, int I, int rows, QFmt fmt_w, QFmt fmt_x) {
   const Q fw = Q::from(fmt_w), fx = Q::from(fmt_x);
   extern __shared__ float smem[];
+  // the run of the family axis: its own w, rows of x and outputs
+  w += (size_t)blockIdx.z * O * I;
+  x += (size_t)blockIdx.z * B * I;
+  out += (size_t)blockIdx.z * B * O;
   float* wq = smem;            // [O, I]    Q(w, fmt_w)
   float* xq = smem + O * I;    // [rows, I] Q(x, fmt_x)
   const int b0 = blockIdx.x * rows;
@@ -119,16 +137,20 @@ qmatvec_kernel(const float* __restrict__ w,   // [O, I] raw
 }
 
 constexpr int kMaxOutputs = 4;   // outputs per thread in the tiled kernel
+constexpr int kMaxRuns = 65535;  // the grid's z extent: runs of the family
 
 template <class Q>
 __global__ void __launch_bounds__(kThreads)
-qmatvec_tiled_kernel(const float* __restrict__ w,   // [O, I] raw
-                     const float* __restrict__ x,   // [B, I] raw
-                     float* __restrict__ out,       // [B, O]
+qmatvec_tiled_kernel(const float* __restrict__ w,   // [R, O, I] raw
+                     const float* __restrict__ x,   // [R, B, I] raw
+                     float* __restrict__ out,       // [R, B, O]
                      int B, int O, int I, int rows, int o_tile, int i_tile,
                      QFmt fmt_w, QFmt fmt_x) {
   const Q fw = Q::from(fmt_w), fx = Q::from(fmt_x);
   extern __shared__ float smem[];
+  w += (size_t)blockIdx.z * O * I;
+  x += (size_t)blockIdx.z * B * I;
+  out += (size_t)blockIdx.z * B * O;
   const int ld = i_tile | 1;          // odd stride: conflict-free over o
   float* wq = smem;                   // [o_tile, ld]  Q(w) of the I-tile
   float* xq = smem + o_tile * ld;     // [rows, ld]    Q(x) of the I-tile
@@ -176,20 +198,22 @@ qmatvec_tiled_kernel(const float* __restrict__ w,   // [O, I] raw
 
 }  // namespace
 
+// R: the runs of the family axis (1 for one w [O, I]); w [R, O, I],
+// x [R, B, I] and out [R, B, O], each run's slices contiguous.
 // fmts: host array of the (iwl, frac, mode) triples of fmt_w and fmt_x.
 // rows: the rows of x per block; o_tile, i_tile: the tiles of O and I,
 // all from the wrapper's geometry.  o_tile == O and i_tile == I launch the
-// whole-row kernel (O*I + rows*I <= 12288 floats), grid ceil(B / rows);
-// anything else the tiled kernel, grid ceil(B / rows) x ceil(O / o_tile),
-// 256 threads per block either way.  It runs FastQ<mode> when both formats
-// are non-binary, at most 30 bits wide and of one rounding mode, else
-// AnyQ.  Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
+// whole-row kernel (O*I + rows*I <= 12288 floats), grid ceil(B / rows) x
+// 1 x R; anything else the tiled kernel, grid ceil(B / rows) x
+// ceil(O / o_tile) x R, 256 threads per block either way.  It runs
+// FastQ<mode> when both formats are non-binary, at most 30 bits wide and
+// of one rounding mode, else AnyQ.  Returns cudaGetLastError() after the launch (cudaErrorInvalidValue
 // for shapes, tiles or formats out of range).
 extern "C" int qmann_qmatvec(const float* w, const float* x, float* out,
-                             int B, int O, int I, const int* fmts, int rows,
-                             int o_tile, int i_tile, void* stream) {
-  if (B < 1 || O < 1 || I < 1 || rows < 1 || o_tile < 1 || o_tile > O ||
-      i_tile < 1 || i_tile > I)
+                             int R, int B, int O, int I, const int* fmts,
+                             int rows, int o_tile, int i_tile, void* stream) {
+  if (R < 1 || R > kMaxRuns || B < 1 || O < 1 || I < 1 || rows < 1 ||
+      o_tile < 1 || o_tile > O || i_tile < 1 || i_tile > I)
     return (int)cudaErrorInvalidValue;
   const bool whole = o_tile == O && i_tile == I;
   size_t smem_floats;
@@ -214,12 +238,12 @@ extern "C" int qmann_qmatvec(const float* w, const float* x, float* out,
   const auto st = (cudaStream_t)stream;
 #define QMV_LAUNCH(QT)                                                     \
   if (whole)                                                               \
-    qmatvec_kernel<QT><<<row_blocks, kThreads, smem, st>>>(                \
+    qmatvec_kernel<QT><<<dim3(row_blocks, 1, R), kThreads, smem, st>>>(    \
         w, x, out, B, O, I, rows, fw, fx);                                 \
   else                                                                     \
-    qmatvec_tiled_kernel<QT>                                               \
-        <<<dim3(row_blocks, (O + o_tile - 1) / o_tile), kThreads, smem, st>>>( \
-            w, x, out, B, O, I, rows, o_tile, i_tile, fw, fx)
+    qmatvec_tiled_kernel<QT><<<dim3(row_blocks, (O + o_tile - 1) / o_tile, \
+                                    R), kThreads, smem, st>>>(             \
+        w, x, out, B, O, I, rows, o_tile, i_tile, fw, fx)
   if (!qmann::fastq_exact(fw) || !qmann::fastq_exact(fx) ||
       fw.mode != fx.mode) {
     QMV_LAUNCH(AnyQ);

@@ -35,6 +35,19 @@ runs the unfused hop, where the lattice kernel still carries the
 embeddings and linear maps and, in mode 3, the Hamming kernel the score.
 Under cosine similarity a zero memory row (every padded one) gets a zero
 gradient through its norm, where JAX's gives NaN (ROADMAP.md, Queue 3).
+
+Stacked parameters [R, ...] (``is_family``: the family trainer's,
+``train/multi.py``) run R independent runs in one pass over inputs
+[R, B, ...], as JAX's vmap does: the ops take the run axis (the lattice
+kernel in its grid, the read and the Hamming kernel folded into their
+batch), the weight pickers index a tying-type-1 stack's hop axis after
+it, and ``loss_and_metrics`` keeps cost and matches per run.
+
+Off ``use_pallas``, ``forward`` takes JAX's integer fast path where
+``cfg.en_integer_fast_path`` is on, as JAX's does: the exact GEMM for each
+run whose exactness predicate holds (bit-identical to the lattice).  The
+single-run training step turns it off, as JAX's ``train_epoch`` does by
+default.
 """
 from __future__ import annotations
 
@@ -56,6 +69,7 @@ from qmann_tpu_torch.ops.attention import attention_score
 from qmann_tpu_torch.ops.cuda import fused_hop_chain
 from qmann_tpu_torch.ops.fused import fused_attention_read
 from qmann_tpu_torch.ops.losses import argmax_last
+from qmann_tpu_torch.ops.qlinear import integer_fast_ok
 
 Params = Dict[str, torch.Tensor]
 
@@ -133,22 +147,58 @@ def params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             for k, v in params.items()}
 
 
+def is_family(params: Params) -> bool:
+    """True for stacked parameters [R, ...] (the family trainer's): the
+    query embedding has one more leading axis than its [D, I] layout."""
+    return (params["B"].dim() == 3 if "B" in params
+            else params["E"].dim() == 4)
+
+
+def _hop(params: Params, name: str, h: int) -> torch.Tensor:
+    """Hop h of a tying-type-1 stack (E, H): its hop axis follows a
+    family's run axis."""
+    return params[name].select(1 if is_family(params) else 0, h)
+
+
 def _hop_weights(params: Params, cfg: QmannConfig, h: int):
     if cfg.type_weight_tying == 1:
-        hmat = params["H"][h] if cfg.en_linear_mapping else None
-        return params["E"][h], params["E"][h + 1], hmat
+        hmat = _hop(params, "H", h) if cfg.en_linear_mapping else None
+        return _hop(params, "E", h), _hop(params, "E", h + 1), hmat
     hmat = params["H"] if cfg.en_linear_mapping else None
     return params["A"], params["C"], hmat
 
 
 def _query_weight(params: Params, cfg: QmannConfig):
-    return params["E"][0] if cfg.type_weight_tying == 1 else params["B"]
+    return _hop(params, "E", 0) if cfg.type_weight_tying == 1 else params["B"]
 
 
 def _output_weight(params: Params, cfg: QmannConfig):
     if cfg.type_weight_tying == 1:
-        return params["E"][cfg.num_hops].transpose(0, 1)
+        return _hop(params, "E", cfg.num_hops).transpose(-2, -1)
     return params["W"]
+
+
+def _integer_fast_decisions(cfg: QmannConfig, question, query_w, memory,
+                            mem_ws, mem_fmts):
+    """JAX's integer fast path on the plain route: per weight and run,
+    whether its exactness predicate holds (the query embedding's needs
+    integer questions, so not under EN_PE; a binary format never takes
+    it), all read in one host sync.  Returns (the query's decision, or None
+    for the lattice; one decision per memory weight, False for a binary
+    one)."""
+    f0 = cfg.fmt_w[0]
+    slots = []
+    if not cfg.en_pe and not f0.is_binary:
+        slots.append(("q", integer_fast_ok(question, query_w, f0, f0)))
+    slots += [(k, integer_fast_ok(memory, w, f, f))
+              for k, (w, f) in enumerate(zip(mem_ws, mem_fmts))
+              if not f.is_binary]
+    if not slots:
+        return None, None
+    host = dict(zip([k for k, _ in slots],
+                    torch.stack([p for _, p in slots]).cpu().numpy()))
+    mem = [host.get(k, False) for k in range(len(mem_ws))]
+    return host.get("q"), mem
 
 
 def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
@@ -158,17 +208,26 @@ def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
 
     memory [B, M, dim_input] bag-of-words rows; question [B, dim_input];
     mask [B, M] bool validity of memory rows; remove_softmax is linear
-    start (the attention softmax bypassed)."""
+    start (the attention softmax bypassed).  Stacked parameters [R, ...]
+    (``is_family``) take inputs [R, B, ...]: R independent runs in one
+    pass.  ``cfg.en_integer_fast_path`` takes JAX's integer fast path on
+    the plain route (module docstring; bit-identical either way)."""
     q = cfg.en_fixed_point
     fmt_w = cfg.fmt_w
     backend = "kernel" if cfg.use_pallas else "plain"
     K = cfg.num_hops
-    u = qmatvec(_query_weight(params, cfg), question, fmt_w[0], fmt_w[0],
-                quantized=q, backend=backend)
     hop_w = [_hop_weights(params, cfg, h) for h in range(K)]
-    embeds = qembed_mat_multi(
-        memory, [w[0] for w in hop_w] + [w[1] for w in hop_w],
-        [fmt_w[h] for h in range(K)] * 2, quantized=q, backend=backend)
+    mem_ws = [w[0] for w in hop_w] + [w[1] for w in hop_w]
+    mem_fmts = [fmt_w[h] for h in range(K)] * 2
+    fast_q = fast_m = None
+    if cfg.en_integer_fast_path and q and backend == "plain":
+        fast_q, fast_m = _integer_fast_decisions(
+            cfg, question, _query_weight(params, cfg), memory, mem_ws,
+            mem_fmts)
+    u = qmatvec(_query_weight(params, cfg), question, fmt_w[0], fmt_w[0],
+                quantized=q, backend=backend, fast=fast_q)
+    embeds = qembed_mat_multi(memory, mem_ws, mem_fmts, quantized=q,
+                              backend=backend, fast=fast_m)
     return _hop_stack(params, cfg, u, embeds, mask, remove_softmax, backend)
 
 
@@ -235,10 +294,13 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
                 hamming_weight_para=cfg.hamming_weight_para,
                 hamming_weighted=cfg.hamming_weighted, grad_quantized=gq)
             if cfg.en_sc_att and not remove_softmax:
-                scores = scale_apply(params["scale"][h], scores)
+                # scale [K], or [R, K] for a family
+                scores = scale_apply(params["scale"][..., h], scores)
             if cfg.test_maxout:
-                p = maxout_attention(scores, params["maxout_w"],
-                                     params["maxout_b"], mask)
+                mw, mb = params["maxout_w"], params["maxout_b"]
+                if mw.dim() == 2:   # a family's pieces [R, 5]
+                    mw, mb = mw[:, None, None], mb[:, None, None]
+                p = maxout_attention(scores, mw, mb, mask)
             else:
                 p = apply_softmax(scores, mask,
                                   shift_based=cfg.en_shift_based_sm,
@@ -269,7 +331,10 @@ def loss_and_metrics(params: Params, memory: torch.Tensor,
     """Total (summed) loss over the valid samples of a batch and the
     reference's metrics.  sample_mask [B] (1 valid / 0 padding) covers the
     final partial batch; the cost is taken on detached probabilities and
-    the prediction ties to the last index.  Returns (loss, CEMetrics)."""
+    the prediction ties to the last index.  Returns (loss, CEMetrics).
+    For a family (stacked parameters, inputs [R, B, ...], sample_mask
+    [R, B]) the loss is the sum of the runs' losses, whose gradient is each
+    run's own, and the cost and matches are per run [R]."""
     out = forward(params, memory, question, mask, cfg, remove_softmax)
     logp = torch.log_softmax(out.logits, dim=-1)
     per_sample = -(answer * logp).sum(-1)
@@ -277,6 +342,14 @@ def loss_and_metrics(params: Params, memory: torch.Tensor,
     pred = argmax_last(out.logits.detach(), dim=-1)
     hit = torch.gather(answer, -1, pred[..., None])[..., 0]
     hits = (hit == 1.0).to(torch.float32)
+    if is_family(params):
+        sm = 1.0 if sample_mask is None else sample_mask
+        loss_r = (per_sample * sm).sum(-1)
+        cost = -((answer * probs).sum(-1) * sm).sum(-1)
+        matches = (hits * sm).sum(-1)
+        return loss_r.sum(), CEMetrics(loss=loss_r, cost=cost,
+                                       matches=matches.to(torch.int32),
+                                       pred=pred)
     if sample_mask is None:
         loss = per_sample.sum()
         cost = -(answer * probs).sum()

@@ -19,10 +19,11 @@ The Hamming forward, per (m, u) element pair:
   4. scale by 2^const_scale;
   5. requantize each term and the row sum at (iwl, 31-iwl).
 
-``backend="kernel"`` runs the forward of a [B, M, D] x [B, D] score
-through the hand-written CUDA kernel (``ops/cuda/hamming.py``), which on a
-CPU tensor takes its plain version; other ranks take the plain version, as
-the JAX package's Pallas route does.  The surrogate backward is plain
+``backend="kernel"`` runs the forward of a [..., B, M, D] x [..., B, D]
+score through the hand-written CUDA kernel (``ops/cuda/hamming.py``), the
+leading dims (a family's runs) folded into B, as JAX's vmap batches the
+Pallas kernel; on a CPU tensor it takes the plain version, and so do
+other ranks, as the JAX package's Pallas route does.  The surrogate backward is plain
 PyTorch, as it is plain jnp in JAX: it re-encodes and re-preprocesses the
 inputs, reads the operand signs from the original words, and keeps the
 reference's stale-accumulate quirk in the query gradient.
@@ -171,10 +172,14 @@ def hamming_backward(m: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
 def _hamming_forward(m, u, iwl, num_bit, const_scale, round_mode, backend,
                      weight_para, weighted):
     _check_backend(backend)
-    if backend == "kernel" and m.dim() == 3 and u.dim() == 2:
+    if backend == "kernel" and m.dim() >= 3 and u.dim() == m.dim() - 1:
+        # leading dims before [B, M, D] (a family's runs) fold into B
         from qmann_tpu_torch.ops.cuda.hamming import hamming_score_kernel
-        return hamming_score_kernel(m, u, iwl, num_bit, const_scale,
-                                    round_mode, weight_para, weighted)
+        M, D = m.shape[-2:]
+        s = hamming_score_kernel(m.reshape(-1, M, D), u.reshape(-1, D), iwl,
+                                 num_bit, const_scale, round_mode,
+                                 weight_para, weighted)
+        return s.reshape(m.shape[:-1])
     return hamming_score_reference(m, u, iwl, num_bit, const_scale,
                                    round_mode, weight_para, weighted)
 
@@ -204,9 +209,10 @@ def hamming_score(m: torch.Tensor, u: torch.Tensor, iwl: int, num_bit: int,
     [..., M], differentiable through the surrogate backward.
 
     num_bit: the compared bits, 1 + iwl + frac of the layer's nominal
-    format.  backend="kernel" runs a [B, M, D] x [B, D] forward through
-    the CUDA kernel (bit-identical).  weight_para offsets the bit-weight
-    exponent; weighted=False selects the unweighted bit-match count."""
+    format.  backend="kernel" runs a [..., B, M, D] x [..., B, D] forward
+    through the CUDA kernel (bit-identical).  weight_para offsets the
+    bit-weight exponent; weighted=False selects the unweighted bit-match
+    count."""
     return _HammingScore.apply(m, u, iwl, num_bit, const_scale, round_mode,
                                backend, weight_para, weighted)
 

@@ -81,9 +81,12 @@ def activation(x: torch.Tensor, kind: str, fmt: Optional[QFormat],
 
 
 def scale_apply(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """out = w * x with a scalar w.  Plain autograd gives the reference's
-    backward: dw = sum(g * x), dx = w * g.  The scale's SGD divisor
-    (batch size times the score length) is ``train.optim``'s."""
+    """out = w * x with a scalar w, or a family's per-run scale w [R]
+    against x [R, ...].  Plain autograd gives the reference's backward:
+    dw = sum(g * x), dx = w * g.  The scale's SGD divisor (batch size times
+    the score length) is ``train.optim``'s."""
+    if w.dim() == 1:
+        return w.reshape((-1,) + (1,) * (x.dim() - 1)) * x
     return w * x
 
 

@@ -31,11 +31,16 @@ class _FusedAttentionRead(torch.autograd.Function):
                 score_quantized, sum_quantized, attention_mode,
                 sum_grad_quantized, ham_num_bit, ham_const_scale,
                 ham_weight_para, ham_weighted):
-        o, p, scores = fused_read(m, c, u, mask_f, fmt_att, fmt_bin, fmt_act,
-                                  score_quantized, sum_quantized,
-                                  attention_mode, ham_num_bit,
-                                  ham_const_scale, ham_weight_para,
-                                  ham_weighted)
+        # leading dims before [B, M, D] (a family's run axis) fold into
+        # the kernel's queries: the read takes only per-query operands
+        lead, (M, D) = m.shape[:-2], m.shape[-2:]
+        o, p, scores = fused_read(
+            m.reshape(-1, M, D), c.reshape(-1, M, D), u.reshape(-1, D),
+            mask_f.reshape(-1, M), fmt_att, fmt_bin, fmt_act,
+            score_quantized, sum_quantized, attention_mode, ham_num_bit,
+            ham_const_scale, ham_weight_para, ham_weighted)
+        o, p, scores = (o.reshape(*lead, D), p.reshape(*lead, M),
+                        scores.reshape(*lead, M))
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(m, c, u, mask_f, p)
         ctx.fmt_act, ctx.sum_grad_quantized = fmt_act, sum_grad_quantized
@@ -80,7 +85,8 @@ def fused_attention_read(m: torch.Tensor, c: torch.Tensor, u: torch.Tensor,
                          ham_weight_para: int = 0,
                          ham_weighted: bool = True):
     """m, c: [B, M, D]; u: [B, D]; mask_f: [B, M] float (1 live / 0 pad)
-    -> (o [B, D], p [B, M], scores [B, M]).
+    -> (o [B, D], p [B, M], scores [B, M]); leading dims before B (a
+    family's runs [R, B, ...]) fold into the kernel's batch.
 
     Equal to attention_score (mode 1, 2 or 3) -> softmax -> qweighted_sum
     (scores raw, before the mask, as the unfused path reports them);

@@ -21,9 +21,23 @@ as JAX runs them at HIGHEST precision outside any kernel.
 ``backend="kernel"`` (``QmannConfig.use_pallas``) routes the quantized
 forwards of ``qmatvec``, ``qembed_mat`` and ``qembed_mat_multi`` through
 the lattice kernel (``ops/cuda/qmatvec.py``); ``"plain"`` is the PyTorch
-lattice.  Both give the same result and the same backward.  The JAX ops'
-runtime exact-GEMM fast paths are not ported on this route: the serving
-path decides its exact GEMM once in ``models.memn2n.prepare_inference``.
+lattice.  Both give the same result and the same backward.
+
+The family axis.  A weight with one more leading axis, w [R, O, I] (and
+x [R, ..., I]), is a stack of R independent runs (the family trainer,
+``train/multi.py``; JAX's vmap): the lattice launches once for all runs,
+a binary format's XNOR scale is per run, and the weight gradients keep R
+(``r...o,r...i->roi``).
+
+The integer fast path (JAX's ``integer_inputs``, ``lax.cond`` per call,
+a select per run under vmap).  On the plain route, ``fast`` gives per run
+(a host bool, or a bool array [R] for a family) whether JAX's exactness
+predicate holds (``integer_fast_ok``, computed on the device; the caller
+reads all of a step's predicates in one host sync): those runs take the
+exact GEMM, Q(x @ Q(w)^T), the others the lattice, which equals the GEMM
+bit for bit wherever the predicate holds.  ``models.memn2n.forward``
+decides it from ``cfg.en_integer_fast_path``; the serving path decides its
+exact GEMM once in ``models.memn2n.prepare_inference``.
 
 ``qscore``'s ``score_mod`` ("shift", "clip") adjusts the raw score sums
 before the output requant and changes only the forward.
@@ -33,11 +47,13 @@ execution, with the same backwards.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from qmann_tpu_torch.numerics import QFormat, fixed_max_float, float_quant
+from qmann_tpu_torch.numerics import (QFormat, fixed_max_float, float_quant,
+                                      float_quant_blocks)
 
 BACKENDS = ("plain", "kernel")
 
@@ -74,19 +90,84 @@ def exact_matmul(x: torch.Tensor, wq_t: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), wq_t.to(torch.float32))
 
 
+def _rows(x: torch.Tensor, family: bool) -> torch.Tensor:
+    """x's leading dims as rows: [N, I], or [R, N, I] for a family."""
+    return (x.reshape(x.shape[0], -1, x.shape[-1]) if family
+            else x.reshape(-1, x.shape[-1]))
+
+
 def _lattice_rows(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
                   fmt_x: QFormat, backend: str) -> torch.Tensor:
     """Q(sum_i Q(Q(w[o,i], fmt_w) * Q(x[..., i], fmt_x), fmt_w), fmt_w)
-    over any leading dims of x: the kernel backend flattens them into the
-    kernel's rows."""
+    over any leading dims of x (after the run axis of a family w
+    [R, O, I]), flattened into the lattice's rows: the kernel, or its
+    plain version."""
     _check_backend(backend)
-    if backend == "kernel":
-        from qmann_tpu_torch.ops.cuda.qmatvec import quantized_matvec
-        lead = x.shape[:-1]
-        out = quantized_matvec(w, x.reshape(-1, x.shape[-1]), fmt_w, fmt_x)
-        return out.reshape(*lead, w.shape[0])
-    prod = _qproducts(w, x[..., None, :], fmt_w, fmt_x, fmt_w)
-    return float_quant(prod.sum(-1), fmt_w)
+    from qmann_tpu_torch.ops.cuda.qmatvec import (quantized_matvec,
+                                                  quantized_matvec_reference)
+    lattice = quantized_matvec if backend == "kernel" \
+        else quantized_matvec_reference
+    out = lattice(w, _rows(x, w.dim() == 3), fmt_w, fmt_x)
+    return out.reshape(*x.shape[:-1], w.shape[-2])
+
+
+def integer_fast_ok(x: torch.Tensor, w: torch.Tensor, fmt_w: QFormat,
+                    fmt_x: QFormat) -> torch.Tensor:
+    """JAX's exactness predicate of the integer fast path
+    (``_qmatvec_integer_fast_ok``; ``_integer_input_fast_path_ok`` is the
+    case fmt_x = fmt_w), per run: Q(x, fmt_x) == x, no product Q(x)Q(w)
+    saturates in fmt_w, and every row sum stays under 2^24 grid units.  A
+    0-d bool on the device, or [R] for a family w [R, O, I]; no host
+    sync."""
+    ax = _rows(x, w.dim() == 3).abs()               # [N, I] or [R, N, I]
+    max_x = ax.flatten(-2).amax(-1)
+    max_row = ax.sum(-1).amax(-1)
+    max_wq = float_quant(w, fmt_w).abs().flatten(-2).amax(-1)
+    units = max_row * max_wq * float(2.0 ** fmt_w.frac)
+    return ((max_x <= fixed_max_float(fmt_x.iwl, fmt_x.frac))
+            & (max_x * max_wq <= fixed_max_float(fmt_w.iwl, fmt_w.frac))
+            & (units < float(2 ** 24)))
+
+
+def _fast_lattice(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                  fmts: Sequence[QFormat], fast,
+                  fmt_x: Optional[QFormat] = None
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The plain route's lattices under the integer fast path: one exact
+    GEMM against the stacked Q(w)^T of every weight that some run may take
+    it for, requantized per block (JAX's stacked fast branch), and the
+    lattice for each (weight, run) whose predicate fails.  fast[k] is
+    weight k's per-run decision (a bool, or [R] for a family); x's format
+    is fmt_x, else each weight's own (the memory embeddings)."""
+    family = weights[0].dim() == 3
+    fast = [np.asarray(f, bool) for f in fast]
+    gemm = [k for k, f in enumerate(fast) if f.any()]
+    outs = [None] * len(weights)
+    if gemm:
+        wq_t = torch.cat([float_quant(weights[k], fmts[k]).transpose(-2, -1)
+                          for k in gemm], dim=-1)
+        widths = [weights[k].shape[-2] for k in gemm]
+        flat = float_quant_blocks(exact_matmul(_rows(x, family), wq_t),
+                                  [fmts[k] for k in gemm], widths)
+        for k, blk in zip(gemm, torch.split(flat, widths, dim=-1)):
+            outs[k] = blk.reshape(*x.shape[:-1], blk.shape[-1]).contiguous()
+    for k, (w, fmt) in enumerate(zip(weights, fmts)):
+        fx = fmt if fmt_x is None else fmt_x
+        if outs[k] is None:
+            outs[k] = _lattice_rows(w, x, fmt, fx, "plain")
+        elif not fast[k].all():
+            slow = torch.from_numpy(np.flatnonzero(~fast[k])).to(x.device)
+            outs[k][slow] = _lattice_rows(w[slow], x[slow], fmt, fx, "plain")
+    return tuple(outs)
+
+
+def _xnor_scale(out: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out times the binary format's XNOR-net scale sum(w) / (O * I) (raw
+    sum, no abs), per run for a family w [R, O, I]."""
+    if w.dim() == 2:
+        return out * (w.sum() / float(w.shape[0] * w.shape[1]))
+    scale = w.sum(dim=(-2, -1)) / float(w.shape[-2] * w.shape[-1])
+    return out * scale.reshape((-1,) + (1,) * (out.dim() - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -95,42 +176,47 @@ def _lattice_rows(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
 
 def qmatvec_forward(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
                     fmt_x: QFormat, quantized: bool = True,
-                    backend: str = "plain") -> torch.Tensor:
+                    backend: str = "plain", fast=None) -> torch.Tensor:
     """qmatvec's forward without autograd (see ``qmatvec``)."""
     if not quantized:
-        return torch.matmul(x, w.transpose(0, 1))
-    out = _lattice_rows(w, x, fmt_w, fmt_x, backend)
+        return torch.matmul(x, w.transpose(-2, -1))
+    if fast is not None and backend == "plain":
+        out = _fast_lattice(x, (w,), (fmt_w,), (fast,), fmt_x)[0]
+    else:
+        out = _lattice_rows(w, x, fmt_w, fmt_x, backend)
     if fmt_w.is_binary:
-        out = out * (w.sum() / float(w.shape[0] * w.shape[1]))
+        out = _xnor_scale(out, w)
     return out
 
 
 class _QMatVec(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, w, x, fmt_w, fmt_x, quantized, backend):
+    def forward(ctx, w, x, fmt_w, fmt_x, quantized, backend, fast):
         ctx.save_for_backward(w, x)
-        return qmatvec_forward(w, x, fmt_w, fmt_x, quantized, backend)
+        return qmatvec_forward(w, x, fmt_w, fmt_x, quantized, backend, fast)
 
     @staticmethod
     def backward(ctx, g):
         # raw-float gradients, float under every EN_GRAD_QUANT placement:
-        # w_del += g x^T ; grad_x = W^T g
+        # w_del += g x^T ; grad_x = W^T g (per run for a family)
         w, x = ctx.saved_tensors
-        dw = torch.einsum("...o,...i->oi", g, x) \
-            if ctx.needs_input_grad[0] else None
-        dx = torch.einsum("oi,...o->...i", w, g) \
-            if ctx.needs_input_grad[1] else None
-        return dw, dx, None, None, None, None
+        eq = ("r...o,r...i->roi", "roi,r...o->r...i") if w.dim() == 3 \
+            else ("...o,...i->oi", "oi,...o->...i")
+        dw = torch.einsum(eq[0], g, x) if ctx.needs_input_grad[0] else None
+        dx = torch.einsum(eq[1], w, g) if ctx.needs_input_grad[1] else None
+        return dw, dx, None, None, None, None, None
 
 
 def qmatvec(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
             fmt_x: QFormat, quantized: bool = True,
-            backend: str = "plain") -> torch.Tensor:
+            backend: str = "plain", fast=None) -> torch.Tensor:
     """out[..., o] = Q(sum_i Q(Q(w[o,i]) * Q(x[..., i])));  w [O, I],
-    x [..., I] -> [..., O].  quantized=False is the plain float product
-    (the float output layer, attention mode 1).  A binary weight format
-    applies the XNOR-net scale sum(w)/(O*I) (raw sum, no abs)."""
-    return _QMatVec.apply(w, x, fmt_w, fmt_x, quantized, backend)
+    x [..., I] -> [..., O], or per run of a family w [R, O, I], x
+    [R, ..., I].  quantized=False is the plain float product (the float
+    output layer, attention mode 1).  A binary weight format applies the
+    XNOR-net scale sum(w)/(O*I) (raw sum, no abs).  fast: the integer fast
+    path's per-run decision on the plain route (module docstring)."""
+    return _QMatVec.apply(w, x, fmt_w, fmt_x, quantized, backend, fast)
 
 
 # ---------------------------------------------------------------------------
@@ -142,16 +228,19 @@ def qembed_mat_forward(s: torch.Tensor, a: torch.Tensor, fmt: QFormat,
                        backend: str = "plain") -> torch.Tensor:
     """qembed_mat's forward without autograd (see ``qembed_mat``)."""
     if not quantized:
+        if a.dim() == 3:   # a family: [R, ..., M, I] x [R, D, I]
+            out = torch.matmul(_rows(s, True), a.transpose(-2, -1))
+            return out.reshape(*s.shape[:-1], a.shape[-2])
         return torch.matmul(s, a.transpose(0, 1))
     # Q(Q(a)Q(s)) == Q(Q(s)Q(a)): the lattice with a as the weight
     return _lattice_rows(a, s, fmt, fmt, backend)
 
 
 def _qembed_grads(ctx, g, s, a, s_slot, a_slot):
-    da = torch.einsum("...md,...mi->di", g, s) \
-        if ctx.needs_input_grad[a_slot] else None
-    ds = torch.einsum("...md,di->...mi", g, a) \
-        if ctx.needs_input_grad[s_slot] else None
+    eq = ("r...md,r...mi->rdi", "r...md,rdi->r...mi") if a.dim() == 3 \
+        else ("...md,...mi->di", "...md,di->...mi")
+    da = torch.einsum(eq[0], g, s) if ctx.needs_input_grad[a_slot] else None
+    ds = torch.einsum(eq[1], g, a) if ctx.needs_input_grad[s_slot] else None
     return ds, da
 
 
@@ -178,9 +267,11 @@ def qembed_mat(s: torch.Tensor, a: torch.Tensor, fmt: QFormat,
 
 class _QEmbedMatMulti(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, s, fmts, quantized, backend, *weights):
+    def forward(ctx, s, fmts, quantized, backend, fast, *weights):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(s, *weights)
+        if fast is not None and quantized and backend == "plain":
+            return _fast_lattice(s, weights, fmts, fast)
         return tuple(qembed_mat_forward(s, w, f, quantized, backend)
                      for w, f in zip(weights, fmts))
 
@@ -195,22 +286,27 @@ class _QEmbedMatMulti(torch.autograd.Function):
             if g is None:
                 dws.append(None)
                 continue
-            dsk, dw = _qembed_grads(ctx, g, s, w, 0, 4 + k)
+            dsk, dw = _qembed_grads(ctx, g, s, w, 0, 5 + k)
             dws.append(dw)
             if dsk is not None:
                 ds = dsk if ds is None else ds + dsk
-        return (ds, None, None, None, *dws)
+        return (ds, None, None, None, None, *dws)
 
 
 def qembed_mat_multi(s: torch.Tensor, weights: Sequence[torch.Tensor],
                      fmts: Sequence[QFormat], quantized: bool = True,
-                     backend: str = "plain") -> Tuple[torch.Tensor, ...]:
+                     backend: str = "plain",
+                     fast: Optional[Sequence] = None
+                     ) -> Tuple[torch.Tensor, ...]:
     """K qembed_mat calls sharing one input, one per (weight, fmt) pair, as
-    one autograd node.  The stacked exact GEMM that JAX takes when its
-    bounds hold is the serving route of ``models.memn2n.forward_prepared``."""
+    one autograd node; weights [D, I], or [R, D, I] against s [R, ..., I]
+    for a family.  fast: the integer fast path's per-run decision for each
+    weight on the plain route (module docstring); the serving route's
+    exact GEMM is ``models.memn2n.forward_prepared``'s."""
     if len(weights) != len(fmts):
         raise ValueError("qembed_mat_multi: one format per weight expected")
     return _QEmbedMatMulti.apply(s, tuple(fmts), quantized, backend,
+                                 None if fast is None else tuple(fast),
                                  *weights)
 
 

@@ -42,7 +42,8 @@ Scalar = Union[float, torch.Tensor]
 
 def rowsum_l2_norm(g: torch.Tensor) -> torch.Tensor:
     """Sum of per-row L2 norms over the last axis, per matrix of the
-    leading axes (a scalar for a matrix, [K] for a [K, D, I] stack)."""
+    leading axes (a scalar for a matrix, [K] for a [K, D, I] stack, [R] or
+    [R, K] for a family's)."""
     return torch.sqrt((g * g).sum(-1)).sum(-1)
 
 
@@ -61,8 +62,11 @@ def sgd_update(params: Params, grads: Mapping[str, torch.Tensor], lr: Scalar,
     of the batch (the last batch divides by its remainder).  lr and
     batch_size may be float32 tensors on the parameters' device, so the
     step never synchronizes with the host.  scale_dim is the attention
-    score length in the scale's batch_size * dim divisor."""
+    score length in the scale's batch_size * dim divisor.  For a family
+    (stacked parameters [R, ...]) batch_size is per run [R], and each run's
+    matrices are clipped on their own."""
     lam = float(cfg.lambda_)
+    per_run = isinstance(batch_size, torch.Tensor) and batch_size.dim() == 1
     for name, w in params.items():
         g = grads[name]
         if (cfg.en_grad_quant and cfg.grad_quant_placement == "update"
@@ -80,8 +84,11 @@ def sgd_update(params: Params, grads: Mapping[str, torch.Tensor], lr: Scalar,
             # the 0.1 lin_map factor belongs to the layer-wise tying branch
             lr_eff = lr * 0.1 if cfg.type_weight_tying == 2 else lr
         if cfg.en_max_grad_l2_norm and max_norm is not None:
+            # one clip per matrix of the last two axes
             scale = _clip_scale(g, max_norm)
-            g = g * (scale[:, None, None] if g.dim() == 3 else scale)
+            g = g * (scale[..., None, None] if g.dim() >= 3 else scale)
+        if per_run:
+            div = div.reshape((-1,) + (1,) * (w.dim() - 1))
         # w - lr_eff/div * g + lr_eff*lambda*w, in the reference's order
         decay = w * (lr_eff * lam)
         w.sub_(g * (lr_eff / div)).add_(decay)
@@ -92,15 +99,16 @@ def sgd_update(params: Params, grads: Mapping[str, torch.Tensor], lr: Scalar,
 def zero_null_columns(params: Params, cfg: QmannConfig) -> Params:
     """ZEROING_NULL_WEIGHT: after every batch update the NULL-word (index 0)
     input column of the memory embeddings is zeroed in place (emb_m and
-    emb_c only, not emb_q or ds_ans)."""
+    emb_c only, not emb_q or ds_ans); the last axis is the input, also
+    for a family's stacked parameters."""
     if not cfg.zeroing_null_weight:
         return params
     if cfg.type_weight_tying == 1:
         # emb_m[h] = E[0..K-1], emb_c[h] = E[1..K] -> all chain matrices
-        params["E"][:, :, 0] = 0.0
+        params["E"][..., 0] = 0.0
     else:
-        params["A"][:, 0] = 0.0
-        params["C"][:, 0] = 0.0
+        params["A"][..., 0] = 0.0
+        params["C"][..., 0] = 0.0
     return params
 
 

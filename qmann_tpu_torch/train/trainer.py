@@ -114,12 +114,20 @@ def _pack_shuffled(memory: torch.Tensor, question: torch.Tensor,
             "answer": pack(answer), "mask": pack(mask)}
 
 
+def _without_fast_path(cfg: QmannConfig) -> QmannConfig:
+    return (cfg.replace(en_integer_fast_path=False)
+            if cfg.en_integer_fast_path else cfg)
+
+
 def train_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
                cfg: QmannConfig, remove_softmax: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One SGD step on one batch: forward, autograd backward, in-place
     ``sgd_update`` and ``zero_null_columns``.  Returns the batch's cost and
-    matches as device tensors (no host sync)."""
+    matches as device tensors (no host sync).  The integer fast path is
+    off here, as in JAX's ``train_epoch`` (it would cost a host sync per
+    step; bit-identical either way)."""
+    cfg = _without_fast_path(cfg)
     names = list(params)
     leaves = [params[k].requires_grad_() for k in names]
     try:
@@ -147,6 +155,7 @@ def train_epoch(params: Params, batches: Mapping[str, torch.Tensor], lr,
     """``train_step`` over every batch of [NB, B, ...] device arrays, in
     order; params are updated in place.  Returns (params, summed cost,
     summed matches), the sums as device tensors."""
+    cfg = _without_fast_path(cfg)
     costs, matches = [], []
     for i in range(batches["memory"].shape[0]):
         c, m = train_step(params, {k: v[i] for k, v in batches.items()}, lr,

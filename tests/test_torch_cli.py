@@ -206,3 +206,158 @@ def test_module_help_lists_every_jax_flag():
         for opt in action.option_strings:
             assert opt in proc.stdout, opt
     assert "--device" in proc.stdout and "num_task_loop" in proc.stdout
+
+
+# ---------------------------------------------------------------------------
+# bench/sweep.py, bench/megasweep.py, bench/compare.py against the JAX tools
+# ---------------------------------------------------------------------------
+
+def _jax_parser(main):
+    """The parser a JAX bench tool builds inside its main()."""
+    seen = []
+
+    def grab(self, argv=None, namespace=None):
+        seen.append(self)
+        raise SystemExit(0)
+
+    orig = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        with pytest.raises(SystemExit):
+            main([])
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    return seen[0]
+
+
+@pytest.mark.parametrize("tool", ["sweep", "megasweep"])
+def test_bench_tool_flags_match_jax(tool):
+    import importlib
+    jmod = importlib.import_module(f"qmann_tpu.bench.{tool}")
+    tmod = importlib.import_module(f"qmann_tpu_torch.bench.{tool}")
+    got, want = _actions(tmod.build_parser()), _actions(_jax_parser(jmod.main))
+    assert set(got) == set(want) | {"device"}
+    for dest, w in want.items():
+        for field in ("option_strings", "default", "type", "nargs",
+                      "const"):
+            assert getattr(got[dest], field) == getattr(w, field), (dest,
+                                                                    field)
+    assert got["device"].default == "cuda"
+
+
+@pytest.fixture
+def one_thread():
+    """The tools' CPU runs are thousands of tiny torch ops: one intra-op
+    thread keeps them from contending with the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def jax_init(monkeypatch, one_thread):
+    """The port's init_params draws JAX's weights for the same seed (the
+    generator's seed), so that a tool of each package trains the same
+    runs."""
+    import jax
+    from qmann_tpu.config import QmannConfig as JaxConfig
+    from qmann_tpu.models import memn2n as jmodel
+    from qmann_tpu_torch.models import memn2n
+
+    def init(cfg, dims, generator, device="cuda"):
+        jcfg = JaxConfig(**{f.name: getattr(cfg, f.name)
+                            for f in dataclasses.fields(JaxConfig)})
+        p = jmodel.init_params(jcfg, dims,
+                               jax.random.PRNGKey(generator.initial_seed()))
+        return memn2n.params_from_jax({k: np.asarray(v) for k, v in
+                                       p.items()}, cfg, device=device)
+
+    monkeypatch.setattr(memn2n, "init_params", init)
+
+
+SWEEP_ARGS = ["--iwl", "1", "--epochs", "1", "--max-samples", "32",
+              "--max-test-samples", "16"]
+
+
+def _summary(out):
+    return json.loads((out / "summary.json").read_text())
+
+
+def _rows_equal(got, want):
+    """summary.json rows: the same keys, and every value but the host's
+    wall-clock equal."""
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert {k: v for k, v in g.items() if k != "wallclock"} == \
+            {k: v for k, v in w.items() if k != "wallclock"}
+
+
+def test_sweep_matches_jax_sweep(corpus, tmp_path, jax_init, capsys):
+    """bench.sweep on the fixture's files, 2 tasks x 1 loop at iwl 1 (the
+    JAX sweep's per-run train_task is the reference): the same summary
+    rows and result CSVs per iwl; --resume adds a loop to task 1's row and
+    keeps task 2's."""
+    from qmann_tpu.bench import sweep as jsweep
+    from qmann_tpu_torch.bench import sweep
+    io = ["--data-path", corpus[0], "--raw-data-path", corpus[1]]
+    jout, tout = tmp_path / "jax", tmp_path / "torch"
+    one = [*SWEEP_ARGS, "--tasks", "1-2", "--loops", "1", *io]
+    assert jsweep.main([*one, "--out-dir", str(jout)]) == 0
+    assert sweep.main([*one, "--out-dir", str(tout), "--device", "cpu"]) == 0
+    _rows_equal(_summary(tout), _summary(jout))
+    assert [r[0] for r in _rows(tout / "iwl1" / "result.csv")] == ["1", "2"]
+    assert sweep.main([*SWEEP_ARGS, "--tasks", "1", "--loops", "2", *io,
+                       "--out-dir", str(tout), "--device", "cpu",
+                       "--resume"]) == 0
+    assert [len(r["errs"]) for r in _summary(tout)] == [2, 1]
+    assert "sweep_mean_err_test" in capsys.readouterr().out
+
+
+def test_megasweep_matches_jax_megasweep(corpus, tmp_path, jax_init,
+                                         capsys):
+    """bench.megasweep at its default route (the integer fast path on, no
+    use_pallas; megasweep's padded layout, dim_input 114) on the fixture's
+    files, 2 tasks x 2 seeds, 1 epoch: the same summary rows as the JAX
+    tool, history.npz and meta.json; and bench.compare prints the JAX
+    compare's table for the two directories."""
+    from qmann_tpu.bench import compare as jcompare
+    from qmann_tpu.bench import megasweep as jmega
+    from qmann_tpu_torch.bench import compare, megasweep
+    args = ["--tasks", "1-2", "--seeds", "0,1", "--iwl", "1", "--epochs",
+            "1", "--max-samples", "32", "--max-test-samples", "16",
+            "--eval-chunk", "16",
+            "--save-best-model", "--data-path", corpus[0],
+            "--raw-data-path", corpus[1]]
+    jout, tout = tmp_path / "jax", tmp_path / "torch"
+    assert jmega.main([*args, "--out-dir", str(jout)]) == 0
+    assert megasweep.main([*args, "--out-dir", str(tout), "--device",
+                           "cpu"]) == 0
+    _rows_equal(_summary(tout), _summary(jout))
+    hist = np.load(tout / "history.npz")
+    want = np.load(jout / "history.npz")
+    assert set(hist.files) == set(want.files)
+    for k in ("iwl1_err_train", "iwl1_err_valid", "iwl1_task", "iwl1_seed"):
+        np.testing.assert_array_equal(hist[k], want[k])
+    meta = json.loads((tout / "meta.json").read_text())
+    assert meta["stages"][0]["runs"] == 4 and meta["seeds"] == [0, 1]
+    assert [r[0] for r in _rows(tout / "iwl1" / "result_all.csv")] == \
+        ["1", "2"]
+    capsys.readouterr()
+    assert jcompare.main([str(jout), str(tout)]) == 0
+    want_table = capsys.readouterr().out
+    assert compare.main([str(jout), str(tout)]) == 0
+    assert capsys.readouterr().out == want_table
+    assert "mean (n=2 common)" in want_table
+
+
+def test_bench_tools_default_to_the_card(corpus, tmp_path):
+    from qmann_tpu_torch.bench import megasweep, sweep
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults run on it")
+    for main in (sweep.main, megasweep.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--tasks", "1", "--data-path", corpus[0],
+                  "--raw-data-path", corpus[1], "--out-dir",
+                  str(tmp_path)])

@@ -750,3 +750,74 @@ def test_qmatvec_whole_row_path_kept_at_the_old_limit(cuda, O, I, tiled):
     got = qmv.quantized_matvec(w.to(cuda), x.to(cuda), fmt, fmt)
     assert torch.equal(got.cpu(), qmv.quantized_matvec_reference(w, x, fmt,
                                                                  fmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("R,B,O,I", [(3, 7, 60, 29), (5, 1600, 60, 114),
+                                     (2, 37, 60, 256), (4, 33, 257, 48),
+                                     (1, 320, 60, 29)])
+def test_qmatvec_family_axis_every_rounding_mode(cuda, R, B, O, I,
+                                                 quant_mode):
+    """The family axis (w [R, O, I], x [R, B, I], one launch): bit-identical
+    to the stacked plain version and to R launches of the 2-D kernel, at
+    every rounding mode, on the whole-row and the tiled kernels, with
+    binary fmt_w and binary fmt_x; R = 1 keeps the 2-D call's geometry."""
+    rng = np.random.default_rng(R * 1000 + B + quant_mode)
+
+    def t(*shape, counts=False):
+        a = (rng.integers(0, 4, shape) if counts
+             else rng.normal(0.0, 1.5, shape))
+        return torch.from_numpy(a.astype(np.float32)).to(cuda)
+
+    m = quant_mode
+    w, x = t(R, O, I), t(R, B, I, counts=True)
+    assert qmv.qmatvec_geometry(B, O, I, 1) == qmv.qmatvec_geometry(B, O, I)
+    for x_, f_w, f_x in ((x, QFormat(5, 2, m), QFormat(5, 2, m)),
+                         (t(R, B, I), QFormat(6, 1, m), QFormat(2, 5, m)),
+                         (x, QFormat(0, 0, m), QFormat(5, 2, m)),
+                         (x, QFormat(5, 2, m), QFormat(0, 0, m))):
+        before = qmv.quantized_matvec.launches
+        got = qmv.quantized_matvec(w, x_, f_w, f_x)
+        torch.cuda.synchronize()
+        assert qmv.quantized_matvec.launches == before + 1
+        assert got.shape == (R, B, O)
+        assert torch.equal(got, qmv.quantized_matvec_reference(w, x_, f_w,
+                                                               f_x))
+        for r in range(R):
+            assert torch.equal(got[r], qmv.quantized_matvec(w[r], x_[r],
+                                                            f_w, f_x))
+
+
+@pytest.mark.cuda
+def test_family_step_launches_as_one_run(cuda):
+    """One family step on the kernel route (R = 6 runs, use_pallas) launches
+    the lattice 10 times and the read 3 times, as one run's step, and its
+    runs equal their single-run steps (rtol 1e-5, atol 1e-6)."""
+    from qmann_tpu_torch.train import multi, train_step
+    cfg = QmannConfig(use_pallas=True, verbose=False)
+    dims, mem, que, mask = synthetic_batch(np.random.default_rng(0), 32,
+                                           19, 10, 6)
+    R = 6
+    runs = [{k: 4.0 * v for k, v in memn2n.init_params(
+        cfg, dims, torch.Generator().manual_seed(s), device=cuda).items()}
+        for s in range(R)]
+    params = {k: torch.stack([p[k] for p in runs]) for k in runs[0]}
+    ans = np.zeros_like(que)
+    ans[np.arange(32), np.arange(32) % 19] = 1.0
+    one = {"memory": mem, "question": que, "answer": ans, "mask": mask,
+           "sample_mask": np.ones(32, np.float32),
+           "size_b": np.float32(32.0)}
+    one = {k: torch.as_tensor(v).to(cuda) for k, v in one.items()}
+    batch = {k: torch.stack([v] * R) for k, v in one.items()}
+    lr = torch.tensor(cfg.learning_rate, device=cuda)
+    before = (qmv.quantized_matvec.launches, ar.fused_read.launches)
+    multi.family_step(params, batch, lr, cfg)
+    torch.cuda.synchronize()
+    assert (qmv.quantized_matvec.launches - before[0],
+            ar.fused_read.launches - before[1]) == (10, 3)
+    for r, p in enumerate(runs):
+        train_step(p, one, lr, cfg)
+        for k in p:
+            torch.testing.assert_close(params[k][r], p[k], rtol=1e-5,
+                                       atol=1e-6)

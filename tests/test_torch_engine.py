@@ -176,7 +176,10 @@ def test_port_never_imports_jax():
             "qmann_tpu_torch.utils.profiling",
             "qmann_tpu_torch.utils.reporting",
             "qmann_tpu_torch.utils.verification",
-            "qmann_tpu_torch.bench", "qmann_tpu_torch.bench.qps"} <= names
+            "qmann_tpu_torch.bench", "qmann_tpu_torch.bench.qps",
+            "qmann_tpu_torch.train.multi", "qmann_tpu_torch.bench.sweep",
+            "qmann_tpu_torch.bench.megasweep",
+            "qmann_tpu_torch.bench.compare"} <= names
     roots = _imported_roots(REPO / "chip_smoke.py")
     assert "qmann_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "qmann_tpu"}
