@@ -154,11 +154,44 @@ megasweep's padded layout (V=64, M=50: dim_input 114), use_pallas:
                the family step's event and busy time, and each of those
                kernels and the one-run 1600-row lattice against their
                plain versions and bounds
+The packet server and the serving bench tools:
+ 17. serve   — seeded bAbI-format files (task 1), the test split through
+               samples_from_split plus 5 edge samples (NULL, indices past
+               the dictionary and in the temporal columns, stories past
+               max_line, temporal indices out of range or missing, empty
+               sentences and question): serve(engine, port=0) on cuda:0
+               with use_fused_chain at the flagship widths, mode 2 and mode
+               3 at iwl 5 (weights scaled as in phase 4), answering
+               PacketClient over TCP (gates: every answer equal to the
+               plain route's for the same sample, one chain launch per
+               wave, no failed wave); the unprepared engine (prepare=False,
+               use_pallas: 10 lattice + 3 read launches per wave, the plain
+               route's answers); the checkpoint of the mode-2 model served
+               by python -m qmann_tpu_torch.serve.server --port 0 as a
+               process, queried by python -m qmann_tpu_torch.serve.client
+               --task 1 --limit 150 (gate: its err_test equals the plain
+               route's on the same 150; the server killed and gone on every
+               path); then bench/engine_bench.py (prepared on the chain
+               against unprepared on the lattice and read, 3 passes: equal
+               answers, no failed wave), bench/backend_ab.py in mode 2
+               (unfused, chain, read) and mode 3 at iwl 5 (unfused,
+               hamming, read, chain) at --synthetic 19,10,6,60 and weights
+               x4 (identical predictions; the 30-batch loop under torch's
+               sync debug mode "error", so no host sync), probe_dispatch
+               and trace_forward on the chain (gate: the chain kernel's
+               records carry a Python path and land in a named bucket);
+               each tool's JSON lines printed (with the card's name and
+               power limit)
 Then one JSON line of kernels (the read's and the Hamming kernel's with
 their eval-chunk and wide entries, qmatvec's with its tiled shapes, each
-with its launches on phase 15's paths, and each one's family entry), the
-card's name and power limit, and as the last line
+with its launches on phase 15's paths, each one's family entry, the
+chain's launches on the server path and the lattice's and read's on the
+unprepared engine), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
+
+Phase 17 runs mode 3 in backend_ab at iwl 5, JAX's default: at iwl 1
+prepare_inference is not exact (a count of 1 exceeds Q0.7's 0.992), and
+the tool refuses a route that is not, as JAX's asserts.
 
 Tolerances.  Chain (as tests/test_torch_chain.py) and mode-2 attention
 read: the scores bit-identical (hop 0's, for the chain); p within atol 1e-6
@@ -758,6 +791,260 @@ def family_finite(res):
                 for k in ("cost_train", "cost_valid"))
             and np.isfinite(res.cost_test).all())
 
+
+
+def read_line(proc, timeout):
+    """The next line of proc's stdout, or None after `timeout` seconds."""
+    import threading
+    box = []
+    t = threading.Thread(target=lambda: box.append(proc.stdout.readline()),
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    return box[0] if box else None
+
+
+def serve_edge_samples(dims, n_dict):
+    """Packet-stream samples at the edges of the engine's index path: NULL
+    (index 0) counted, indices past the dictionary and in the temporal
+    columns dropped before the truncation to the row's words, stories past
+    max_line, transmitted temporal indices out of range, in a word column
+    or missing, empty sentences and an empty question."""
+    from qmann_tpu_torch.serve.packet import IndexedSample
+    d = dims
+    drop = [n_dict, d.dim_dict - 1, d.dim_dict, d.dim_input - 1, 4095]
+    words = [i % (n_dict - 1) + 1 for i in range(3 * d.max_word)]
+    return [
+        IndexedSample([[0, 0, 1], drop + words], [d.dim_dict, d.dim_dict + 1],
+                      [0] + drop + [2, 3], [1]),
+        IndexedSample([words[i:i + 3] for i in range(d.max_line + 3)],
+                      [d.dim_dict + (i % d.max_line)
+                       for i in range(d.max_line + 3)], words[:3], [1]),
+        IndexedSample([[1, 2], [3], words, [4]], [d.dim_input, 2], [5, 6],
+                      [2]),
+        IndexedSample([[], [1], []], [d.dim_dict + 2, 4095, d.dim_dict], [],
+                      [3]),
+        IndexedSample([drop], [d.dim_dict], drop + words[:2], [1]),
+    ]
+
+
+def phase_serve(card, dev, counters, ckpt_dir, data_path, raw_path,
+                tag="17 serve"):
+    """Phase 17: the packet server and client in front of the chain kernel,
+    in process and as the two command lines, and the serving bench tools,
+    on phase 14's task-1 model (mode 2; ckpt_dir) and its files; mode 3
+    with fresh weights scaled as in phase 4.  Returns the launches and the
+    tools' rows for the kernels line."""
+    import re
+    import tempfile
+    from qmann_tpu_torch.bench import (backend_ab, engine_bench,
+                                       probe_dispatch, trace_forward)
+    from qmann_tpu_torch.data import DataDims, Dictionary, load_test_split
+    from qmann_tpu_torch.data.native import load_task_native
+    from qmann_tpu_torch.models.memn2n import params_from_jax
+    from qmann_tpu_torch.serve import InferenceEngine
+    from qmann_tpu_torch.serve.client import PacketClient, samples_from_split
+    from qmann_tpu_torch.serve.server import serve
+    from qmann_tpu_torch.utils import load_checkpoint, save_checkpoint
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    def answers_of(params, cfg, samples, **kw):
+        engine = InferenceEngine(params, cfg, dims, dictionary,
+                                 batch_size=64, device=dev, **kw).start()
+        try:
+            return engine, [f.result(timeout=300) for f in
+                            [engine.submit_indexed(x) for x in samples]]
+        finally:
+            engine.stop()
+
+    task = "qa1_single-supporting-fact"
+    c_params, c_cfg, c_dims = load_checkpoint(str(ckpt_dir))
+    dims = DataDims(**c_dims)
+    dictionary = Dictionary()
+    for w in json.loads((Path(ckpt_dir) / "dictionary.json").read_text())[1:]:
+        dictionary.add(w)
+    test = load_test_split(task, data_path, dictionary, dims,
+                           raw_path=raw_path)
+    samples = (samples_from_split(test, dims)
+               + serve_edge_samples(dims, len(dictionary)))
+    tmp = tempfile.TemporaryDirectory(prefix="qmann_serve_")
+    root = Path(tmp.name)
+    out = {}
+
+    # (a) in process: the server on an engine with use_fused_chain, mode 2
+    # (phase 14's model) and mode 3 at iwl 5, against the plain route's
+    # answers; mode 2 also against the unprepared engine on the lattice
+    # and read kernels
+    cfg2 = c_cfg.replace(use_fused_chain=True)
+    for mode in (2, 3):
+        if mode == 2:
+            cfg, scale = cfg2, 1.0
+            params = params_from_jax(c_params, cfg, device=dev)
+        else:
+            cfg = cfg2.replace(attention_mode=3, use_pallas=False)
+            scale, params, _ = scaled_prepared(cfg, dims, test.memory, dev)
+        engine = InferenceEngine(params, cfg, dims, dictionary,
+                                 batch_size=64, device=dev).start()
+        server = serve(engine, port=0)
+        host, port = server.server_address[:2]
+        zero_counts()
+        try:
+            with PacketClient(host, port, timeout=300) as client:
+                answers = client.query_samples(samples)
+            served = counts()
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.stop()
+        st = engine.stats.snapshot()
+        _, want = answers_of(params, cfg.replace(use_fused_chain=False,
+                                                 use_pallas=False), samples)
+        print(f"[{tag}] {card} | mode {mode} iwl {cfg.iwl}, use_fused_chain, "
+              + ("phase 14's model" if mode == 2 else
+                 f"weights x{scale}")
+              + f": {len(answers)} answers over TCP ({len(test)} test "
+              f"stories of seeded bAbI-format files, 5 edge samples) in "
+              f"{st['waves']} waves, failed_waves {st['failed_waves']}, "
+              f"launches {served}; equal to the plain route's: "
+              f"{answers == want}; distinct answers {len(set(answers))}",
+              flush=True)
+        if (not engine.prepared.fast or st["failed_waves"]
+                or st["requests"] != len(samples)):
+            fail(f"the served engine (mode {mode}) left the exact route, "
+                 "failed a wave or lost a request")
+        if served["hop_chain"] != st["waves"] or served["hop_chain"] < 1:
+            fail(f"the server path (mode {mode}) did not launch the chain "
+                 "kernel once per wave")
+        if answers != want:
+            fail(f"answers over TCP (mode {mode}) differ from the plain "
+                 "route's")
+        out[f"serve_mode{mode}"] = {"launches": served["hop_chain"],
+                                    "waves": st["waves"],
+                                    "requests": st["requests"]}
+        if mode == 2:
+            params2, want2 = params, want
+
+    # the unprepared engine (use_pallas: the lattice and the read kernels)
+    zero_counts()
+    engine, got = answers_of(params2, cfg2.replace(use_pallas=True), samples,
+                             prepare=False)
+    unprepared = counts()
+    waves = engine.stats.waves
+    print(f"[{tag}] unprepared engine, mode 2, use_pallas: {waves} waves, "
+          f"launches {unprepared} (want 10 lattice + 3 read per wave); "
+          f"answers equal to the plain route's: {got == want2}", flush=True)
+    if got != want2:
+        fail("the unprepared engine's answers differ from the plain route's")
+    if engine.prepared is not None or unprepared != {
+            "qmatvec": 10 * waves, "attention_read": 3 * waves,
+            "hamming_score": 0, "hop_chain": 0}:
+        fail("the unprepared engine did not run the lattice and read kernels "
+             "once per wave and hop")
+    out["unprepared"] = {"qmatvec": unprepared["qmatvec"],
+                         "attention_read": unprepared["attention_read"],
+                         "waves": waves}
+
+    # (b) the entry points: the server and the client as processes, on the
+    # checkpoint saved with use_fused_chain
+    n_test = 150
+    ckpt = save_checkpoint(str(root / "ckpt"), c_params, cfg2, dims,
+                           tag="served", dictionary=dictionary)
+    test_n = load_task_native(task, data_path, raw_path=raw_path,
+                              limit_test=n_test).test
+    _, plain_n = answers_of(params2, cfg2.replace(use_fused_chain=False,
+                                                  use_pallas=False),
+                            samples_from_split(test_n, dims))
+    err_plain = 1.0 - sum(int(a == int(test_n.answer_index[i]))
+                          for i, a in enumerate(plain_n)) / len(plain_n)
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "qmann_tpu_torch.serve.server",
+         "--checkpoint", ckpt, "--port", "0", "--device", str(dev)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = read_line(srv, 300) or ""
+        m = re.match(r"serving on (\S+):(\d+)", line)
+        if m is None:
+            fail(f"the server process did not report its port: {line!r}")
+        cli = subprocess.run(
+            [sys.executable, "-m", "qmann_tpu_torch.serve.client",
+             "--host", m.group(1), "--port", m.group(2), "--task", "1",
+             "--limit", str(n_test), "--data-path", data_path,
+             "--raw-data-path", raw_path], cwd=REPO, capture_output=True,
+            text=True, timeout=300)
+    finally:
+        srv.kill()
+        srv.wait(timeout=60)
+    if srv.poll() is None:
+        fail("the server process is still running")
+    m_err = re.search(r"streamed (\d+) samples; err_test = (\S+)", cli.stdout)
+    print(f"[{tag}] python -m qmann_tpu_torch.serve.server (checkpoint with "
+          f"use_fused_chain, dictionary.json) and .client --task 1 --limit "
+          f"{n_test}: rc {cli.returncode}, {cli.stdout.strip()!r}; the plain "
+          f"route's err_test {err_plain:f}; server process ended "
+          f"(rc {srv.returncode})", flush=True)
+    if cli.returncode != 0 or m_err is None or int(m_err.group(1)) != n_test:
+        fail(f"the client process failed: {cli.stderr[-2000:]}")
+    if m_err.group(2) != f"{err_plain:f}":
+        fail("the client's err_test differs from the plain route's")
+    out["cli_err_test"] = float(m_err.group(2))
+
+    # (c) the serving bench tools, their JSON lines echoed
+    files = ["--data-path", data_path, "--raw-data-path", raw_path]
+    rows = {}
+    for name, fn, argv in (
+            ("engine_bench", engine_bench.main,
+             ["--batch", "64", "--passes", "3", "--requests", "200",
+              "--use-fused-chain", "--use-pallas", *files]),
+            ("backend_ab mode 2", backend_ab.main,
+             ["--variants", "unfused,chain,read", "--synthetic",
+              "19,10,6,60", "--weight-scale", "4"]),
+            ("backend_ab mode 3", backend_ab.main,
+             ["--attention-mode", "3", "--variants",
+              "unfused,hamming,read,chain", "--synthetic", "19,10,6,60",
+              "--weight-scale", "4"]),
+            ("probe_dispatch", probe_dispatch.main,
+             ["--synthetic", "--use-fused-chain"]),
+            ("trace_forward", trace_forward.main,
+             ["--synthetic", "--use-fused-chain", "--iters", "1", "--top",
+              "10", "--out", str(root / "trace")])):
+        zero_counts()
+        rc, lines = run_quiet(fn, [*argv, "--device", str(dev)], keep=r"(?!)")
+        rows[name] = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        if rc != 0 or not rows[name]:
+            fail(f"{name} failed")
+        print(f"[{tag}] {name} ({' '.join(argv[:8])} ...): launches "
+              f"{counts()}; its JSON lines:", flush=True)
+        for row in rows[name]:
+            print(json.dumps(row), flush=True)
+    eb = rows["engine_bench"]
+    if not (eb[2]["answers_identical"]
+            and all(r["failed_waves"] == 0 for r in eb[:2])):
+        fail("engine_bench: failed waves or unequal answers")
+    for name in ("backend_ab mode 2", "backend_ab mode 3"):
+        ab = rows[name][:-1]
+        syncs = 0 if dev.type == "cuda" else None   # None: not checked
+        if not all(r["outputs_identical"]
+                   and r["host_syncs_in_loop"] == syncs for r in ab):
+            fail(f"{name}: predictions differ or the loop synced")
+    tf = rows["trace_forward"][-1]
+    chain = tf["hand_kernels"]["hop_chain"]
+    print(f"[{tag}] trace_forward: the chain kernel {chain}; buckets "
+          + ", ".join(f"{k} {v['ms']:.4f} ms" for k, v in
+                      tf["buckets"].items()), flush=True)
+    if dev.type == "cuda" and (chain["records"] < 1
+                               or chain["records_without_path"]
+                               or chain["buckets"] != ["attention score"]):
+        fail("trace_forward did not put the chain kernel's time in a named "
+             "bucket")
+    out["tools"] = rows
+    tmp.cleanup()
+    return out
 
 
 def main():
@@ -1544,7 +1831,8 @@ def main():
     if not all(r.ok for r in checks):
         fail("verify_kernels found a kernel that disagrees with its plain "
              "version")
-    tmp.cleanup()
+    serve_src = (out / "qa1_single-supporting-fact_loop0", data_path,
+                 raw_path)   # phase 17 serves this model on these files
 
     # 15. the model features on the unfused hop (JAX's envelope keeps
     # them out of the fused read and the chain): linear start, each
@@ -2100,6 +2388,11 @@ def main():
              "a cost that is not finite")
     tmp16.cleanup()
 
+    # 17. the packet server and client in front of the chain kernel, the
+    # engine's unprepared route, and the serving bench tools
+    serve17 = phase_serve(card, dev, counters, *serve_src)
+    tmp.cleanup()
+
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
     b_qmv = qmatvec_bound(*qmv_args["train"][:2])
@@ -2143,6 +2436,8 @@ def main():
                    "device_ms": t_chain["raw H"][2]},
          "features": {"serve_sc_att":
                       feature_launches["serve_sc_att"]["hop_chain"]},
+         "serve": {"added_in": 9, **serve17["serve_mode2"],
+                   "mode3": serve17["serve_mode3"]},
          "mode3": {"launches": chain3_launches, "max_abs_err": chain3_err,
                    "ms": k3["hop_chain", "cached"][0],
                    "plain_ms": k3["hop_chain", "cached"][1],
@@ -2164,6 +2459,9 @@ def main():
                   "device_ms": k_times["qmatvec", "eval"][2],
                   "bound_ms": b_qmv_eval[0], "bound_by": b_qmv_eval[1]},
          "mode3": {"launches": qmv3_launches},
+         "serve_unprepared": {"added_in": 9,
+                              "launches": serve17["unprepared"]["qmatvec"],
+                              "waves": serve17["unprepared"]["waves"]},
          "features": {k: v["qmatvec"] for k, v in feature_launches.items()},
          "tiled_in": 6, "tiled_max_abs_err": tiled_err,
          "cli_launches": cli_qmv, "joint_launches": joint_qmv,
@@ -2204,6 +2502,10 @@ def main():
          "device_ms": k_times["attention_read", "train"][2],
          "bound_ms": b_read[0], "bound_by": b_read[1], "library_ms": None,
          "redesigned_in": 5,
+         "serve_unprepared": {
+             "added_in": 9,
+             "launches": serve17["unprepared"]["attention_read"],
+             "waves": serve17["unprepared"]["waves"]},
          "features": {k: v["attention_read"]
                       for k, v in feature_launches.items()},
          "family": {"batch": int(read16[0].shape[0]),

@@ -20,10 +20,13 @@ Layering (bottom-up):
     ops       — quantized ops and backwards; ops/cuda holds the kernels
     models    — MemN2N forward, loss and serving-prepared forward
     train     — SGD, schedule and the per-task trainer
-    serve     — batched inference engine
+    serve     — batched inference engine, the packet codec, the TCP
+                server and client
     utils     — checkpoints, result CSVs, phase profiler and traces, the
                 similarity dump, kernel verification
-    bench     — throughput (bench/qps.py)
+    bench     — throughput (bench/qps.py), the sweep tools and the
+                serving tools (engine_bench, backend_ab, probe_dispatch,
+                trace_forward)
     cli       — python -m qmann_tpu_torch <loops> <task_s> <task_e> <iwl>
 """
 from qmann_tpu_torch import _numerics_settings  # noqa: F401  (sets switches)

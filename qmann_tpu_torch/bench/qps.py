@@ -28,47 +28,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
-import time
 
-QA1 = "qa1_single-supporting-fact"
-QA1_SHAPE = (19, 10, 6)          # V, M, W of qa1
-SYNTHETIC_SPLITS = (9000, 1000, 1000)
-
-
-class _Timer:
-    """Seconds of the work between start() and stop(): CUDA events on a
-    CUDA device (closed by a synchronize), else the host clock."""
-
-    def __init__(self, dev):
-        import torch
-        self.torch, self.cuda = torch, dev.type == "cuda"
-
-    def start(self):
-        if self.cuda:
-            self.torch.cuda.synchronize()
-            self._t0 = self.torch.cuda.Event(enable_timing=True)
-            self._t1 = self.torch.cuda.Event(enable_timing=True)
-            self._t0.record()
-        else:
-            self._h0 = time.perf_counter()
-
-    def stop(self) -> float:
-        if self.cuda:
-            self._t1.record()
-            self.torch.cuda.synchronize()
-            return self._t0.elapsed_time(self._t1) / 1e3
-        return time.perf_counter() - self._h0
-
-
-def _card() -> str:
-    proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60)
-    if proc.returncode != 0 or not proc.stdout.strip():
-        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
-    return proc.stdout.strip().splitlines()[0]
+from qmann_tpu_torch.bench.common import (
+    Timer, add_data_flags, card, load_qa1, route_of)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -85,15 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use-pallas", action="store_true")
     p.add_argument("--use-pallas-hamming", action="store_true")
     p.add_argument("--use-fused-chain", action="store_true")
-    p.add_argument("--synthetic", action="store_true",
-                   help="synthetic_task at qa1's shape instead of files")
     p.add_argument("--max-samples", type=int, default=None,
                    help="limit train samples")
-    p.add_argument("--data-path",
-                   default="/root/reference/MemN2N/dataset/en_10k_parsed")
-    p.add_argument("--raw-data-path",
-                   default="/root/reference/MemN2N/dataset/"
-                           "tasks_1-20_v1-2/en-10k")
+    add_data_flags(p)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     return p
@@ -110,8 +67,6 @@ def main(argv=None) -> int:
     import torch
 
     from qmann_tpu_torch.config import QmannConfig
-    from qmann_tpu_torch.data import synthetic_task
-    from qmann_tpu_torch.data.native import load_task_native
     from qmann_tpu_torch.device import resolve_device
     from qmann_tpu_torch.models import memn2n
     from qmann_tpu_torch.ops.losses import cross_entropy
@@ -127,22 +82,12 @@ def main(argv=None) -> int:
                       raw_data_path=args.raw_data_path, seed=args.seed)
     check_ported(cfg)
     dev = resolve_device(args.device)
-    card = _card() if dev.type == "cuda" else None
-    if args.synthetic:
-        n_train = args.max_samples or SYNTHETIC_SPLITS[0]
-        data = synthetic_task(np.random.default_rng(args.seed), n_train,
-                              *SYNTHETIC_SPLITS[1:], *QA1_SHAPE)
-        source = (f"synthetic_task at qa1's shape (V, M, W = {QA1_SHAPE}), "
-                  f"seed {args.seed}")
-    else:
-        data = load_task_native(QA1, cfg.data_path,
-                                raw_path=cfg.raw_data_path,
-                                limit_train=args.max_samples)
-        source = f"bAbI {QA1} from {cfg.data_path} / {cfg.raw_data_path}"
+    card_name = card() if dev.type == "cuda" else None
+    data, source = load_qa1(args, args.seed, n_train=args.max_samples)
     params = memn2n.init_params(cfg, data.dims,
                                 torch.Generator().manual_seed(args.seed),
                                 device=dev)
-    timer = _Timer(dev)
+    timer = Timer(dev)
 
     # ---- inference qps: forward + argmax ----
     n = min(args.batch, len(data.test))
@@ -198,16 +143,13 @@ def main(argv=None) -> int:
         "epoch_seconds": epoch_s,
         "device": str(dev),
         "devices": torch.cuda.device_count() if dev.type == "cuda" else 0,
-        "card": card,
+        "card": card_name,
         "timer": "cuda_events" if dev.type == "cuda" else "host_clock",
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "data": source, "batch": n, "iters": args.iters,
         "train_iters": args.train_iters, "train_samples": len(data.train),
         "requests": args.requests,
-        "route": {"attention_mode": cfg.attention_mode, "iwl": cfg.iwl,
-                  "use_pallas": cfg.use_pallas,
-                  "use_pallas_hamming": cfg.use_pallas_hamming,
-                  "use_fused_chain": cfg.use_fused_chain}}))
+        "route": route_of(cfg)}))
     return 0
 
 

@@ -113,9 +113,7 @@ def float_quant_blocks(x: torch.Tensor, fmts: Sequence[QFormat],
     x = torch.as_tensor(x, dtype=torch.float32)
 
     def cols(vals, dtype=torch.float32):
-        return torch.repeat_interleave(
-            torch.tensor(vals, dtype=dtype),
-            torch.tensor(list(widths))).to(x.device)
+        return _block_columns(tuple(vals), tuple(widths), dtype, x.device)
 
     maxf = cols([fixed_max_float(f.iwl, f.frac) for f in fmts])
     scaled = x * cols([2.0 ** f.frac for f in fmts])
@@ -126,6 +124,18 @@ def float_quant_blocks(x: torch.Tensor, fmts: Sequence[QFormat],
         wrap = cols(full31, torch.bool)
         deq = torch.where(wrap & (scaled <= -_INT32_SAT_F32), 0.0, deq)
     return torch.where(x > maxf, maxf, torch.where(x < -maxf, -maxf, deq))
+
+
+@functools.lru_cache(maxsize=64)
+def _block_columns(vals: tuple, widths: tuple, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """vals[k] repeated widths[k] times, on device; cached, so that a
+    forward on the card copies its per-block constants to it once and not
+    in every call (each copy from host memory waits on the device).  Made
+    outside inference mode, so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.repeat_interleave(torch.tensor(vals, dtype=dtype),
+                                       torch.tensor(widths)).to(device)
 
 
 def fixed_mul(a: torch.Tensor, b: torch.Tensor, fmt_a: QFormat,

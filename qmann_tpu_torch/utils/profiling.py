@@ -48,16 +48,17 @@ class PhaseProfiler:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str, with_stack: bool = False):
     """torch.profiler over the block (the CPU, and the card when torch sees
     one); writes log_dir/trace.json (chrome://tracing, Perfetto).  Yields
-    the profiler."""
+    the profiler.  ``with_stack`` also records the Python calls (the
+    trace's python_function events), which bench/trace_forward.py reads."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, with_stack=with_stack) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 

@@ -361,3 +361,163 @@ def test_bench_tools_default_to_the_card(corpus, tmp_path):
             main(["--tasks", "1", "--data-path", corpus[0],
                   "--raw-data-path", corpus[1], "--out-dir",
                   str(tmp_path)])
+
+
+# ---------------------------------------------------------------------------
+# the serving bench tools: engine_bench, backend_ab, probe_dispatch and
+# trace_forward against the JAX tools' parsers, and tiny CPU runs
+# ---------------------------------------------------------------------------
+
+# the flags each tool adds to JAX's, and the one it leaves out: JAX's
+# --chain-tile sets the Pallas chain kernel's batch tile, which the CUDA
+# chain takes from ops/cuda/geometry.py
+DATA_FLAGS = {"data_path", "raw_data_path"}
+SERVE_TOOL_EXTRAS = {
+    "engine_bench": DATA_FLAGS | {"synthetic", "device", "use_pallas",
+                                  "use_fused_chain"},
+    "backend_ab": DATA_FLAGS | {"device", "weight_scale"},
+    "probe_dispatch": DATA_FLAGS | {"synthetic", "device",
+                                    "use_fused_chain"},
+    "trace_forward": DATA_FLAGS | {"synthetic", "device",
+                                   "use_fused_chain"},
+}
+SERVE_TOOL_LEFT_OUT = {"backend_ab": {"chain_tile"}}
+
+
+@pytest.mark.parametrize("tool", sorted(SERVE_TOOL_EXTRAS))
+def test_serve_tool_flags_match_jax(tool):
+    import importlib
+    jmod = importlib.import_module(f"qmann_tpu.bench.{tool}")
+    tmod = importlib.import_module(f"qmann_tpu_torch.bench.{tool}")
+    got, want = _actions(tmod.build_parser()), _actions(_jax_parser(jmod.main))
+    left_out = SERVE_TOOL_LEFT_OUT.get(tool, set())
+    assert left_out <= set(want)
+    assert set(got) == (set(want) - left_out) | SERVE_TOOL_EXTRAS[tool]
+    for dest, w in want.items():
+        if dest in left_out:
+            continue
+        for field in ("option_strings", "default", "type", "nargs", "const",
+                      "choices"):
+            assert getattr(got[dest], field) == getattr(w, field), (dest,
+                                                                    field)
+    assert got["device"].default == "cuda"
+
+
+def _serve_tool_argv(tool, corpus, tmp_path):
+    data = ["--data-path", corpus[0], "--raw-data-path", corpus[1]]
+    return {"engine_bench": ["--batch", "8", "--passes", "2", "--producers",
+                             "2", "--requests", "24", "--use-fused-chain",
+                             "--use-pallas", *data],
+            "backend_ab": ["--batch", "16", "--scan-k", "2", "--repeats",
+                           "2", "--variants", "unfused,chain,read", *data],
+            "probe_dispatch": ["--batch", "16", "--iters", "2", "--scan-k",
+                               "2", "--use-fused-chain", *data],
+            "trace_forward": ["--iters", "1", "--top", "5",
+                              "--use-fused-chain", "--out",
+                              str(tmp_path / "trace"), *data]}[tool]
+
+
+def test_serve_tools_default_to_the_card(corpus, tmp_path):
+    import importlib
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults run on it")
+    for tool in sorted(SERVE_TOOL_EXTRAS):
+        main = importlib.import_module(f"qmann_tpu_torch.bench.{tool}").main
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(_serve_tool_argv(tool, corpus, tmp_path))
+
+
+JAX_ROW_KEYS = {
+    "engine_bench": [
+        {"prepared", "requests", "waves", "mean_wave_fill", "sustained_qps",
+         "wall_s_per_pass", "latency_ms_p50", "latency_ms_p95",
+         "wave_vectorize_ms_avg", "wave_infer_ms_avg", "failed_waves"},
+        {"prepared", "requests", "waves", "mean_wave_fill", "sustained_qps",
+         "wall_s_per_pass", "latency_ms_p50", "latency_ms_p95",
+         "wave_vectorize_ms_avg", "wave_infer_ms_avg", "failed_waves"},
+        {"paired_speedup_per_pass", "paired_speedup_median",
+         "prepared_infer_ms_saved_per_wave"}],
+    "backend_ab": [{"variant", "qps_median", "qps_min", "qps_max",
+                    "first_call_s", "outputs_identical"}] * 3
+    + [{"winner", "speedup_vs_unfused"}],
+    "probe_dispatch": [{"per_call_qps", "per_call_prepared_qps",
+                        "prepared_speedup_x", "device_scan_qps",
+                        "dispatch_overhead_x"}],
+    "trace_forward": [{"total_ms", "records", "buckets", "top",
+                       "hand_kernels"}],
+}
+
+
+@pytest.mark.parametrize("tool", sorted(SERVE_TOOL_EXTRAS))
+def test_serve_tool_runs_on_the_cpu(tool, corpus, tmp_path, one_thread,
+                                    capsys):
+    """A tiny --device cpu run of each tool prints JAX's keys (and its
+    own) on JSON lines."""
+    import importlib
+    main = importlib.import_module(f"qmann_tpu_torch.bench.{tool}").main
+    assert main([*_serve_tool_argv(tool, corpus, tmp_path), "--device",
+                 "cpu"]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("{")]
+    assert len(rows) == len(JAX_ROW_KEYS[tool])
+    for row, keys in zip(rows, JAX_ROW_KEYS[tool]):
+        assert keys <= set(row), keys - set(row)
+    if tool == "engine_bench":
+        assert rows[2]["answers_identical"]
+        assert [r["prepared"] for r in rows[:2]] == [True, False]
+        assert all(r["failed_waves"] == 0 and r["requests"] == 48
+                   and r["card"] is None for r in rows[:2])
+        assert rows[0]["route"]["use_fused_chain"]
+    elif tool == "backend_ab":
+        assert [r["variant"] for r in rows[:3]] == ["unfused", "chain",
+                                                    "read"]
+        assert all(r["qps_median"] > 0 and r["host_syncs_in_loop"] is None
+                   for r in rows[:3])
+    elif tool == "probe_dispatch":
+        assert rows[0]["prepared_exact_route"] and rows[0]["notes"]
+        assert rows[0]["per_call_qps"] > 0 and rows[0]["device_scan_qps"] > 0
+    else:
+        row = rows[0]
+        assert row["timed"] == "cpu_op" and row["records"] > 0
+        assert row["records_without_path"] == 0
+        assert {"attention score", "embed (A/C dense_mat)",
+                "cross-entropy/pred"} <= set(row["buckets"])
+        assert abs(sum(b["ms"] for b in row["buckets"].values())
+                   - row["total_ms"]) < 1e-6 * max(row["total_ms"], 1.0)
+        assert all(k["launches"] == 0 for k in row["hand_kernels"].values())
+
+
+@pytest.mark.parametrize("mode,variants", [
+    (2, "unfused,chain,read"), (3, "unfused,hamming,read,chain")])
+def test_backend_ab_variants_give_identical_predictions(mode, variants,
+                                                        one_thread, capsys):
+    """Every variant's predictions over the dependent batches equal the
+    first's (the tool raises otherwise); then the tool's gate fails on a
+    variant whose forward is perturbed."""
+    from qmann_tpu_torch.bench import backend_ab
+    from qmann_tpu_torch.models import memn2n
+    argv = ["--attention-mode", str(mode), "--synthetic", "19,10,6,16",
+            "--batch", "48", "--scan-k", "3", "--repeats", "1",
+            "--variants", variants, "--weight-scale", "4", "--device", "cpu"]
+    assert backend_ab.main(argv) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r.get("variant") for r in rows[:-1]] == variants.split(",")
+    assert all(r["outputs_identical"] and r["distinct_predictions"] > 5
+               for r in rows[:-1])
+
+    real = memn2n.forward_prepared
+
+    def perturbed(prep, mem, que, mask, cfg):
+        out = real(prep, mem, que, mask, cfg)
+        if cfg.use_pallas:
+            out = out._replace(logits=out.logits.flip(-1))
+        return out
+
+    memn2n.forward_prepared = perturbed
+    try:
+        with pytest.raises(AssertionError, match="read diverges"):
+            backend_ab.main(argv)
+    finally:
+        memn2n.forward_prepared = real
+    with pytest.raises(SystemExit):
+        backend_ab.main(["--variants", "unfused,hamming", "--device", "cpu"])

@@ -821,3 +821,50 @@ def test_family_step_launches_as_one_run(cuda):
         for k in p:
             torch.testing.assert_close(params[k][r], p[k], rtol=1e-5,
                                        atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_packet_server_on_the_card_through_the_chain(cuda):
+    """The packet server in front of an engine on the card with
+    use_fused_chain: every answer over TCP equals the plain route's for the
+    same sample, one chain launch per wave, and no failed wave."""
+    from qmann_tpu_torch.data import Dictionary, synthetic_samples
+    from qmann_tpu_torch.serve import InferenceEngine
+    from qmann_tpu_torch.serve.client import PacketClient
+    from qmann_tpu_torch.serve.packet import IndexedSample
+    from qmann_tpu_torch.serve.server import serve
+    rng = np.random.default_rng(9)
+    dims, _, _, _ = synthetic_batch(rng, 4, 19, 10, 6)
+    dictionary = Dictionary()
+    for i in range(1, 19):
+        dictionary.add(f"w{i}")
+    cfg = QmannConfig(use_fused_chain=True, verbose=False)
+    params = {k: 4.0 * v for k, v in memn2n.init_params(
+        cfg, dims, torch.Generator().manual_seed(0), device=cuda).items()}
+    samples = [IndexedSample(
+        [[dictionary.lookup(w) for w in sent] for sent in s.sentences],
+        [dims.dim_dict + len(s.sentences) - j - 1
+         for j in range(len(s.sentences))],
+        [dictionary.lookup(w) for w in s.question], [1])
+        for s in synthetic_samples(rng, 200, 19, 10, 6)]
+    engines = [InferenceEngine(params, c, dims, dictionary, batch_size=32,
+                               max_wait_ms=5.0, device=cuda).start()
+               for c in (cfg, cfg.replace(use_fused_chain=False))]
+    server = serve(engines[0], port=0)
+    host, port = server.server_address[:2]
+    try:
+        before = hop_chain.fused_hop_chain.launches
+        with PacketClient(host, port, timeout=120) as client:
+            got = client.query_samples(samples)
+        launched = hop_chain.fused_hop_chain.launches - before
+        want = [f.result(timeout=120)
+                for f in [engines[1].submit_indexed(s) for s in samples]]
+    finally:
+        server.shutdown()
+        server.server_close()
+        for e in engines:
+            e.stop()
+    assert engines[0].prepared.fast
+    assert got == want and len(set(got)) > 1
+    assert engines[0].stats.failed_waves == 0
+    assert launched == engines[0].stats.waves >= 200 // 32

@@ -179,7 +179,14 @@ def test_port_never_imports_jax():
             "qmann_tpu_torch.bench", "qmann_tpu_torch.bench.qps",
             "qmann_tpu_torch.train.multi", "qmann_tpu_torch.bench.sweep",
             "qmann_tpu_torch.bench.megasweep",
-            "qmann_tpu_torch.bench.compare"} <= names
+            "qmann_tpu_torch.bench.compare",
+            "qmann_tpu_torch.serve.packet", "qmann_tpu_torch.serve.server",
+            "qmann_tpu_torch.serve.client",
+            "qmann_tpu_torch.bench.common",
+            "qmann_tpu_torch.bench.engine_bench",
+            "qmann_tpu_torch.bench.backend_ab",
+            "qmann_tpu_torch.bench.probe_dispatch",
+            "qmann_tpu_torch.bench.trace_forward"} <= names
     roots = _imported_roots(REPO / "chip_smoke.py")
     assert "qmann_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "qmann_tpu"}
