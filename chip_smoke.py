@@ -182,11 +182,51 @@ The packet server and the serving bench tools:
                records carry a Python path and land in a named bucket);
                each tool's JSON lines printed (with the card's name and
                power limit)
+The device mesh (parallel/), at the flagship widths:
+ 18. mesh    — (2, 2): 4 ranks spawned on cuda:0 over gloo (ranks share the
+               card, so NCCL cannot serve them): the sharded and the
+               explicit step at batch 32 on use_pallas (mode 2 iwl 5, mode
+               3 iwl 1, mode 3 iwl 1 on use_pallas_hamming; qa1-shaped
+               M=10 split over the model axis) against one single-device
+               train_step on the card on the plain route (parameters rtol
+               2e-5, atol 2e-6; cost rtol 1e-4; matches equal) and every
+               rank's parameters bitwise equal after 3 steps; the
+               distributed read (modes 2 and 3, B=32, wide M=50, its
+               local Hamming scores on the kernel) against the read's
+               plain version (p atol 1e-6, o within one 2^-frac step, the
+               queries whose o differs counted); the sharded prepared
+               infer (modes 2 and 3, B=1000) against the single-device
+               prepared forward (predictions equal, cost rtol 1e-6);
+               eval_split(mesh=) on use_pallas against the plain
+               eval_split (predictions and error equal); the engine over
+               the mesh answering 200 requests as the plain route, no
+               failed wave.  (1, 1): one rank over NCCL, one step equal
+               to the single-device plain step.  The ranks keep the
+               lattice's, the Hamming kernel's and the read's inputs at
+               every signature they launch them at; each kernel is then
+               run on those inputs against its plain version on the card
+               (the lattice and the Hamming kernel bit for bit, the read
+               within its tolerances).  The launches summed
+               over ranks (gates: the lattice at both, the Hamming kernel
+               at (2, 2), the read at (1, 1), where the memory is whole;
+               the chain none, the mesh pins the plain prepared forward);
+               the sharded step's event time at (1, 1) and (2, 2).  Then
+               python -m torch.distributed.run --nproc-per-node 2 -m
+               qmann_tpu_torch 1 1 1 5 --mesh 2,1 --use-pallas --epochs 2
+               on phase 14's files (gates: it finishes, rank 0 alone
+               prints the loop line and writes result.csv; its err_test
+               printed beside phase 14's), bench/scaling.py --devices 1
+               (one JSON line) and --devices 2 (exit 2 on one card), and
+               bench/diagnose.py and bench/scatt_study.py for 2 epochs on
+               phase 14's task-1 files (records present and finite)
 Then one JSON line of kernels (the read's and the Hamming kernel's with
 their eval-chunk and wide entries, qmatvec's with its tiled shapes, each
 with its launches on phase 15's paths, each one's family entry, the
 chain's launches on the server path and the lattice's and read's on the
-unprepared engine), the card's name and power limit, and as the last line
+unprepared engine, each one's mesh entry: its launches summed over the
+ranks of phase 18's (2, 2) and (1, 1) paths, its shapes there and its
+largest difference from its plain version at them), the card's name and power
+limit, and as the last line
 {"ok": true, "device": {...}}.
 
 Phase 17 runs mode 3 in backend_ab at iwl 5, JAX's default: at iwl 1
@@ -1045,6 +1085,550 @@ def phase_serve(card, dev, counters, ckpt_dir, data_path, raw_path,
     out["tools"] = rows
     tmp.cleanup()
     return out
+
+
+# ---------------------------------------------------------------------------
+# 18. the device mesh (parallel/): ranks spawned on the card
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = (("mode 2 iwl 5", dict(use_pallas=True)),
+              ("mode 3 iwl 1", dict(attention_mode=3, iwl=1,
+                                    use_pallas=True)),
+              ("mode 3 iwl 1 hamming", dict(attention_mode=3, iwl=1,
+                                            use_pallas_hamming=True)))
+MESH_LR = 0.3
+
+
+def kernel_counters():
+    """The four wrappers whose .launches count their kernel's launches."""
+    from qmann_tpu_torch.ops.cuda import attention_read as ar
+    from qmann_tpu_torch.ops.cuda import hamming as ham
+    from qmann_tpu_torch.ops.cuda import hop_chain
+    from qmann_tpu_torch.ops.cuda import qmatvec as qmv
+    return {"qmatvec": qmv.quantized_matvec, "attention_read": ar.fused_read,
+            "hamming_score": ham.hamming_score_kernel,
+            "hop_chain": hop_chain.fused_hop_chain}
+
+
+# the wrappers whose calls phase 18 records on the ranks: (module, name in
+# it through which the mesh path calls the wrapper, kernel's key in the
+# kernels line).  The lattice and the Hamming wrappers are looked up on
+# their own modules at each call; the read is called through ops/fused.py
+MESH_RECORDED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
+                  "qmatvec"),
+                 ("qmann_tpu_torch.ops.cuda.hamming", "hamming_score_kernel",
+                  "hamming_score"),
+                 ("qmann_tpu_torch.ops.fused", "fused_read",
+                  "attention_read"))
+
+
+def record_calls(module, name, key, calls):
+    """Put a spy in `name`'s place in `module`: it keeps, in `calls`, the
+    inputs (as numpy) of the first call at each signature (the tensors'
+    shapes and the other arguments) and calls the wrapper.  A wrapper
+    counts its launches on the name in its own module, so the lattice's
+    and the Hamming kernel's count on the spy while it is there; the
+    caller sums the two.  Returns (spy, a function that puts the wrapper
+    back)."""
+    import torch
+    wrapper = getattr(module, name)
+
+    def spy(*args):
+        sig = (key,) + tuple(tuple(a.shape) if isinstance(a, torch.Tensor)
+                             else repr(a) for a in args)
+        if sig not in calls:
+            calls[sig] = (key, tuple(a.detach().cpu().numpy()
+                                     if isinstance(a, torch.Tensor) else a
+                                     for a in args))
+        return wrapper(*args)
+
+    spy.launches = 0
+    setattr(module, name, spy)
+    return spy, lambda: setattr(module, name, wrapper)
+
+
+def mesh_rank(n, model, dev_type, inputs, full):
+    """Phase 18 on one spawned rank of an (n // model, model) mesh: the
+    sharded and explicit steps (full) or the sharded mode-2 step alone,
+    and (full) the distributed read, the sharded prepared infer,
+    eval_split(mesh=) and the engine over the mesh; then the sharded
+    mode-2 step's event time.  The launch counts are set to 0 once the
+    mesh is up and read at the end: everything here is the mesh's path.
+    The lattice's, the Hamming kernel's and the read's inputs are kept at
+    each signature the rank launches them at (record_calls).  Returns
+    numpy results."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from qmann_tpu_torch.config import QmannConfig
+    from qmann_tpu_torch.data import DataDims, Dictionary
+    from qmann_tpu_torch.models import memn2n
+    from qmann_tpu_torch.parallel import (
+        make_explicit_train_step, make_mesh, make_sharded_prepared_infer,
+        make_sharded_train_step, memory_sharded_attention_read)
+    from qmann_tpu_torch.parallel.sharding import put_infer_inputs
+    from qmann_tpu_torch.serve import InferenceEngine
+    from qmann_tpu_torch.train import eval_split
+
+    mesh = make_mesh(n, model, device=dev_type)
+    dev = mesh.device
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    calls = {}
+    spies = [(key, *record_calls(importlib.import_module(mod), name, key,
+                                 calls))
+             for mod, name, key in MESH_RECORDED]
+    out = {"backend": mesh.backend, "index": (mesh.data_idx, mesh.model_idx)}
+
+    def host(params):
+        return {k: v.cpu().numpy().copy() for k, v in params.items()}
+
+    batch = {k: torch.tensor(v, device=dev)
+             for k, v in inputs["batch"].items()}
+    size_b = float(inputs["batch"]["sample_mask"].sum())
+    makers = [("sharded", make_sharded_train_step)]
+    if full:
+        makers.append(("explicit", make_explicit_train_step))
+    out["steps"] = {}
+    for name, kw in MESH_STEPS[:3 if full else 1]:
+        cfg = QmannConfig(**kw)
+        for kind, make in makers:
+            params = {k: torch.tensor(v, device=dev)
+                      for k, v in inputs["params"][name].items()}
+            step = make(cfg, mesh)
+            _, cost, matches = step(params, batch, MESH_LR, size_b)
+            first = host(params)
+            for _ in range(2):
+                step(params, batch, MESH_LR, size_b)
+            out["steps"][name, kind] = dict(
+                params=first, cost=float(cost), matches=int(matches),
+                after3=host(params), layout=tuple(step.layout(
+                    batch["question"].shape[0], batch["mask"].shape[-1])))
+            if name == MESH_STEPS[0][0] and kind == "sharded":
+                timed = step, params
+    if full:
+        specs = {"m": ("data", "model", None), "c": ("data", "model", None),
+                 "u": ("data", None), "mask": ("data", "model")}
+        out["read"] = {}
+        for name, (kw, arrays) in inputs["read"].items():
+            lb = put_infer_inputs(mesh, specs, **arrays)
+            with torch.no_grad():
+                o, p = memory_sharded_attention_read(
+                    mesh, lb["m"], lb["c"], lb["u"], lb["mask"],
+                    QmannConfig(**kw))
+            out["read"][name] = (o.cpu().numpy(), p.cpu().numpy())
+        sb = inputs["serve_batch"]
+        out["prepared"] = {}
+        for mode, raw in inputs["serve_params"].items():
+            cfg = QmannConfig(attention_mode=mode, use_fused_chain=True)
+            params = {k: torch.tensor(v, device=dev) for k, v in raw.items()}
+            prep = memn2n.prepare_inference(params, cfg, **inputs["bounds"])
+            cost, matches, pred = make_sharded_prepared_infer(
+                prep, cfg, mesh)(sb["memory"], sb["question"], sb["answer"],
+                                 sb["mask"])
+            out["prepared"][mode] = (float(cost), int(matches),
+                                     pred.cpu().numpy(), prep.fast)
+        cfg = QmannConfig(use_pallas=True)
+        out["eval"] = eval_split(
+            {k: torch.tensor(v, device=dev) for k, v in
+             inputs["params"][MESH_STEPS[0][0]].items()},
+            inputs["eval_split"], cfg, mesh=mesh)
+        dictionary = Dictionary()
+        for w in inputs["words"]:
+            dictionary.add(w)
+        engine = InferenceEngine(
+            {k: torch.tensor(v) for k, v in
+             inputs["serve_params"][2].items()},
+            QmannConfig(use_fused_chain=True), DataDims(**inputs["dims"]),
+            dictionary, batch_size=32, mesh=mesh).start()
+        answers = None
+        try:
+            if mesh.rank == 0:
+                answers = [f.result(timeout=300) for f in
+                           [engine.submit(s, q) for s, q in
+                            inputs["stories"]]]
+        finally:
+            engine.stop()
+        out["engine"] = (answers, engine.stats.failed_waves,
+                         engine.cfg.use_fused_chain)
+    for _, _, restore in spies:
+        restore()
+    step, params = timed
+    out["step_ms"] = (cuda_ms(lambda: step(params, batch, MESH_LR, size_b),
+                              n_iter=5, samples=5)
+                      if dev.type == "cuda" else None)
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    for key, spy, _ in spies:
+        out["launches"][key] += spy.launches
+    out["calls"] = calls
+    return out
+
+
+def check_recorded_calls(results, dev, tag):
+    """Each kernel on the inputs the mesh's ranks gave it, at every
+    signature they launched it at (record_calls), against its plain
+    version on the card: the lattice and the Hamming kernel bit for bit,
+    the read within its tolerances (check_read).  Returns {kernel key:
+    {"max_abs_err", "shapes"}}; fails on a disagreement."""
+    import numpy as np
+    import torch
+    from qmann_tpu_torch.ops.cuda import attention_read as ar
+    from qmann_tpu_torch.ops.cuda import hamming as ham
+    from qmann_tpu_torch.ops.cuda import qmatvec as qmv
+    pairs = {"qmatvec": (qmv.quantized_matvec,
+                         qmv.quantized_matvec_reference),
+             "hamming_score": (ham.hamming_score_kernel,
+                               ham.hamming_score_reference),
+             "attention_read": (ar.fused_read, ar.fused_read_reference)}
+    calls = {}
+    for r in results:
+        calls.update(r["calls"])
+    found = {}
+    for key, args in calls.values():
+        args = tuple(torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                     else a for a in args)
+        kernel, plain = pairs[key]
+        with torch.no_grad():
+            got, want = kernel(*args), plain(*args)
+        if key == "attention_read":
+            diffs, flips, good, _ = check_read(got, want, args[6], args[8])
+            err = max(diffs.values())
+        else:
+            err = float((got - want).abs().max())
+            good = torch.equal(got, want)
+        entry = found.setdefault(key, {"max_abs_err": 0.0, "shapes": [],
+                                       "signatures": 0, "unequal": []})
+        shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry["signatures"] += 1
+        if shapes not in entry["shapes"]:
+            entry["shapes"].append(shapes)
+        if not good:
+            entry["unequal"].append(shapes)
+    bad = []
+    for key, entry in found.items():
+        unequal = entry.pop("unequal")
+        print(f"[{tag}] {key} on the ranks' inputs at {entry['signatures']} "
+              f"signatures (shapes {entry['shapes']}): max |kernel - plain| "
+              f"{entry['max_abs_err']:.3g}; disagreeing at "
+              f"{unequal or 'none'}", flush=True)
+        if unequal:
+            bad.append(key)
+    if bad:
+        fail(f"{', '.join(bad)} disagree with their plain versions at the "
+             "mesh path's shapes")
+    return found
+
+
+def phase_mesh(card, dev, data_path, raw_path, single_err):
+    """Phase 18: the mesh on the card at the flagship widths.  (2, 2) is 4
+    ranks on cuda:0 over gloo (ranks share the card), (1, 1) one rank over
+    NCCL; then python -m qmann_tpu_torch --mesh 2,1 under torchrun on phase
+    14's files and the training-study tools.  Returns the mesh's launches
+    per kernel for the kernels line."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from qmann_tpu_torch.bench import diagnose, scatt_study
+    from qmann_tpu_torch.config import QmannConfig
+    from qmann_tpu_torch.data import synthetic_batch, synthetic_task
+    from qmann_tpu_torch.models import memn2n
+    from qmann_tpu_torch.ops.cuda import attention_read as ar
+    from qmann_tpu_torch.ops.losses import cross_entropy
+    from qmann_tpu_torch.parallel.launch import run_ranks
+    from qmann_tpu_torch.serve import InferenceEngine
+    from qmann_tpu_torch.train import eval_split, trainer
+
+    tag = "18 mesh"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 18)
+    V, M, W = 19, 10, 6
+
+    def with_answers(B, mem, que, mask, dims):
+        ans = np.zeros((B, dims.dim_input), np.float32)
+        ans[np.arange(B), rng.integers(1, V, B)] = 1.0
+        return {"memory": mem, "question": que, "answer": ans, "mask": mask,
+                "sample_mask": np.ones(B, np.float32)}
+
+    dims, *arrays = synthetic_batch(rng, TRAIN_BATCH, V, M, W)
+    batch = with_answers(TRAIN_BATCH, *arrays, dims)
+    params = {name: {k: 4.0 * v.numpy() for k, v in memn2n.init_params(
+        QmannConfig(**kw), dims, torch.Generator().manual_seed(SEED),
+        device="cpu").items()} for name, kw in MESH_STEPS}
+
+    # the single-device references on the card, on the plain route: the
+    # mesh's runs launch the kernels at their ranks' local shapes, and are
+    # held against the plain versions there (the lattice and the Hamming
+    # kernel are exact, so the tolerances fail a wrong kernel)
+    plain = dict(use_pallas=False, use_pallas_hamming=False)
+
+    def single_step(name):
+        cfg = QmannConfig(**{**dict(MESH_STEPS)[name], **plain})
+        p = {k: torch.tensor(v, device=dev) for k, v in params[name].items()}
+        b = {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+        b["size_b"] = b["sample_mask"].sum()
+        cost, matches = trainer.train_step(
+            p, b, torch.tensor(MESH_LR, device=dev), cfg)
+        return {k: v.cpu().numpy() for k, v in p.items()}, float(cost), \
+            int(matches)
+
+    refs = {name: single_step(name) for name, _ in MESH_STEPS}
+    read_in, read_want = {}, {}
+    for name, kw in (("mode 2", {}), ("mode 3", dict(attention_mode=3,
+                                                     iwl=1))):
+        cfg = QmannConfig(use_pallas=True, **kw)
+        *_, mask_t, (m, c, u) = read_inputs(rng, cfg, TRAIN_BATCH, 64, 50, 7,
+                                            dev)
+        read_in[name] = (dict(use_pallas=True, **kw), {
+            "m": m.cpu().numpy(), "c": c.cpu().numpy(),
+            "u": u.cpu().numpy(), "mask": mask_t.cpu().numpy()})
+        with torch.no_grad():
+            read_want[name] = ar.fused_read_reference(
+                m, c, u, mask_t.to(torch.float32), cfg.fmt_att[0],
+                cfg.fmt_bin, cfg.fmt_act[0],
+                score_quantized=cfg.attention_mode == 2,
+                sum_quantized=cfg.wsum_quantized,
+                attention_mode=cfg.attention_mode,
+                ham_num_bit=cfg.num_bits_attention,
+                ham_const_scale=cfg.attention_const_scale)
+    sdims, *sarrays = synthetic_batch(rng, BATCH, V, M, W)
+    serve_batch = with_answers(BATCH, *sarrays, sdims)
+    bounds = dict(max_count=float(sdims.max_word + 1),
+                  max_rowsum=float(sdims.max_word + 1))
+    serve_params, prepared_want = {}, {}
+    for mode in (2, 3):
+        cfg = QmannConfig(attention_mode=mode)
+        _, p, prep = scaled_prepared(cfg, sdims, serve_batch["memory"], dev)
+        serve_params[mode] = {k: v.cpu().numpy() for k, v in p.items()}
+        with torch.no_grad():
+            out = memn2n.forward_prepared(prep, *(
+                torch.from_numpy(serve_batch[k]).to(dev)
+                for k in ("memory", "question", "mask")), cfg)
+            met = cross_entropy(out.logits, torch.from_numpy(
+                serve_batch["answer"]).to(dev))
+        prepared_want[mode] = (float(met.cost), int(met.matches),
+                               met.pred.cpu().numpy())
+    split = synthetic_task(rng, 64, 16, BATCH, V, M, W).test
+    eval_want = eval_split({k: torch.tensor(v, device=dev) for k, v in
+                            params[MESH_STEPS[0][0]].items()}, split,
+                           QmannConfig(), device=dev)
+    from qmann_tpu_torch.data import Dictionary
+    dictionary = Dictionary()
+    for i in range(1, V):
+        dictionary.add(f"w{i}")
+    words = dictionary.words[1:]
+    stories = [([[words[i] for i in rng.integers(0, len(words),
+                                                 rng.integers(1, W + 1))]
+                 for _ in range(rng.integers(1, M + 3))],
+                [words[i] for i in rng.integers(0, len(words), 4)])
+               for _ in range(200)]
+    plain_engine = InferenceEngine(
+        {k: torch.tensor(v) for k, v in serve_params[2].items()},
+        QmannConfig(), sdims, dictionary, batch_size=32, device=dev).start()
+    try:
+        engine_want = [f.result(timeout=300) for f in
+                       [plain_engine.submit(s, q) for s, q in stories]]
+    finally:
+        plain_engine.stop()
+    inputs = dict(batch=batch, params=params, read=read_in,
+                  serve_batch=serve_batch, serve_params=serve_params,
+                  bounds=bounds, eval_split=split, words=words,
+                  stories=stories, dims=dataclasses.asdict(sdims))
+
+    def check_steps(results, names, kinds):
+        """Each step against the single-device one; the ranks' parameters
+        bitwise equal after 3 steps."""
+        for name in names:
+            ref_p, ref_cost, ref_matches = refs[name]
+            for kind in kinds:
+                got = results[0]["steps"][name, kind]
+                err = max(float(np.max(np.abs(got["params"][k] - ref_p[k])))
+                          for k in ref_p)
+                close = all(np.allclose(got["params"][k], ref_p[k],
+                                        rtol=2e-5, atol=2e-6) for k in ref_p)
+                same = all(all(np.array_equal(r["steps"][name, kind][
+                    "after3"][k], got["after3"][k]) for k in ref_p)
+                    for r in results)
+                print(f"[{tag}] {kind} step, {name}, layout "
+                      f"{got['layout']}: max |param - single-device plain| "
+                      f"{err:.3g}, cost {got['cost']:.6f} (single "
+                      f"{ref_cost:.6f}), matches {got['matches']} (single "
+                      f"{ref_matches}); {len(results)} ranks' params "
+                      f"bitwise equal after 3 steps: {same}", flush=True)
+                if not (close and same and got["matches"] == ref_matches
+                        and math.isclose(got["cost"], ref_cost,
+                                         rel_tol=1e-4)):
+                    fail(f"the {kind} step ({name}) differs from the "
+                         "single-device step or the ranks disagree")
+
+    def summed(results):
+        return {k: sum(r["launches"][k] for r in results)
+                for k in results[0]["launches"]}
+
+    # (2, 2): 4 ranks on the card over gloo
+    t0 = time.perf_counter()
+    r22 = run_ranks(mesh_rank, 4, (4, 2, dev.type, inputs, True),
+                    device=dev.type, timeout=600)
+    t22 = time.perf_counter() - t0
+    print(f"[{tag}] (2, 2): 4 ranks on {dev}, backend {r22[0]['backend']}, "
+          f"{t22:.1f} s with start-up", flush=True)
+    check_steps(r22, [n for n, _ in MESH_STEPS], ("sharded", "explicit"))
+    for name, (want_o, want_p, _) in read_want.items():
+        B, D = want_o.shape
+        o = np.zeros((B, D), np.float32)
+        p = np.zeros(want_p.shape, np.float32)
+        for r in r22:
+            d, j = r["index"]
+            ro, rp = r["read"][name]
+            o[d * ro.shape[0]:(d + 1) * ro.shape[0]] = ro
+            p[d * rp.shape[0]:(d + 1) * rp.shape[0],
+              j * rp.shape[1]:(j + 1) * rp.shape[1]] = rp
+        cfg = QmannConfig(**read_in[name][0])
+        step_act = 2.0 ** -cfg.fmt_act[0].frac
+        do = np.abs(o - want_o.cpu().numpy())
+        dp = float(np.max(np.abs(p - want_p.cpu().numpy())))
+        flips = int((do.max(-1) > 0).sum())
+        print(f"[{tag}] distributed read, {name}, B={B} M=50 D={D} over "
+              f"(2, 2): max |p - plain read| {dp:.3g}, max |o - plain "
+              f"read| {float(do.max()):.3g} (one step {step_act}), "
+              f"queries whose o differs: {flips}", flush=True)
+        if dp > 1e-6 or do.max() > step_act:
+            fail(f"the distributed read ({name}) disagrees with the read's "
+                 "plain version")
+    for mode, (cost, matches, pred) in prepared_want.items():
+        ok = all(r["prepared"][mode][3] and np.array_equal(
+            r["prepared"][mode][2], pred) and r["prepared"][mode][1] ==
+            matches and math.isclose(r["prepared"][mode][0], cost,
+                                     rel_tol=1e-6) for r in r22)
+        print(f"[{tag}] sharded prepared infer, mode {mode}, B={BATCH}: cost "
+              f"{r22[0]['prepared'][mode][0]:.6f} (single {cost:.6f}), "
+              f"matches {r22[0]['prepared'][mode][1]} (single {matches}), "
+              f"predictions equal on every rank: {ok}; distinct "
+              f"{len(set(pred.tolist()))}", flush=True)
+        if not ok:
+            fail(f"the sharded prepared infer (mode {mode}) differs from the "
+                 "single-device prepared forward")
+    ok = all(np.array_equal(r["eval"][2], eval_want[2])
+             and r["eval"][1] == eval_want[1]
+             and math.isclose(r["eval"][0], eval_want[0], rel_tol=1e-6)
+             for r in r22)
+    print(f"[{tag}] eval_split(mesh=) on {len(split)} samples: err "
+          f"{r22[0]['eval'][1]:.4f} (single {eval_want[1]:.4f}), cost "
+          f"{r22[0]['eval'][0]:.6f} (single {eval_want[0]:.6f}), "
+          f"predictions equal: {ok}", flush=True)
+    if not ok:
+        fail("eval_split(mesh=) differs from the single-device eval_split")
+    answers, failed, chain = r22[0]["engine"]
+    print(f"[{tag}] engine over the mesh: {len(answers)} answers, failed "
+          f"waves {failed}, chain pinned off: {not chain}, equal to the "
+          f"plain route: {answers == engine_want}, distinct "
+          f"{len(set(answers))}", flush=True)
+    if answers != engine_want or failed or chain:
+        fail("the engine over the mesh differs from the plain route")
+    n22 = summed(r22)
+
+    # (1, 1): one rank over NCCL
+    r11 = run_ranks(mesh_rank, 1, (1, 1, dev.type, inputs, False),
+                    device=dev.type, timeout=300)
+    print(f"[{tag}] (1, 1): backend {r11[0]['backend']}", flush=True)
+    check_steps(r11, [MESH_STEPS[0][0]], ("sharded",))
+    if dev.type == "cuda" and r11[0]["backend"] != "nccl":
+        fail("a mesh of one rank with a card of its own is not on NCCL")
+    n11 = summed(r11)
+    at_mesh = check_recorded_calls(r22 + r11, dev, tag)
+    print(f"[{tag}] launches, summed over ranks: (2, 2) {n22}; (1, 1) "
+          f"{n11}.  The memory split runs the distributed read (no read "
+          f"kernel); the mesh pins the plain prepared forward (no chain)",
+          flush=True)
+    if (n22["qmatvec"] < 1 or n22["hamming_score"] < 1 or n22["hop_chain"]
+            or n11["qmatvec"] < 1 or n11["attention_read"] < 1):
+        fail("the mesh path did not launch the lattice, the Hamming kernel "
+             "or the read where it routes them")
+    if any(n22[k] + n11[k] and k not in at_mesh for k in n22):
+        fail("a kernel launched on the mesh path was not checked at its "
+             "shapes there")
+    print(f"[{tag}] {card} | sharded step, mode 2 iwl 5, B={TRAIN_BATCH}, "
+          f"use_pallas: (1, 1) NCCL {r11[0]['step_ms']} ms, (2, 2) gloo on "
+          f"one card {r22[0]['step_ms']} ms (CUDA events, median of 5 x 5 "
+          f"steps; the 4 ranks share the card: not a scaling figure)",
+          flush=True)
+
+    # python -m qmann_tpu_torch --mesh 2,1 under torchrun
+    tmp = tempfile.TemporaryDirectory(prefix="qmann_mesh_")
+    out_dir = Path(tmp.name) / "cli"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "qmann_tpu_torch", "1", "1", "1",
+           "5", "--mesh", "2,1", "--use-pallas", "--epochs", "2",
+           "--data-path", data_path, "--raw-data-path", raw_path,
+           "--out-dir", str(out_dir), "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    t_cli = time.perf_counter() - t0
+    loops = [ln for ln in proc.stdout.splitlines() if "loop 0: err_test" in ln]
+    rows = (csv_rows(out_dir / "result.csv")
+            if (out_dir / "result.csv").exists() else [])
+    banner = [ln for ln in proc.stdout.splitlines() if "< Mesh" in ln]
+    print(f"[{tag}] torchrun --nproc-per-node 2 -m qmann_tpu_torch 1 1 1 5 "
+          f"--mesh 2,1 --use-pallas --epochs 2: rc {proc.returncode}, "
+          f"{t_cli:.1f} s; {banner}; result.csv tasks "
+          f"{[r[0] for r in rows]}, loop lines {len(loops)} (rank 0 "
+          f"alone); err_test {rows[0][10] if rows else None} beside the "
+          f"single-process run's {single_err} (no gate: gradient sums in "
+          f"another order can flip a requant over an epoch)", flush=True)
+    if proc.returncode != 0 or [r[0] for r in rows] != ["1"] or \
+            len(loops) != 1:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        fail("the torchrun run of the CLI on a mesh failed")
+
+    # the training-study tools
+    env = {**__import__("os").environ, "PYTHONPATH": str(REPO)}
+    scal = [sys.executable, "-m", "qmann_tpu_torch.bench.scaling",
+            "--iters", "5", "--device", dev.type]
+    one = subprocess.run([*scal, "--devices", "1"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    lines = [json.loads(ln) for ln in one.stdout.splitlines()
+             if ln.startswith("{")]
+    two = subprocess.run([*scal, "--devices", "2"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    print(f"[{tag}] bench.scaling --devices 1: rc {one.returncode}, "
+          f"{lines}; --devices 2: rc {two.returncode} "
+          f"({two.stderr.strip()[-120:]})", flush=True)
+    want_two = 2 if torch.cuda.device_count() < 2 else 0
+    if (one.returncode != 0 or len(lines) != 1
+            or not lines[0]["train_samples_per_sec"] > 0
+            or two.returncode != want_two):
+        fail("bench.scaling failed")
+    files = ["--data-path", data_path, "--raw-data-path", raw_path,
+             "--device", str(dev)]
+    rc_d, dlines = run_quiet(diagnose.main, ["--epochs", "2", *files],
+                             keep=r"^\{")
+    drecs = [json.loads(ln) for ln in dlines if ln.startswith("{")]
+    rc_s, slines = run_quiet(scatt_study.main, [
+        "--epochs", "2", "--seeds", "1", "--out-dir",
+        str(Path(tmp.name) / "scatt"), *files], keep=r"^\{")
+    srecs = [json.loads(ln) for ln in slines if ln.startswith("{")]
+    finite = all(math.isfinite(v) for r in drecs + srecs
+                 for v in r.values() if isinstance(v, float))
+    print(f"[{tag}] bench.diagnose 2 epochs: rc {rc_d}, {len(drecs)} "
+          f"records; bench.scatt_study 2 epochs x 1 seed: rc {rc_s}, "
+          f"{len(srecs)} rows; every number finite: {finite}", flush=True)
+    if (rc_d != 0 or len(drecs) != 2 or rc_s != 0
+            or len(srecs) != len(scatt_study.MITIGATIONS) or not finite):
+        fail("bench.diagnose or bench.scatt_study failed")
+    tmp.cleanup()
+    print(f"[{tag}] phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {k: {"launches": n22[k], "ranks": 4, "mesh": [2, 2],
+                "nccl_1x1": {"launches": n11[k], "ranks": 1,
+                             "mesh": [1, 1]},
+                **at_mesh.get(k, {"max_abs_err": None, "shapes": [],
+                                  "signatures": 0})}
+            for k in n22}
 
 
 def main():
@@ -2391,6 +2975,12 @@ def main():
     # 17. the packet server and client in front of the chain kernel, the
     # engine's unprepared route, and the serving bench tools
     serve17 = phase_serve(card, dev, counters, *serve_src)
+
+    # 18. the device mesh: sharded and explicit steps, the distributed
+    # read, serving and evaluation over a mesh of ranks on the card, the
+    # CLI under torchrun, and the training-study tools
+    mesh18 = phase_mesh(card, dev, data_path, raw_path,
+                        rows["result.csv"][0][10])
     tmp.cleanup()
 
     b_chain = chain_bound(*chain_args[:4])
@@ -2423,7 +3013,7 @@ def main():
                         "bound_ms": b3[kname, label][0],
                         "bound_by": b3[kname, label][1]}
                 for label in fam3_args}
-    print(json.dumps({"kernels": [
+    kernels_line = [
         {"name": "hop_chain", "route": "cuda", "redesigned_in": 4,
          "source": "qmann_tpu_torch/csrc/hop_chain.cu",
          "replaces": "qmann_tpu/ops/pallas/qkernels.py:358",
@@ -2550,7 +3140,10 @@ def main():
              **fam3_shapes("hamming")},
          **at_shapes(k3, "hamming", ham_args,
                      lambda a: hamming_bound(*a[:2], num_bit=nb3))},
-    ]}))
+    ]
+    for entry in kernels_line:
+        entry["mesh"] = {"added_in": 10, **mesh18[entry["name"]]}
+    print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,9 @@ route as on the CLI.  On a CUDA device every time is CUDA events around
 the work, closed by ``torch.cuda.synchronize()``; on the CPU
 (``--device cpu``) the host clock, and the output says so.  Prints one
 JSON line with the card's name and power limit (``nvidia-smi``) and the
-torch and CUDA versions.  ``--sharded`` raises: the device mesh is not
-ported.
+torch and CUDA versions, and as ``devices`` the process group's world
+size (1 outside one).  ``--sharded`` parses and changes nothing, as JAX's
+flag (``qmann_tpu/bench/qps.py``, never read).
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-iters", type=int, default=10)
     p.add_argument("--requests", type=int, default=2048)
     p.add_argument("--sharded", action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="accepted and unused, as in the JAX tool")
     p.add_argument("--attention-mode", type=int, default=2,
                    choices=[1, 2, 3, 4])
     p.add_argument("--iwl", type=int, default=5)
@@ -58,21 +59,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("--sharded: the device mesh (parallel/) is "
-                                  "not ported to qmann_tpu_torch yet "
-                                  "(ROADMAP.md, Queue 1)")
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from qmann_tpu_torch.config import QmannConfig
     from qmann_tpu_torch.device import resolve_device
     from qmann_tpu_torch.models import memn2n
     from qmann_tpu_torch.ops.losses import cross_entropy
     from qmann_tpu_torch.serve import InferenceEngine
-    from qmann_tpu_torch.train.trainer import (_batched_arrays, check_ported,
-                                               train_epoch)
+    from qmann_tpu_torch.train.trainer import _batched_arrays, train_epoch
 
     cfg = QmannConfig(attention_mode=args.attention_mode, iwl=args.iwl,
                       use_pallas=args.use_pallas,
@@ -80,7 +77,6 @@ def main(argv=None) -> int:
                       use_fused_chain=args.use_fused_chain, verbose=False,
                       data_path=args.data_path,
                       raw_data_path=args.raw_data_path, seed=args.seed)
-    check_ported(cfg)
     dev = resolve_device(args.device)
     card_name = card() if dev.type == "cuda" else None
     data, source = load_qa1(args, args.seed, n_train=args.max_samples)
@@ -142,7 +138,7 @@ def main(argv=None) -> int:
         "train_samples_per_sec": train_sps,
         "epoch_seconds": epoch_s,
         "device": str(dev),
-        "devices": torch.cuda.device_count() if dev.type == "cuda" else 0,
+        "devices": dist.get_world_size() if dist.is_initialized() else 1,
         "card": card_name,
         "timer": "cuda_events" if dev.type == "cuda" else "host_clock",
         "torch": torch.__version__, "cuda": torch.version.cuda,

@@ -6,15 +6,26 @@ Mirrors the reference CLI (MemN2N/MemN2N.c:211-274):
 
 with every flag of ``python -m qmann_tpu`` and its defaults, plus
 ``--device`` (default ``cuda``; without a card it raises unless given
-``--device cpu``).  Every flag runs but ``--mesh`` (the device mesh is not
-ported), which raises NotImplementedError before any data is read.  Writes
-``result.csv`` and ``result_all.csv`` in the reference's shape to
-``--out-dir`` and, with ``--checkpoint-dir``, one checkpoint per task loop
-(``utils/checkpoint.py``, readable by either package).
+``--device cpu``).  Writes ``result.csv`` and ``result_all.csv`` in the
+reference's shape to ``--out-dir`` and, with ``--checkpoint-dir``, one
+checkpoint per task loop (``utils/checkpoint.py``, readable by either
+package).
+
+``--mesh d,m`` trains on a (data, model) mesh of d*m processes, one per
+rank, started by torchrun:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m qmann_tpu_torch 1 1 1 5 --mesh 2,2
+
+Outside torchrun, ``--mesh 1,1`` makes a group of this one process and any
+larger mesh exits 2.  The backend follows ``parallel.mesh.backend_for``
+(NCCL with a card per rank, gloo where ranks share a card or on the CPU).
+Rank 0 alone prints and writes the result CSVs and checkpoints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -149,8 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true",
                    help="print the per-phase time profile")
     p.add_argument("--mesh", default=None,
-                   help="device mesh spec 'data,model' e.g. '4,2' (not "
-                        "ported: raises NotImplementedError)")
+                   help="device mesh spec 'data,model' e.g. '4,2': one "
+                        "process per rank, started by torchrun")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on; 'cpu' runs the kernels' "
                         "plain versions")
@@ -207,25 +218,74 @@ def config_from_args(args) -> QmannConfig:
     )
 
 
+def _join_mesh(spec: str, device):
+    """The mesh of ``--mesh d,m``, joining the process group torchrun's
+    environment describes (or, outside torchrun, a group of this process
+    for a mesh of one rank).  Returns (mesh, whether this call made the
+    group), or None when the processes do not match the mesh."""
+    import torch.distributed as dist
+    from qmann_tpu_torch.parallel.launch import init_single_process
+    from qmann_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    parts = [int(x) for x in spec.split(",")]
+    model_par = parts[1] if len(parts) > 1 else 1
+    n = parts[0] * model_par
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world != n:
+        print(f"error: --mesh {spec} needs {n} processes, one per rank; "
+              f"this run has {world}.  Start it with torchrun: python -m "
+              f"torch.distributed.run --standalone --nproc-per-node {n} -m "
+              f"qmann_tpu_torch ... --mesh {spec}", file=sys.stderr)
+        return None
+    made = not dist.is_initialized()
+    if made:
+        if "WORLD_SIZE" in os.environ:
+            initialize_multihost(device=device)
+        else:
+            init_single_process(device)
+    return make_mesh(n, model_par, device=device), made
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
 
     # deferred imports so --help stays fast
-    from qmann_tpu_torch.data.native import load_task_native as load_task
     from qmann_tpu_torch.device import resolve_device
+    dev = resolve_device(args.device)
+    mesh, made = None, False
+    if args.mesh:
+        joined = _join_mesh(args.mesh, dev)
+        if joined is None:
+            return 2
+        mesh, made = joined
+        dev = mesh.device
+    try:
+        return _run(args, cfg, dev, mesh)
+    finally:
+        if made:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args, cfg: QmannConfig, dev, mesh) -> int:
+    from qmann_tpu_torch.data.native import load_task_native as load_task
     from qmann_tpu_torch.train import train_task
-    from qmann_tpu_torch.train.trainer import check_ported
     from qmann_tpu_torch.utils.profiling import PhaseProfiler
 
-    check_ported(cfg, mesh=args.mesh)
-    dev = resolve_device(args.device)
+    from qmann_tpu_torch.parallel.mesh import rank0_only
 
-    print(config_banner(cfg))
+    rank0 = mesh is None or mesh.rank == 0
+    say = rank0_only(print, mesh)
+    if mesh is not None:
+        say(f"< Mesh : data={mesh.data} model={mesh.model} > backend "
+            f"{mesh.backend}")
+    say(config_banner(cfg))
     results = []
     prof = PhaseProfiler(dev)
 
     def save_ckpt(res, loop_cfg, dims, dictionary, tag):
+        if not rank0:
+            return
         from qmann_tpu_torch.utils.checkpoint import save_checkpoint
         # with --save-best-model the evaluated (and served) weights are
         # the best snapshot, not the possibly-collapsed final epoch
@@ -253,13 +313,13 @@ def main(argv=None) -> int:
                 en_pe=cfg.en_pe, train_task_name="qa_joint",
                 dim_forced=cfg.dim_forced, max_dict_len=cfg.max_dict_len,
                 shuffle_split=cfg.en_sample_shuffled, split_seed=cfg.seed)
-        print(f"    Joint training: {len(data.train)} samples, "
-              f"dict {data.dims.dim_dict}")
+        say(f"    Joint training: {len(data.train)} samples, "
+            f"dict {data.dims.dim_dict}")
         joint_runs = []
         for loop in range(args.num_task_loop):
             loop_cfg = cfg.replace(seed=cfg.seed + loop)
             with prof.phase("train"):
-                res = train_task(loop_cfg, data, device=dev)
+                res = train_task(loop_cfg, data, device=dev, mesh=mesh)
             joint_runs.append(res)
             if args.checkpoint_dir:
                 save_ckpt(res, loop_cfg, data.dims, data.dictionary,
@@ -276,17 +336,18 @@ def main(argv=None) -> int:
             for loop, res in enumerate(joint_runs):
                 eval_params = (res.best_params if cfg.en_save_best_model
                                and res.best_params else res.params)
-                _, err, _ = eval_split(eval_params, test, cfg, device=dev)
+                _, err, _ = eval_split(eval_params, test, cfg, device=dev,
+                                       mesh=mesh)
                 loops.append(TaskLoopResult(res.time_train, 0.0, 0.0, err))
             errs = [l.err_test for l in loops]
-            print(f"  task {task_index} ({task}) joint err_test "
-                  f"avg/max/min: {np.mean(errs):f}/{np.max(errs):f}/"
-                  f"{np.min(errs):f}")
+            say(f"  task {task_index} ({task}) joint err_test "
+                f"avg/max/min: {np.mean(errs):f}/{np.max(errs):f}/"
+                f"{np.min(errs):f}")
             results.append(TaskResult(task_index, loops))
     else:
         for task_index in range(args.task_start, args.task_end + 1):
             task = cfg.task_name(task_index)
-            print(f"< Task {task_index} : {task} >")
+            say(f"< Task {task_index} : {task} >")
             with prof.phase("data"):
                 data = load_task(
                     task, cfg.data_path, raw_path=cfg.raw_data_path,
@@ -301,36 +362,37 @@ def main(argv=None) -> int:
                     shuffle_split=cfg.en_sample_shuffled,
                     split_seed=cfg.seed,
                 )
-            print(f"    Dim input : {data.dims.dim_input}")
-            print(f"    Dim emb   : {cfg.dim_emb}")
-            print(f"    Samples   : train {len(data.train)}, "
-                  f"valid {len(data.valid)}, test {len(data.test)}")
+            say(f"    Dim input : {data.dims.dim_input}")
+            say(f"    Dim emb   : {cfg.dim_emb}")
+            say(f"    Samples   : train {len(data.train)}, "
+                f"valid {len(data.valid)}, test {len(data.test)}")
 
             loops = []
             for loop in range(args.num_task_loop):
                 loop_cfg = cfg.replace(seed=cfg.seed + loop)
                 with prof.phase("train"):
-                    res = train_task(loop_cfg, data, device=dev)
+                    res = train_task(loop_cfg, data, device=dev, mesh=mesh)
                 loops.append(TaskLoopResult(
                     time_train=res.time_train,
                     err_train=(res.history[-1].err_train if res.history
                                else 1.0),
                     time_test=res.time_test,
                     err_test=res.err_test))
-                print(f"  loop {loop}: err_test {res.err_test:f} "
-                      f"(train {res.time_train:.1f}s, "
-                      f"test {res.time_test:.3f}s)")
+                say(f"  loop {loop}: err_test {res.err_test:f} "
+                    f"(train {res.time_train:.1f}s, "
+                    f"test {res.time_test:.3f}s)")
                 if args.checkpoint_dir:
                     save_ckpt(res, loop_cfg, data.dims, data.dictionary,
                               f"{task}_loop{loop}")
             results.append(TaskResult(task_index, loops))
             errs = [l.err_test for l in loops]
-            print(f"  task {task_index} err_test avg/max/min: "
-                  f"{np.mean(errs):f}/{np.max(errs):f}/{np.min(errs):f}")
+            say(f"  task {task_index} err_test avg/max/min: "
+                f"{np.mean(errs):f}/{np.max(errs):f}/{np.min(errs):f}")
 
-    write_run_outputs(args.out_dir, cfg, results)
+    if rank0:
+        write_run_outputs(args.out_dir, cfg, results)
     if args.profile:
-        print(prof.report())
+        say(prof.report())
     return 0
 
 

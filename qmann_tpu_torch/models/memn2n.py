@@ -212,9 +212,18 @@ def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
     (``is_family``) take inputs [R, B, ...]: R independent runs in one
     pass.  ``cfg.en_integer_fast_path`` takes JAX's integer fast path on
     the plain route (module docstring; bit-identical either way)."""
+    backend = "kernel" if cfg.use_pallas else "plain"
+    u, embeds = embed(params, memory, question, cfg, backend)
+    return _hop_stack(params, cfg, u, embeds, mask, remove_softmax, backend)
+
+
+def embed(params: Params, memory: torch.Tensor, question: torch.Tensor,
+          cfg: QmannConfig, backend: str):
+    """The query embedding u and the 2K memory embeddings (A_0..A_{K-1},
+    C_0..C_{K-1}) on ``backend``'s lattice, each memory row on its own:
+    ``forward``'s first half."""
     q = cfg.en_fixed_point
     fmt_w = cfg.fmt_w
-    backend = "kernel" if cfg.use_pallas else "plain"
     K = cfg.num_hops
     hop_w = [_hop_weights(params, cfg, h) for h in range(K)]
     mem_ws = [w[0] for w in hop_w] + [w[1] for w in hop_w]
@@ -228,7 +237,7 @@ def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
                 quantized=q, backend=backend, fast=fast_q)
     embeds = qembed_mat_multi(memory, mem_ws, mem_fmts, quantized=q,
                               backend=backend, fast=fast_m)
-    return _hop_stack(params, cfg, u, embeds, mask, remove_softmax, backend)
+    return u, embeds
 
 
 def _l2_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -336,13 +345,21 @@ def loss_and_metrics(params: Params, memory: torch.Tensor,
     [R, B]) the loss is the sum of the runs' losses, whose gradient is each
     run's own, and the cost and matches are per run [R]."""
     out = forward(params, memory, question, mask, cfg, remove_softmax)
-    logp = torch.log_softmax(out.logits, dim=-1)
+    return loss_from_logits(out.logits, answer, sample_mask,
+                            is_family(params))
+
+
+def loss_from_logits(logits: torch.Tensor, answer: torch.Tensor,
+                     sample_mask: Optional[torch.Tensor],
+                     family: bool = False):
+    """``loss_and_metrics`` given the logits: (loss, CEMetrics)."""
+    logp = torch.log_softmax(logits, dim=-1)
     per_sample = -(answer * logp).sum(-1)
     probs = torch.exp(logp.detach())
-    pred = argmax_last(out.logits.detach(), dim=-1)
+    pred = argmax_last(logits.detach(), dim=-1)
     hit = torch.gather(answer, -1, pred[..., None])[..., 0]
     hits = (hit == 1.0).to(torch.float32)
-    if is_family(params):
+    if family:
         sm = 1.0 if sample_mask is None else sample_mask
         loss_r = (per_sample * sm).sum(-1)
         cost = -((answer * probs).sum(-1) * sm).sum(-1)
@@ -444,13 +461,8 @@ def forward_prepared(prep: PreparedInference, memory: torch.Tensor,
     weight processing."""
     if not prep.fast:
         return forward(prep.raw, memory, question, mask, cfg)
-    K = cfg.num_hops
     fmt_w = cfg.fmt_w
-    D = prep.query_wt.shape[1]
-    # u = B q and all 2K hop embeddings: exact f32 GEMMs on the cached
-    # quantized transposes
-    u = float_quant(exact_matmul(question, prep.query_wt), fmt_w[0])
-    flat = exact_matmul(memory, prep.embed_wt)                # [B, M, 2K*D]
+    u, flat = _prepared_gemms(prep, memory, question, cfg)
     if _use_chain(cfg):
         cached = prep.hmats_q is not None
         u_fin, p, s = fused_hop_chain(
@@ -466,8 +478,29 @@ def forward_prepared(prep: PreparedInference, memory: torch.Tensor,
         logits = qmatvec(_output_weight(prep.raw, cfg), u_fin,
                          cfg.fmt_ds_ans, cfg.fmt_ds_ans, quantized=False)
         return ForwardResult(logits, p, s)
+    return _hop_stack(prep.raw, cfg, u, _split_embeddings(flat, cfg), mask,
+                      False, "kernel" if cfg.use_pallas else "plain")
+
+
+def _split_embeddings(flat: torch.Tensor, cfg: QmannConfig):
+    """The stacked GEMM output [..., 2K*D] -> the 2K quantized hop
+    embeddings, each [..., D] in its hop's format."""
+    K, D = cfg.num_hops, cfg.dim_emb
     flatq = float_quant_blocks(
-        flat, tuple(fmt_w[i % K] for i in range(2 * K)), (D,) * (2 * K))
-    embeds = torch.split(flatq, D, dim=-1)
-    return _hop_stack(prep.raw, cfg, u, embeds, mask, False,
-                      "kernel" if cfg.use_pallas else "plain")
+        flat, tuple(cfg.fmt_w[i % K] for i in range(2 * K)), (D,) * (2 * K))
+    return torch.split(flatq, D, dim=-1)
+
+
+def _prepared_gemms(prep: PreparedInference, memory: torch.Tensor,
+                    question: torch.Tensor, cfg: QmannConfig):
+    """u = Q(B q) and the stacked 2K hop embeddings [B, M, 2K*D]: exact
+    f32 GEMMs on the cached quantized transposes."""
+    return (float_quant(exact_matmul(question, prep.query_wt), cfg.fmt_w[0]),
+            exact_matmul(memory, prep.embed_wt))
+
+
+def prepared_embed(prep: PreparedInference, memory: torch.Tensor,
+                   question: torch.Tensor, cfg: QmannConfig):
+    """``embed`` on the prepared exact route (``prep.fast``)."""
+    u, flat = _prepared_gemms(prep, memory, question, cfg)
+    return u, _split_embeddings(flat, cfg)

@@ -16,6 +16,25 @@ layout once (``prepare_inference``) and each wave runs
 the raw weights (under ``use_pallas``, the lattice and read kernels), the
 A/B baseline of ``bench/engine_bench.py``.  The engine runs on the card
 unless the caller passes ``device="cpu"``.
+
+With ``mesh=`` (``parallel/mesh.py``) every rank builds the engine alike
+and calls ``start`` and ``stop``.  As in JAX, the mesh pins the plain
+prepared forward (``parallel.sharding.serving_config``).  Rank 0 owns the
+queue: for each wave it broadcasts the padded wave arrays, every rank
+computes its block of the wave (the batch over "data", the memory over
+"model", ``parallel.sharding.sharded_predict``) and the predictions come
+back whole.  The other ranks run a follower loop until rank 0's engine
+thread broadcasts the end, which it does when ``stop`` ends its loop.
+
+On a mesh of more than one rank a wave that fails once it was broadcast
+ends the engine on every rank: after each wave the ranks agree on a
+status word (one all_reduce), so a failure on any rank stops every loop
+at the same wave; rank 0 fails that wave's futures, those still queued
+and those submitted later, and ``error`` holds the cause on every rank.
+A wave that fails before its broadcast (in the vectorizer) fails alone,
+as off a mesh.  A rank that fails between two of a wave's collectives
+leaves the others inside one: their loops end when that collective
+raises (the peer's exit, or the group's timeout).
 """
 from __future__ import annotations
 
@@ -67,18 +86,20 @@ class InferenceEngine:
                  batch_size: int = 64, max_wait_ms: float = 2.0,
                  prepare: bool = True, mesh=None, device="cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the device mesh (parallel/) is not ported to "
-                "qmann_tpu_torch yet (ROADMAP.md, Queue 1)")
+            from qmann_tpu_torch.parallel.sharding import serving_config
+            cfg = serving_config(cfg)
+        self.mesh = mesh
         self.cfg = cfg
         self.dims = dims
         self.dictionary = dictionary
         self.batch_size = batch_size
         self.max_wait = max_wait_ms / 1000.0
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.params = {k: torch.as_tensor(v, dtype=torch.float32)
                        .to(self.device) for k, v in params.items()}
         self._queue: "queue.Queue[Optional[Request]]" = queue.Queue()
+        self._lock = threading.Lock()   # error vs. enqueueing a request
+        self.error: Optional[BaseException] = None   # what ended a mesh
         self.stats = EngineStats()
         # freeze weights into serving layout once per engine, exact-GEMM
         # route decided against the vectorizer's feature bounds (a row's
@@ -87,7 +108,10 @@ class InferenceEngine:
         self.prepared = memn2n.prepare_inference(
             self.params, cfg, max_count=float(dims.max_word + 1),
             max_rowsum=float(dims.max_word + 1)) if prepare else None
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._multi = mesh is not None and mesh.world > 1
+        leader = mesh is None or mesh.rank == 0
+        self._thread = threading.Thread(
+            target=self._lead if leader else self._follow, daemon=True)
         self._running = False
 
     # ------------------------------------------------------------------
@@ -96,18 +120,35 @@ class InferenceEngine:
         self._thread.start()
         return self
 
-    def stop(self):
-        self._running = False
-        self._queue.put(None)
-        self._thread.join(timeout=10)
+    def stop(self, timeout: Optional[float] = 600.0):
+        """End the engine's thread and wait for it up to ``timeout``
+        seconds (None: without a limit).  On rank 0 (or off a mesh) this
+        ends the loop after the wave in hand, and on a mesh the thread then
+        broadcasts the end; on the other ranks it waits for that end, or
+        for a failed wave.  Raises TimeoutError if the thread still runs."""
+        if self.mesh is None or self.mesh.rank == 0:
+            self._running = False
+            self._queue.put(None)
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise TimeoutError(f"the engine's thread still runs after "
+                               f"{timeout} s (rank "
+                               f"{self.mesh.rank if self.mesh else 0})")
+
+    def _enqueue(self, req: Request) -> "Future[int]":
+        with self._lock:
+            if self.error is not None:
+                req.future.set_exception(self.error)
+            else:
+                self._queue.put(req)
+        return req.future
 
     def submit(self, sentences: Sequence[Sequence[str]],
                question: Sequence[str],
                te_indices: Optional[Sequence[int]] = None) -> "Future[int]":
         req = Request([list(s) for s in sentences], list(question),
                       list(te_indices) if te_indices is not None else None)
-        self._queue.put(req)
-        return req.future
+        return self._enqueue(req)
 
     def submit_indexed(self, sample: IndexedSample) -> "Future[int]":
         """Accept a packet-stream sample (already word indices), vectorized
@@ -120,8 +161,7 @@ class InferenceEngine:
         req = Request([list(s) for s in sample.sentences],
                       list(sample.question), list(sample.te_indices),
                       indexed=True)
-        self._queue.put(req)
-        return req.future
+        return self._enqueue(req)
 
     def answer_word(self, index: int) -> str:
         return self.dictionary.words[index]
@@ -171,12 +211,103 @@ class InferenceEngine:
         dev = self.device
         batch = (torch.from_numpy(mem).to(dev), torch.from_numpy(que).to(dev),
                  torch.from_numpy(mask).to(dev))
+        if self.mesh is not None:
+            if self._multi:
+                batch = self._broadcast_wave(batch)
+            return self._wave_on_mesh(lambda: self._infer_sharded(
+                *batch).cpu().numpy())
         with torch.inference_mode():
             if self.prepared is not None:
                 out = memn2n.forward_prepared(self.prepared, *batch, self.cfg)
             else:
                 out = memn2n.forward(self.params, *batch, self.cfg)
             return argmax_last(out.logits, dim=-1).cpu().numpy()
+
+    def _infer_sharded(self, mem, que, mask) -> torch.Tensor:
+        from qmann_tpu_torch.parallel.sharding import sharded_predict
+        model = self.prepared if self.prepared is not None else self.params
+        return sharded_predict(model, mem, que, mask, self.cfg, self.mesh)
+
+    def _broadcast_wave(self, batch):
+        """Rank 0's wave (mem, que, mask), or None for the end, to every
+        rank as one float32 buffer after a one-number header."""
+        import torch.distributed as dist
+        d, n = self.dims, self.batch_size
+        sizes = (n * d.max_line * d.dim_input, n * d.dim_input,
+                 n * d.max_line)
+        head = torch.tensor([0.0 if batch is None else 1.0],
+                            device=self.device)
+        dist.broadcast(head, 0)
+        if not head.item():
+            return None
+        if batch is None:
+            buf = torch.empty(sum(sizes), device=self.device)
+        else:
+            buf = torch.cat([t.reshape(-1).to(torch.float32) for t in batch])
+        dist.broadcast(buf, 0)
+        mem, que, mask = torch.split(buf, sizes)
+        return (mem.view(n, d.max_line, d.dim_input), que.view(n, d.dim_input),
+                mask.view(n, d.max_line).to(torch.bool))
+
+    def _wave_on_mesh(self, compute):
+        """Run this rank's part of a broadcast wave, then (on a mesh of
+        more than one rank) agree with the others whether every rank's
+        part ran: raises on every rank if any one failed."""
+        error = None
+        try:
+            out = compute()
+        except Exception as exc:  # noqa: BLE001 - shared, then re-raised
+            error = exc
+        if self._multi:
+            import torch.distributed as dist
+            failed = torch.tensor([float(error is not None)],
+                                  device=self.device)
+            dist.all_reduce(failed, op=dist.ReduceOp.MAX)
+            if failed.item() and error is None:
+                error = RuntimeError("the wave failed on another rank of "
+                                     "the mesh")
+        if error is not None:
+            raise error
+        return out
+
+    def _follow(self):
+        """A mesh rank other than 0: compute its block of every wave rank 0
+        broadcasts, until the end or a failed wave (``error``)."""
+        try:
+            while True:
+                batch = self._broadcast_wave(None)
+                if batch is None:
+                    break
+                self._wave_on_mesh(lambda: self._infer_sharded(*batch))
+        except Exception as exc:  # noqa: BLE001 - the mesh's engine ends
+            self.error = exc
+
+    def _lead(self):
+        """Rank 0's thread (or the only one): serve until ``stop``; on a
+        mesh then broadcast the end, unless a failed wave ended every
+        rank's loop already."""
+        self._loop()
+        if self._multi and self.error is None:
+            self._broadcast_wave(None)
+
+    def _close(self, exc: BaseException) -> None:
+        """A failed wave on a mesh: fail what is queued and whatever is
+        submitted from now on."""
+        with self._lock:
+            self.error = exc
+            while True:
+                try:
+                    r = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if r is not None and not r.future.done():
+                    r.future.set_exception(exc)
+
+    def _fail_wave(self, wave: List[Request], exc: BaseException) -> None:
+        self.stats.failed_waves += 1
+        for r in wave:
+            if not r.future.done():
+                r.future.set_exception(exc)
 
     def _loop(self):
         while self._running:
@@ -202,6 +333,10 @@ class InferenceEngine:
             try:
                 t0 = time.perf_counter()
                 mem, que, mask = self._vectorize(wave)
+            except Exception as exc:  # fail the wave, keep serving
+                self._fail_wave(wave, exc)
+                continue
+            try:
                 t1 = time.perf_counter()
                 preds = self.infer(mem, que, mask)
                 t2 = time.perf_counter()
@@ -209,11 +344,11 @@ class InferenceEngine:
                 self.stats.requests += len(wave)
                 self.stats.vectorize_s += t1 - t0
                 self.stats.infer_s += t2 - t1
-            except Exception as exc:  # fail the wave, keep serving
-                self.stats.failed_waves += 1
-                for r in wave:
-                    if not r.future.done():
-                        r.future.set_exception(exc)
-                continue
+            except Exception as exc:
+                self._fail_wave(wave, exc)
+                if self._multi:   # broadcast: every rank's loop ends
+                    self._close(exc)
+                    break
+                continue          # fail the wave, keep serving
             for bi, r in enumerate(wave):
                 r.future.set_result(int(preds[bi]))

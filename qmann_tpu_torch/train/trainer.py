@@ -14,8 +14,14 @@ With ``en_linear_start`` the first ``num_itr_linear_start`` epochs train
 with the attention softmax removed, at half the learning rate
 (``optim.lr_schedule``); evaluation always keeps the softmax.  With
 ``en_similarity_analysis`` each epoch dumps the attention softmax's inputs
-and outputs on the validation split (``utils/analysis.py``).  Not ported
-yet (ROADMAP.md, Queue 1): training on a device mesh.
+and outputs on the validation split (``utils/analysis.py``).
+
+With ``mesh=`` (``parallel/mesh.py``) every rank of the mesh calls
+``train_task`` alike: the epoch's batches are cut into each rank's block
+once per epoch (``_shard_epoch_batches``) and each batch runs the sharded
+step (``parallel/sharding.py``); the shuffle is the host-side one, as
+JAX's is under a mesh.  Rank 0 alone logs and dumps the similarity
+analysis.
 """
 from __future__ import annotations
 
@@ -57,15 +63,6 @@ class TrainResult:
     cost_test: float
     time_train: float
     time_test: float
-
-
-def check_ported(cfg: QmannConfig, mesh=None) -> None:
-    """Raise NotImplementedError for what ``train_task`` cannot run yet: a
-    device mesh (the CLI calls this before it reads any data)."""
-    if mesh is not None:
-        raise NotImplementedError("training on a device mesh is not ported "
-                                  "to qmann_tpu_torch yet (ROADMAP.md, "
-                                  "Queue 1)")
 
 
 def _batched_arrays(split: VectorizedSplit, batch_size: int
@@ -185,7 +182,7 @@ def evaluate(params: Params, memory: torch.Tensor, question: torch.Tensor,
 
 
 def eval_split(params: Params, split: VectorizedSplit, cfg: QmannConfig,
-               chunk: int = 1024, device="cuda"
+               chunk: int = 1024, device="cuda", mesh=None
                ) -> Tuple[float, float, np.ndarray]:
     """Returns (cost, error_rate, predictions).
 
@@ -193,20 +190,30 @@ def eval_split(params: Params, split: VectorizedSplit, cfg: QmannConfig,
     (one shape per run).  Zero-padded samples contribute nothing: the cost
     -sum(y*p) and the match test hit==1.0 are both null on an all-zero
     answer, and a sample with no live memory row is NaN-free.  The host
-    reads the sums once, after the last chunk."""
-    dev = resolve_device(device)
+    reads the sums once, after the last chunk.
+
+    mesh: every rank calls this alike, with params whole on its device; a
+    chunk's batch goes over "data" and its memory over "model" as
+    ``parallel.sharding.infer_specs`` places them, and every rank returns
+    the whole split's results."""
     n = len(split)
     costs, matches, preds = [], [], []
+    if mesh is None:
+        dev = resolve_device(device)
 
-    def padded(x, s, e):
-        return torch.from_numpy(_pad_to(x[s:e], chunk)).to(dev)
+        def run(*arrays):
+            return evaluate(params, *(torch.from_numpy(a).to(dev)
+                                      for a in arrays), cfg)
+    else:
+        from qmann_tpu_torch.parallel.sharding import sharded_evaluate
+
+        def run(*arrays):
+            return sharded_evaluate(params, *arrays, cfg, mesh)
 
     for s in range(0, n, chunk):
         e = min(s + chunk, n)
-        c, m, p = evaluate(params, padded(split.memory, s, e),
-                           padded(split.question, s, e),
-                           padded(split.answer, s, e),
-                           padded(split.mask, s, e), cfg)
+        c, m, p = run(*(_pad_to(x[s:e], chunk) for x in (
+            split.memory, split.question, split.answer, split.mask)))
         costs.append(c)
         matches.append(m)
         preds.append(p[:e - s])
@@ -243,15 +250,39 @@ def _similarity_dump(analyzer, itr: int, params: Params,
                         valid.mask[s:e], sample_offset=s)
 
 
+def _shard_epoch_batches(mesh, step, batches: Mapping[str, np.ndarray],
+                         remove_softmax: bool = False):
+    """This rank's blocks of [NB, B, ...] epoch arrays, on its device, and
+    their layout (``parallel.sharding.layout``: the batch over "data", the
+    memory over "model" where the step splits it); size_b whole."""
+    from qmann_tpu_torch.parallel.sharding import shard_batch
+    lay = step.layout(batches["question"].shape[1],
+                      batches["mask"].shape[-1], remove_softmax)
+    return shard_batch(mesh, batches, lay.specs(lead=(None,))), lay
+
+
+def _mesh_epoch(step, params: Params, batches, lay, lr,
+                remove_softmax: bool):
+    """``train_epoch`` over the mesh: the sharded step on each batch's
+    blocks.  Returns (params, summed cost, summed matches)."""
+    costs, matches = [], []
+    for i in range(batches["memory"].shape[0]):
+        c, m = step.local(params, {k: v[i] for k, v in batches.items()}, lr,
+                          batches["size_b"][i], lay, remove_softmax)
+        costs.append(c)
+        matches.append(m)
+    return params, torch.stack(costs).sum(), torch.stack(matches).sum()
+
+
 def train_task(cfg: QmannConfig, data: TaskData,
                params: Optional[Mapping[str, torch.Tensor]] = None,
                device="cuda", mesh=None, log=print) -> TrainResult:
     """Full training run for one task (the reference's per-task loop).
 
-    params: initial weights (copied to ``device``; the caller's tensors are
-    not modified), else ``init_params`` from ``cfg.seed``."""
-    check_ported(cfg, mesh)
-    dev = resolve_device(device)
+    params: initial weights (copied to ``device``, or to the mesh rank's
+    device; the caller's tensors are not modified), else ``init_params``
+    from ``cfg.seed``.  mesh: see the module docstring."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     if params is None:
         params = memn2n.init_params(cfg, data.dims,
                                     torch.Generator().manual_seed(cfg.seed),
@@ -260,10 +291,18 @@ def train_task(cfg: QmannConfig, data: TaskData,
               for k, v in params.items()}
 
     n_train = len(data.train)
-    batches = {k: torch.from_numpy(v).to(dev) for k, v in
-               _batched_arrays(data.train, cfg.size_batch).items()}
+    batches_np = _batched_arrays(data.train, cfg.size_batch)
+    if mesh is None:
+        batches = {k: torch.from_numpy(v).to(dev)
+                   for k, v in batches_np.items()}
+    else:
+        from qmann_tpu_torch.parallel.mesh import rank0_only
+        from qmann_tpu_torch.parallel.sharding import make_sharded_train_step
+        step = make_sharded_train_step(cfg, mesh)
+        cut = None    # (remove_softmax, this rank's blocks, their layout)
+        log = rank0_only(log, mesh)
     train_dev = None
-    if cfg.en_sample_shuffled:
+    if cfg.en_sample_shuffled and mesh is None:
         # once-per-task upload of the unbatched sample arrays; per-epoch
         # shuffles gather them on the device (_pack_shuffled)
         train_dev = tuple(torch.from_numpy(a).to(dev) for a in (
@@ -275,7 +314,8 @@ def train_task(cfg: QmannConfig, data: TaskData,
     total_epochs = cfg.num_itr + (cfg.num_itr_linear_start
                                   if cfg.en_linear_start else 0)
     analyzer = (SimilarityAnalyzer(cfg.similarity_analysis_dir, total_epochs)
-                if cfg.en_similarity_analysis else None)
+                if cfg.en_similarity_analysis
+                and (mesh is None or mesh.rank == 0) else None)
     best_params = None
     err_valid_best, cost_valid_best = float("inf"), float("inf")
     ind_early_stopping = 0
@@ -287,14 +327,30 @@ def train_task(cfg: QmannConfig, data: TaskData,
             perm = torch.from_numpy(rng.permutation(n_train)).to(dev)
             batches = {**batches, **_pack_shuffled(*train_dev, perm,
                                                    cfg.size_batch)}
+        elif cfg.en_sample_shuffled:
+            perm = rng.permutation(n_train)
+            t = data.train
+            batches_np = _batched_arrays(VectorizedSplit(
+                t.memory[perm], t.question[perm], t.answer[perm],
+                t.n_sen[perm], t.answer_index[perm]), cfg.size_batch)
+            cut = None
         lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
-        params, cost_t, match_t = train_epoch(params, batches, lr_t, cfg,
-                                              remove_softmax)
+        if mesh is None:
+            params, cost_t, match_t = train_epoch(params, batches, lr_t, cfg,
+                                                  remove_softmax)
+        else:
+            # linear start keeps the memory whole: cut again when the
+            # layout changes
+            if cut is None or cut[0] != remove_softmax:
+                cut = (remove_softmax, *_shard_epoch_batches(
+                    mesh, step, batches_np, remove_softmax))
+            params, cost_t, match_t = _mesh_epoch(step, params, *cut[1:],
+                                                  lr_t, remove_softmax)
         cost_train = float(cost_t)
         err_train = 1.0 - int(match_t) / max(n_train, 1)
 
         cost_valid, err_valid, _ = eval_split(params, data.valid, cfg,
-                                              device=dev)
+                                              device=dev, mesh=mesh)
         if analyzer is not None:
             _similarity_dump(analyzer, itr, params, data.valid, cfg, dev)
 
@@ -325,7 +381,7 @@ def train_task(cfg: QmannConfig, data: TaskData,
                                   and best_params is not None) else params
     t0 = time.time()
     cost_test, err_test, _ = eval_split(eval_params, data.test, cfg,
-                                        device=dev)
+                                        device=dev, mesh=mesh)
     time_test = time.time() - t0
     return TrainResult(params, best_params, history, err_test, cost_test,
                        time_train, time_test)

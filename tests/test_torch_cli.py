@@ -133,19 +133,32 @@ def test_main_joint_mode_on_the_cpu(corpus, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--mesh", "2,1"], ["--linear-start"],
                                   ["--sc-att"], ["--shift-based-sm"],
                                   ["--att-shift"], ["--att-clip"]])
-def test_unported_flags_raise_before_reading_data(tmp_path, request, flag):
-    """--mesh raises before any data is read (no data exists at the paths
-    given).  The feature flags are ported: each runs task 1 on 32 stories
-    of the files the fixture writes (--linear-start: 1 epoch after the 5
-    linear-start ones), writes its result row and a checkpoint whose config
-    carries the flag."""
+def test_unported_flags_raise_before_reading_data(tmp_path, request, flag,
+                                                  capsys):
+    """--mesh 2,1 outside torchrun exits 2 before any data is read (no data
+    exists at the paths given), naming torchrun; --mesh 1,1 runs on a group
+    of this one process, prints the mesh banner with its backend, writes
+    its result row and leaves no process group behind.  The feature flags
+    each run task 1 on 32 stories of the files the fixture writes
+    (--linear-start: 1 epoch after the 5 linear-start ones), write their
+    result row and a checkpoint whose config carries the flag."""
+    import torch.distributed as dist
     if flag[0] == "--mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["1", "1", "1", "5", *flag, "--device", "cpu",
-                      "--data-path", str(tmp_path / "none"),
-                      "--raw-data-path", str(tmp_path / "none"),
-                      "--out-dir", str(tmp_path)])
-        assert os.listdir(tmp_path) == []
+        assert cli.main(["1", "1", "1", "5", *flag, "--device", "cpu",
+                         "--data-path", str(tmp_path / "none"),
+                         "--raw-data-path", str(tmp_path / "none"),
+                         "--out-dir", str(tmp_path)]) == 2
+        assert "torch.distributed.run --standalone --nproc-per-node 2" in \
+            capsys.readouterr().err
+        assert os.listdir(tmp_path) == [] and not dist.is_initialized()
+        corpus = request.getfixturevalue("corpus")
+        out = tmp_path / "out"
+        assert cli.main(["1", "1", "1", "5", "--mesh", "1,1",
+                         "--max-samples", "32", *_small(*corpus, out)]) == 0
+        assert "< Mesh : data=1 model=1 > backend gloo" in \
+            capsys.readouterr().out
+        assert [r[0] for r in _rows(out / "result.csv")] == ["1"]
+        assert not dist.is_initialized()
         return
     corpus = request.getfixturevalue("corpus")
     out = tmp_path / "out"
@@ -163,7 +176,7 @@ def test_unported_flags_raise_before_reading_data(tmp_path, request, flag):
     assert all(np.isfinite(v).all() for v in params.values())
 
 
-def test_cli_and_qps_default_to_the_card(corpus, tmp_path):
+def test_cli_and_qps_default_to_the_card(corpus, tmp_path, capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the defaults run on it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -171,8 +184,13 @@ def test_cli_and_qps_default_to_the_card(corpus, tmp_path):
                   "--raw-data-path", corpus[1], "--out-dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         qps.main(["--synthetic"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        qps.main(["--sharded", "--device", "cpu"])
+    # --sharded parses and changes nothing, as JAX's flag; devices is the
+    # world size (no process group: 1)
+    assert qps.main(["--sharded", "--synthetic", "--device", "cpu",
+                     "--batch", "8", "--iters", "1", "--train-iters", "1",
+                     "--requests", "8", "--max-samples", "32"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["devices"] == 1 and line["inference_qps"] > 0
 
 
 def test_qps_synthetic_on_the_cpu(capsys):
@@ -521,3 +539,103 @@ def test_backend_ab_variants_give_identical_predictions(mode, variants,
         memn2n.forward_prepared = real
     with pytest.raises(SystemExit):
         backend_ab.main(["--variants", "unfused,hamming", "--device", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# bench/scaling.py, bench/diagnose.py and bench/scatt_study.py against the
+# JAX tools
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tool,extras", [
+    ("scaling", {"device"}),
+    ("diagnose", DATA_FLAGS | {"device"}),
+    ("scatt_study", DATA_FLAGS | {"device"})])
+def test_study_tool_flags_match_jax(tool, extras):
+    import importlib
+    jmod = importlib.import_module(f"qmann_tpu.bench.{tool}")
+    tmod = importlib.import_module(f"qmann_tpu_torch.bench.{tool}")
+    want = _actions(_jax_parser(jmod.main))
+    got = _actions(tmod.build_parser() if hasattr(tmod, "build_parser")
+                   else _jax_parser(tmod.main))
+    assert set(got) == set(want) | extras
+    for dest, w in want.items():
+        for field in ("option_strings", "default", "type", "nargs", "const"):
+            assert getattr(got[dest], field) == getattr(w, field), (dest,
+                                                                    field)
+    assert got["device"].default == "cuda"
+
+
+def test_scaling_on_cpu_ranks(capsys):
+    """--device cpu --devices 1,2: a group of one and of two gloo processes,
+    one JSON line each with the JAX tool's keys, efficiency 1 at the first
+    count.  Without a card the default device raises."""
+    from qmann_tpu_torch.bench import scaling
+    assert scaling.main(["--device", "cpu", "--devices", "1,2", "--batch",
+                         "8", "--memory-rows", "4", "--dim-input", "16",
+                         "--dim-emb", "8", "--iters", "2"]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [r["devices"] for r in rows] == [1, 2]
+    for r in rows:
+        assert {"devices", "train_samples_per_sec",
+                "scaling_efficiency"} <= set(r)
+        assert r["train_samples_per_sec"] > 0 and r["card"] is None
+    assert rows[0]["scaling_efficiency"] == 1.0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            scaling.main(["--devices", "1"])
+
+
+@pytest.fixture
+def jax_paths(monkeypatch, corpus):
+    """The JAX tools read the config's default dataset paths: point their
+    loader at the fixture's files."""
+    from qmann_tpu.data import native as jnative
+    real = jnative.load_task_native
+
+    def load(task, _path, raw_path=None, **kw):
+        return real(task, corpus[0], raw_path=corpus[1], **kw)
+
+    monkeypatch.setattr(jnative, "load_task_native", load)
+    return ["--data-path", corpus[0], "--raw-data-path", corpus[1]]
+
+
+def _json_lines(text):
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def test_diagnose_matches_jax_diagnose(jax_paths, jax_init, capsys):
+    """2 epochs on task 1's 32 first stories from JAX's weights: the same
+    records, key for key and value for value (errors, the probe's pinned
+    share and largest score, each weight's max|w|, all rounded as JAX
+    rounds them)."""
+    from qmann_tpu.bench import diagnose as jdiagnose
+    from qmann_tpu_torch.bench import diagnose
+    args = ["--epochs", "2", "--max-samples", "32"]
+    assert jdiagnose.main(args) == 0
+    want = _json_lines(capsys.readouterr().out)
+    assert diagnose.main([*args, *jax_paths, "--device", "cpu"]) == 0
+    got = _json_lines(capsys.readouterr().out)
+    assert len(got) == len(want) == 2
+    assert got == want
+
+
+def test_scatt_study_matches_jax_scatt_study(jax_paths, jax_init, tmp_path,
+                                             capsys):
+    """Every mitigation for 1 epoch and 1 seed on task 1 from JAX's
+    weights: summary.json's rows equal JAX's but for the wall clock; with
+    --resume a second run trains nothing and keeps the rows."""
+    from qmann_tpu.bench import scatt_study as jstudy
+    from qmann_tpu_torch.bench import scatt_study
+    args = ["--epochs", "1", "--seeds", "1"]
+    jout, tout = tmp_path / "jax", tmp_path / "torch"
+    assert [m for m, _ in scatt_study.MITIGATIONS] == \
+        [m for m, _ in jstudy.MITIGATIONS]
+    assert jstudy.main([*args, "--out-dir", str(jout)]) == 0
+    assert scatt_study.main([*args, *jax_paths, "--out-dir", str(tout),
+                             "--device", "cpu"]) == 0
+    _rows_equal(_summary(tout), _summary(jout))
+    capsys.readouterr()
+    assert scatt_study.main([*args, *jax_paths, "--out-dir", str(tout),
+                             "--device", "cpu", "--resume"]) == 0
+    assert _json_lines(capsys.readouterr().out) == []
+    assert len(_summary(tout)) == len(scatt_study.MITIGATIONS)

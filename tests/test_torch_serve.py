@@ -332,12 +332,35 @@ def test_engine_answers_match_jax_engine(jax_answers, mode, prepare):
 
 
 def test_snapshot_answer_word_and_refusals():
+    """The engine over a mesh of one rank (a group of this process) pins
+    the plain prepared forward and answers as the plain route; then the
+    stats snapshot and a failed wave."""
+    import torch.distributed as dist
+    from qmann_tpu_torch.parallel import make_mesh
+    from qmann_tpu_torch.parallel.launch import init_single_process
     td, _ = _dictionaries()
     cfg = QmannConfig(dim_emb=8, verbose=False)
     params = memn2n.init_params(cfg, DIMS, torch.Generator().manual_seed(0),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        InferenceEngine(params, cfg, DIMS, td, mesh=object(), device="cpu")
+    answers = {}
+    init_single_process("cpu")
+    try:
+        for mesh in (make_mesh(device="cpu"), None):
+            eng = InferenceEngine(params, cfg.replace(use_fused_chain=True)
+                                  if mesh else cfg, DIMS, td, batch_size=4,
+                                  max_wait_ms=20.0, mesh=mesh,
+                                  device="cpu").start()
+            try:
+                answers[mesh is None] = [f.result(timeout=60) for f in [
+                    eng.submit_indexed(s) for s in edge_samples()]]
+            finally:
+                eng.stop()
+            assert not eng._thread.is_alive()
+            assert eng.stats.failed_waves == 0
+            assert not eng.cfg.use_fused_chain
+    finally:
+        dist.destroy_process_group()
+    assert answers[False] == answers[True]
     eng = InferenceEngine(params, cfg, DIMS, td, batch_size=4,
                           max_wait_ms=20.0, device="cpu").start()
     try:

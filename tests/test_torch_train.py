@@ -447,8 +447,10 @@ def test_eval_split_matches_jax_over_three_chunks(kw):
                                       "similarity"),
                                      (dict(), "mesh")])
 def test_train_task_refuses_what_is_not_ported(kw, what, tmp_path):
-    """The mesh raises.  Linear start and the similarity analysis are
-    ported: the linear case runs a 3-epoch train_task (2 linear-start
+    """Every case is ported.  The mesh case trains on a mesh of one rank (a
+    group of this process) and gives the single-device run's history and
+    test error exactly (no collective crosses an axis of size 1).  The
+    linear case runs a 3-epoch train_task (2 linear-start
     epochs, softmax removed at half the lr, then 1) on the kernel route
     against JAX's history from the same weights (errors and lr exact,
     costs rtol 1e-4, as test_train_task_history_matches_jax; the plain
@@ -456,7 +458,6 @@ def test_train_task_refuses_what_is_not_ported(kw, what, tmp_path):
     similarity case checks that
     the run writes the first 25-epoch bucket's two CSVs."""
     data = babi.synthetic_task(np.random.default_rng(0), 4, 1, 1, V, M, W)
-    extra = {"mesh": object()} if what == "mesh" else {}
     if what == "similarity":
         cfg = QmannConfig(dim_emb=8, num_itr=1, verbose=False,
                           similarity_analysis_dir=str(tmp_path), **kw)
@@ -489,9 +490,23 @@ def test_train_task_refuses_what_is_not_ported(kw, what, tmp_path):
         assert got.err_test == want.err_test
         np.testing.assert_allclose(got.cost_test, want.cost_test, rtol=1e-4)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train_task(QmannConfig(dim_emb=8, **kw), data, device="cpu",
-                           **extra)
+    import torch.distributed as dist
+    from qmann_tpu_torch.parallel import make_mesh
+    from qmann_tpu_torch.parallel.launch import init_single_process
+    cfg = QmannConfig(dim_emb=8, num_itr=2, use_pallas=True,
+                      en_sample_shuffled=True, verbose=False, **kw)
+    data = babi.synthetic_task(np.random.default_rng(3), 70, 20, 20, V, M, W)
+    pt = memn2n.params_from_jax(jax_params({"dim_emb": 8}, data.dims), cfg,
+                                device="cpu")
+    want = trainer.train_task(cfg, data, pt, device="cpu")
+    init_single_process("cpu")
+    try:
+        got = trainer.train_task(cfg, data, pt, mesh=make_mesh(device="cpu"))
+    finally:
+        dist.destroy_process_group()
+    assert [dataclasses.astuple(h) for h in got.history] == \
+        [dataclasses.astuple(h) for h in want.history]
+    assert (got.err_test, got.cost_test) == (want.err_test, want.cost_test)
 
 
 def test_similarity_dump_covers_linear_start_epochs(tmp_path, monkeypatch):
