@@ -219,14 +219,36 @@ The device mesh (parallel/), at the flagship widths:
                (one JSON line) and --devices 2 (exit 2 on one card), and
                bench/diagnose.py and bench/scatt_study.py for 2 epochs on
                phase 14's task-1 files (records present and finite)
+JAX's compiled programs as CUDA graphs (graphs.py):
+ 19. graphs  — at the flagship widths on phase 7's data: 2 epochs of
+               train_epoch as replays of the step's captured graph against
+               the eager train_step loop, in mode 2 iwl 5 and mode 3 iwl 1
+               on use_pallas and mode 3 iwl 1 on use_pallas_hamming
+               (gates: parameters and costs bit-identical, or else within
+               rtol 1e-4, atol 1e-6 with the differing elements counted;
+               the launches of the graphed epochs those of the eager
+               steps, the launches per replay those of one eager step);
+               the event time per step, graphed against eager, in 5
+               strictly alternating pairs of 10 steps, with the profiler's
+               busy time and idle share; bench.py's program
+               (dependent_batches, B=1000, K=30) on the chain in modes 2
+               and 3 at iwl 5, graphed against eager (predictions equal,
+               90 chain launches in 3 programs; ms per batch); an engine
+               with use_fused_chain answering 200 requests in waves of 64
+               (answers equal to the eager forward's, one chain launch per
+               wave; wave p50 and p99 of the graphed and the eager
+               forward on the vectorized waves, host clock); phase 16's
+               R = 200 family for 2 epochs through multi_epoch, graphed
+               and eager (parameters bit-identical; epoch seconds)
 Then one JSON line of kernels (the read's and the Hamming kernel's with
 their eval-chunk and wide entries, qmatvec's with its tiled shapes, each
 with its launches on phase 15's paths, each one's family entry, the
 chain's launches on the server path and the lattice's and read's on the
 unprepared engine, each one's mesh entry: its launches summed over the
 ranks of phase 18's (2, 2) and (1, 1) paths, its shapes there and its
-largest difference from its plain version at them), the card's name and power
-limit, and as the last line
+largest difference from its plain version at them, and its launches on
+each graphed path of phase 19), the card's name and power limit, and as
+the last line
 {"ok": true, "device": {...}}.
 
 Phase 17 runs mode 3 in backend_ab at iwl 5, JAX's default: at iwl 1
@@ -806,22 +828,37 @@ def fast_path_tally(memn2n):
 
 
 def run_family(multi, cfg, tasks, seeds, dev, counts, params=None):
-    """train_tasks_multi on the card with a spy in family_step's place:
-    returns (result, launches per step, launches of the whole run)."""
-    per_step, real = [], multi.family_step
+    """train_tasks_multi on the card with a spy in family_step's place and
+    one on the replays of the family step's graph: returns (result,
+    launches per family step that ran, launches of the whole run).  The
+    spy records the step's eager run (the graph's warm-up); the call made
+    while the graph is captured runs no kernel and is not a step (the
+    graph takes its counts back); each replay is one step, and adds what
+    the capture counted."""
+    import torch
+    from qmann_tpu_torch import graphs
+    per_step, real, replay = [], multi.family_step, graphs.Graph.replay
 
     def spy(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return real(*args, **kw)
         before = counts()
         out = real(*args, **kw)
         per_step.append({k: v - before[k] for k, v in counts().items()})
         return out
 
-    multi.family_step = spy
+    def replay_spy(self):
+        before = counts()
+        replay(self)
+        if self.key[0] == "family_step":
+            per_step.append({k: v - before[k] for k, v in counts().items()})
+
+    multi.family_step, graphs.Graph.replay = spy, replay_spy
     try:
         res = multi.train_tasks_multi(cfg, tasks, seeds, params=params,
                                       device=dev)
     finally:
-        multi.family_step = real
+        multi.family_step, graphs.Graph.replay = real, replay
     return res, per_step, counts()
 
 
@@ -1629,6 +1666,299 @@ def phase_mesh(card, dev, data_path, raw_path, single_err):
                 **at_mesh.get(k, {"max_abs_err": None, "shapes": [],
                                   "signatures": 0})}
             for k in n22}
+
+
+# ---------------------------------------------------------------------------
+# 19. the captured programs (graphs.py) against the eager route
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = (("mode 2 iwl 5, use_pallas", dict(use_pallas=True)),
+               ("mode 3 iwl 1, use_pallas", dict(attention_mode=3, iwl=1,
+                                                 use_pallas=True)),
+               ("mode 3 iwl 1, use_pallas_hamming",
+                dict(attention_mode=3, iwl=1, use_pallas_hamming=True)))
+GRAPH_PAIRS = 5            # strictly alternating (eager, graphed) samples
+GRAPH_TIMED_STEPS = 10     # steps per timing sample
+GRAPH_ENGINE_REQUESTS, GRAPH_WAVE = 200, 64
+KERNEL_KEYS = ("qmatvec", "attention_read", "hamming_score", "hop_chain")
+
+
+def event_ms(fn):
+    """CUDA-event ms of one fn() call, from an idle card."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def paired_ms(eager, graphed, per=1):
+    """GRAPH_PAIRS strictly alternating samples of the two calls (eager
+    first in even pairs, graphed first in odd), each over ``per`` units:
+    {"eager": [ms per unit], "graphed": [...]}."""
+    out = {"eager": [], "graphed": []}
+    for i in range(GRAPH_PAIRS):
+        order = (("eager", eager), ("graphed", graphed))
+        for side, fn in (order if i % 2 == 0 else order[::-1]):
+            out[side].append(event_ms(fn) / per)
+    return out
+
+
+def same_values(tag, what, got, want):
+    """Graphed against eager: prints whether the values are bit-identical,
+    and if not how many elements differ and by how much at most; fails
+    unless they hold the parity contract's float32 tolerance for a
+    multi-step run (rtol 1e-4, atol 1e-6).  got, want: tensors or dicts of
+    tensors."""
+    import torch
+    pairs = ([(k, got[k], want[k]) for k in want] if isinstance(want, dict)
+             else [(what, got, want)])
+    n_diff = sum(int((g != w).sum()) for _, g, w in pairs)
+    worst = max(float((g.double() - w.double()).abs().max()) if g.numel()
+                else 0.0 for _, g, w in pairs)
+    print(f"[19 graphs] {tag}: {what} bit-identical: {n_diff == 0}"
+          + ("" if n_diff == 0 else f" ({n_diff} elements differ, largest "
+             f"|difference| {worst:.3g})"), flush=True)
+    if not all(torch.allclose(g.double(), w.double(), rtol=1e-4, atol=1e-6)
+               for _, g, w in pairs):
+        fail(f"the graphed {what} differ from the eager route's ({tag})")
+    return n_diff
+
+
+def phase_graphs(card, dev, data, serve_dims, dictionary, family):
+    """Phase 19: train_epoch, dependent_batches, the engine's wave and
+    multi_epoch as replayed CUDA graphs against the eager route.  Returns
+    {kernel: {path: launches}} of the graphed paths."""
+    import numpy as np
+    import torch
+    from qmann_tpu_torch import graphs as graphs_mod
+    from qmann_tpu_torch.bench.common import dependent_batches
+    from qmann_tpu_torch.config import QmannConfig
+    from qmann_tpu_torch.data import synthetic_batch
+    from qmann_tpu_torch.models import memn2n
+    from qmann_tpu_torch.serve import InferenceEngine, Request
+    from qmann_tpu_torch.train import multi, train_epoch, train_step
+    from qmann_tpu_torch.train.trainer import _batched_arrays
+    tag = "19 graphs"
+    t_phase = time.perf_counter()
+    launches = {k: {} for k in KERNEL_KEYS}
+
+    def ran(before):
+        return dict(zip(KERNEL_KEYS, (a - b for a, b in zip(
+            graphs_mod.launch_counts(), before))))
+
+    def record(path, got):
+        for k, v in got.items():
+            launches[k][path] = v
+
+    def per_call_busy(fn, per):
+        kernels = device_ms(fn, n_iter=2)
+        return (sum(ms for ms, _ in kernels.values()) / per,
+                sum(n for _, n in kernels.values()) / per)
+
+    # (a) train_epoch: two graphed epochs against the eager step loop
+    batches = {k: torch.from_numpy(v).to(dev) for k, v in
+               _batched_arrays(data.train, TRAIN_BATCH).items()}
+    nb = batches["memory"].shape[0]
+    timed = {k: v[:GRAPH_TIMED_STEPS].contiguous()
+             for k, v in batches.items()}
+    print(f"[{tag}] {card} | train epochs of {nb} steps at B={TRAIN_BATCH} "
+          f"on phase 7's data", flush=True)
+    for name, kw in GRAPH_STEPS:
+        cfg = QmannConfig(verbose=False, **kw)
+        lr = torch.tensor(cfg.learning_rate, device=dev)
+        base = {k: 4.0 * v for k, v in memn2n.init_params(
+            cfg, data.dims, torch.Generator().manual_seed(SEED),
+            device=dev).items()}
+        p_e = {k: v.clone() for k, v in base.items()}
+        cost_e = []
+        before = graphs_mod.launch_counts()
+        for _ in range(2):
+            cost_e.append(torch.stack([train_step(
+                p_e, {k: v[i] for k, v in batches.items()}, lr, cfg)[0]
+                for i in range(nb)]).sum())
+        torch.cuda.synchronize()
+        eager_ran = ran(before)
+        p_g = {k: v.clone() for k, v in base.items()}
+        g = graphs_mod.Graphs(dev)
+        before = graphs_mod.launch_counts()
+        cost_g = [train_epoch(p_g, batches, lr, cfg, graphs=g)[1]
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+        graph_ran = ran(before)
+        record(f"train {name}", graph_ran)
+        (captured,) = g.graphs.values()
+        per_replay = dict(zip(KERNEL_KEYS, captured.launches))
+        per_step = {k: v / (2 * nb) for k, v in eager_ran.items()}
+        print(f"[{tag}] {name}: launches in 2 epochs, graphed {graph_ran}, "
+              f"eager {eager_ran}; per replay {per_replay} ({captured.replays}"
+              f" replays, want {2 * nb - 1})", flush=True)
+        if (graph_ran != eager_ran or per_replay != per_step
+                or captured.replays != 2 * nb - 1):
+            fail(f"the graphed epochs launched other kernels than the eager "
+                 f"steps ({name})")
+        same_values(name, "parameters after 2 epochs", p_g, p_e)
+        same_values(name, "epoch costs", torch.stack(cost_g),
+                    torch.stack(cost_e))
+        # times: GRAPH_TIMED_STEPS steps per sample, pairs alternating
+        p_te = {k: v.clone() for k, v in base.items()}
+        p_tg = {k: v.clone() for k, v in base.items()}
+        g_t = graphs_mod.Graphs(dev)
+
+        def eager_steps():
+            for i in range(GRAPH_TIMED_STEPS):
+                train_step(p_te, {k: v[i] for k, v in timed.items()}, lr,
+                           cfg)
+
+        def graphed_steps():
+            train_epoch(p_tg, timed, lr, cfg, graphs=g_t)
+
+        eager_steps()
+        graphed_steps()   # warm-up and capture
+        t = paired_ms(eager_steps, graphed_steps, GRAPH_TIMED_STEPS)
+        busy = {"eager": per_call_busy(eager_steps, GRAPH_TIMED_STEPS),
+                "graphed": per_call_busy(graphed_steps, GRAPH_TIMED_STEPS)}
+        print(f"[{tag}] {card} | train step, {name}: event ms per step "
+              f"(median of {GRAPH_PAIRS} alternating pairs) eager "
+              f"{statistics.median(t['eager']):.4f} "
+              f"{[round(x, 4) for x in t['eager']]}, graphed "
+              f"{statistics.median(t['graphed']):.4f} "
+              f"{[round(x, 4) for x in t['graphed']]}; "
+              + "; ".join(f"{side} busy {b:.4f} ms over {n:.1f} kernel "
+                          f"records, idle share "
+                          f"{1 - b / statistics.median(t[side]):.3f}"
+                          for side, (b, n) in busy.items()), flush=True)
+
+    # (b) bench.py's program: 30 dependent B=1000 batches on the chain
+    V, M, W = 19, 10, 6   # qa1's shape, as phases 4 and 7
+    for name, cfg in (("mode 2 iwl 5", QmannConfig(use_fused_chain=True)),
+                      ("mode 3 iwl 5", QmannConfig(attention_mode=3,
+                                                   use_fused_chain=True))):
+        dims, mem, que, mask = synthetic_batch(np.random.default_rng(SEED),
+                                               BATCH, V, M, W)
+        _, _, prep = scaled_prepared(cfg, dims, mem, dev)
+        args = [torch.from_numpy(a).to(dev) for a in (mem, que, mask)]
+
+        def forward(m, q, k, prep=prep, cfg=cfg):
+            return memn2n.forward_prepared(prep, m, q, k, cfg)
+
+        want = dependent_batches(forward, *args, 30)
+        g = graphs_mod.Graphs(dev)
+        before = graphs_mod.launch_counts()
+        got = [dependent_batches(forward, *args, 30, g) for _ in range(3)]
+        torch.cuda.synchronize()
+        graph_ran = ran(before)
+        record(f"dependent_batches {name}", graph_ran)
+        equal = all(torch.equal(x, want) for x in got)
+        t = paired_ms(lambda: dependent_batches(forward, *args, 30),
+                      lambda: dependent_batches(forward, *args, 30, g), 30)
+        print(f"[{tag}] {card} | dependent_batches B={BATCH} K=30, {name}, "
+              f"chain: predictions equal to the eager loop's: {equal}; "
+              f"chain launches {graph_ran['hop_chain']} in 3 programs (want "
+              f"90); ms per batch (median of {GRAPH_PAIRS} alternating "
+              f"pairs) eager {statistics.median(t['eager']):.4f}, graphed "
+              f"{statistics.median(t['graphed']):.4f}", flush=True)
+        if not equal or graph_ran["hop_chain"] != 90:
+            fail(f"the graphed dependent batches differ from the eager "
+                 f"loop ({name})")
+
+    # (c) the engine: waves of 64, the wave a replayed graph
+    rng = np.random.default_rng(SEED)
+    words = dictionary.words[1:]
+    stories = [([[words[i] for i in rng.integers(0, len(words),
+                                                 rng.integers(1, W + 1))]
+                 for _ in range(rng.integers(1, M + 3))],
+                [words[i] for i in rng.integers(0, len(words), 4)])
+               for _ in range(GRAPH_ENGINE_REQUESTS)]
+    cfg = QmannConfig(use_fused_chain=True)
+    _, mem0, _, _ = synthetic_batch(rng, 8, V, M, W)
+    _, params, _ = scaled_prepared(cfg, serve_dims, mem0, dev)
+    eng = InferenceEngine(params, cfg, serve_dims, dictionary,
+                          batch_size=GRAPH_WAVE, device=dev)
+    before = graphs_mod.launch_counts()
+    eng.start()
+    try:
+        answers = [f.result(timeout=300) for f in
+                   [eng.submit(s, q) for s, q in stories]]
+    finally:
+        eng.stop()
+    graph_ran = ran(before)
+    record("engine", graph_ran)
+    waves = [eng._vectorize([Request(s, q) for s, q in
+                             stories[i:i + GRAPH_WAVE]])
+             for i in range(0, len(stories), GRAPH_WAVE)]
+
+    def eager_wave(wave):
+        return eng._predict(*(torch.from_numpy(a).to(dev)
+                              for a in wave)).cpu().numpy()
+
+    want = [int(p) for i, w in enumerate(waves) for p in eager_wave(w)[
+        :len(stories[i * GRAPH_WAVE:(i + 1) * GRAPH_WAVE])]]
+    lat = {"eager": [], "graphed": []}
+    for i in range(40):
+        order = (("eager", eager_wave), ("graphed",
+                                         lambda w: eng.infer(*w)))
+        for side, fn in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            fn(waves[i % len(waves)])
+            lat[side].append(1e3 * (time.perf_counter() - t0))
+    print(f"[{tag}] {card} | engine, {len(stories)} requests in waves of "
+          f"{GRAPH_WAVE}: {eng.stats.waves} waves, failed "
+          f"{eng.stats.failed_waves}, chain launches "
+          f"{graph_ran['hop_chain']}; answers equal to the eager forward's: "
+          f"{answers == want}; wave ms (host clock, to the predictions on "
+          f"the host, 40 waves each, alternating) eager p50 "
+          f"{np.percentile(lat['eager'], 50):.4f} p99 "
+          f"{np.percentile(lat['eager'], 99):.4f}, graphed p50 "
+          f"{np.percentile(lat['graphed'], 50):.4f} p99 "
+          f"{np.percentile(lat['graphed'], 99):.4f}", flush=True)
+    if (answers != want or eng.stats.failed_waves
+            or graph_ran["hop_chain"] != eng.stats.waves):
+        fail("the graphed engine's answers or launches differ from the "
+             "eager route's")
+
+    # (d) the R = 200 family through multi_epoch, graphed and eager
+    fam, seeds, stacked, cfg16 = family
+    epoch_s = {"graphed": [], "eager": []}
+    res = {}
+    real_epoch, real_runner = multi.multi_epoch, multi._runner
+    for side in ("graphed", "eager"):
+        def timed_epoch(*a, **kw):
+            t0 = time.perf_counter()
+            out = real_epoch(*a, **kw)
+            torch.cuda.synchronize()
+            epoch_s[side].append(time.perf_counter() - t0)
+            return out
+
+        multi.multi_epoch = timed_epoch
+        if side == "eager":
+            multi._runner = lambda graphs, cfg: multi._eager
+        before = graphs_mod.launch_counts()
+        try:
+            res[side] = multi.train_tasks_multi(cfg16, fam, seeds,
+                                                params=stacked, device=dev)
+        finally:
+            multi.multi_epoch, multi._runner = real_epoch, real_runner
+        if side == "graphed":
+            record("family", ran(before))
+    same_values(f"family R={stacked['A'].shape[0]}", "parameters after "
+                f"{cfg16.num_itr} epochs", res["graphed"].params,
+                res["eager"].params)
+    hist_equal = all(np.array_equal(a[k], b[k]) for a, b in zip(
+        res["graphed"].history, res["eager"].history)
+        for k in ("cost_train", "err_train", "cost_valid", "err_valid"))
+    print(f"[{tag}] {card} | family R={stacked['A'].shape[0]} epoch seconds "
+          f"(host clock, validation included; the first graphed epoch "
+          f"warms up and captures): graphed "
+          f"{[round(x, 4) for x in epoch_s['graphed']]}, eager "
+          f"{[round(x, 4) for x in epoch_s['eager']]}; histories "
+          f"bit-identical: {hist_equal}", flush=True)
+    print(f"[{tag}] {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def main():
@@ -2454,9 +2784,9 @@ def main():
                            num_itr=1)
     per_epoch, epoch_real = [], trainer_mod.train_epoch
 
-    def epoch_spy(params, batches, lr, cfg, remove_softmax=False):
+    def epoch_spy(params, batches, lr, cfg, remove_softmax=False, **kw):
         before = counts()
-        out = epoch_real(params, batches, lr, cfg, remove_softmax)
+        out = epoch_real(params, batches, lr, cfg, remove_softmax, **kw)
         per_epoch.append((remove_softmax, {k: v - before[k]
                                            for k, v in counts().items()}))
         return out
@@ -2983,6 +3313,10 @@ def main():
                         rows["result.csv"][0][10])
     tmp.cleanup()
 
+    # 19. the captured programs against the eager route
+    graphs19 = phase_graphs(card, dev, data, serve_dims, dictionary,
+                            (fam, seeds16, stacked, cfg16))
+
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
     b_qmv = qmatvec_bound(*qmv_args["train"][:2])
@@ -3143,6 +3477,8 @@ def main():
     ]
     for entry in kernels_line:
         entry["mesh"] = {"added_in": 10, **mesh18[entry["name"]]}
+        entry["graphs"] = {"added_in": 11,
+                           "launches": graphs19[entry["name"]]}
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@ Layering (bottom-up):
                 parser), vocabulary, vectorizer, synthetic qa1-shaped data
     ops       — quantized ops and backwards; ops/cuda holds the kernels
     models    — MemN2N forward, loss and serving-prepared forward
-    train     — SGD, schedule and the per-task trainer
+    train     — SGD, schedule, the per-task and the family trainers
+    graphs    — captured CUDA graphs of the hot entry points (the
+                counterpart of jax.jit)
     serve     — batched inference engine, the packet codec, the TCP
                 server and client
     utils     — checkpoints, result CSVs, phase profiler and traces, the

@@ -21,8 +21,11 @@ The program: ``--scan-k`` serially dependent batches of ``--batch``
 queries (``bench/common.py::dependent_batches``: each batch adds to the
 question a device scalar made from the previous batch's predictions, as
 JAX's lax.scan body does), with no host sync between them: on the card
-the loop runs under torch's sync debug mode "error", so a sync would
-raise.  Each sample is CUDA events around all K batches; the row gives
+the K batches are one captured CUDA graph per variant (JAX jits the
+scan), run under torch's sync debug mode "error", so a sync would raise.
+The first call (the row's ``first_call_s``) runs them eagerly, the second
+captures the graph, and its predictions must equal the first's.  Each
+sample is CUDA events around all K batches; the row gives
 the median, least and most of ``--repeats`` samples as queries/s (on the
 CPU, ``--device cpu``, the host clock).  The data: qa1's test split
 (``load_task_native`` at the path flags), or with ``--synthetic V,M,W,D``
@@ -114,6 +117,7 @@ def main(argv=None) -> int:
     from qmann_tpu_torch.config import QmannConfig
     from qmann_tpu_torch.data.native import load_task_native
     from qmann_tpu_torch.device import resolve_device
+    from qmann_tpu_torch.graphs import Graphs
     from qmann_tpu_torch.models import memn2n
 
     dev = resolve_device(args.device)
@@ -153,7 +157,9 @@ def main(argv=None) -> int:
         def forward(mem, que, mask_):
             return memn2n.forward_prepared(prepared, mem, que, mask_, cfg)
 
-        return lambda: dependent_batches(forward, memory, question, mask, k)
+        graphs = Graphs(dev)
+        return lambda: dependent_batches(forward, memory, question, mask, k,
+                                         graphs)
 
     ref_preds = None
     rows = []
@@ -168,6 +174,9 @@ def main(argv=None) -> int:
             raise AssertionError(
                 f"{name} diverges: {int((preds != ref_preds).sum())} of "
                 f"{preds.numel()} predictions differ from {names[0]}'s")
+        if not torch.equal(fn().cpu(), preds):   # the capture's replay
+            raise AssertionError(f"{name}: the graph's predictions differ "
+                                 "from the eager call's")
         samples = []
         for _ in range(args.repeats):
             timer.start()

@@ -1,7 +1,7 @@
 """What the port's bench tools share: the card's name, the timer, the data
 flags, qa1 or its synthetic stand-in, and bench.py's program of serially
 dependent batches (``dependent_batches``), which backend_ab,
-probe_dispatch and trace_forward run.
+probe_dispatch and trace_forward run (on the card as one CUDA graph).
 """
 from __future__ import annotations
 
@@ -89,26 +89,34 @@ def load_qa1(args, seed: int = 0, n_train=None):
     return data, f"bAbI {QA1} from {args.data_path} / {args.raw_data_path}"
 
 
-def dependent_batches(forward, mem, que, mask, k: int):
-    """bench.py's program without lax.scan: k serially dependent batches.
-    Each adds to the question a device scalar made from the previous
-    batch's predictions (0, from pred[0] < 0), so no batch can be hoisted
-    and no host sync falls between them.  The prediction is
-    ``argmax_last`` of the logits, which is bench.py's
+def dependent_batches(forward, mem, que, mask, k: int, graphs=None):
+    """bench.py's program (jit over a lax.scan of k batches): k serially
+    dependent batches.  Each adds to the question a device scalar made
+    from the previous batch's predictions (0, from pred[0] < 0), so no
+    batch can be hoisted and no host sync falls between them.  The
+    prediction is ``argmax_last`` of the logits, which is bench.py's
     ``cross_entropy(...).pred``: XLA drops that loss's other outputs as
     dead code, and an eager call would compute them.
-    ``forward(mem, que, mask)`` -> ForwardResult.  Returns the [k, B]
-    predictions, on the device."""
+    ``forward(mem, que, mask)`` -> ForwardResult.  With ``graphs`` (a
+    ``graphs.Graphs``, kept across calls) the k batches are one captured
+    CUDA graph on the card, the carry computed in it; without, they run
+    eagerly.  Returns the [k, B] predictions, on the device."""
     import torch
     from qmann_tpu_torch.ops.losses import argmax_last
-    carry = torch.zeros((), dtype=que.dtype, device=que.device)
-    preds = []
-    with torch.inference_mode():
-        for _ in range(k):
-            pred = argmax_last(forward(mem, que + carry, mask).logits)
-            carry = (pred[0] < 0).to(que.dtype)
-            preds.append(pred)
-        return torch.stack(preds)
+
+    def program(mem, que, mask):
+        carry = torch.zeros((), dtype=que.dtype, device=que.device)
+        preds = []
+        with torch.inference_mode():
+            for _ in range(k):
+                pred = argmax_last(forward(mem, que + carry, mask).logits)
+                carry = (pred[0] < 0).to(que.dtype)
+                preds.append(pred)
+            return torch.stack(preds)
+
+    if graphs is None:
+        return program(mem, que, mask)
+    return graphs(("dependent_batches", forward, k), program, mem, que, mask)
 
 
 def sync_free(fn, dev):

@@ -40,6 +40,7 @@ def main(argv=None) -> int:
     from qmann_tpu_torch.config import QmannConfig
     from qmann_tpu_torch.data.native import load_task_native
     from qmann_tpu_torch.device import resolve_device
+    from qmann_tpu_torch.graphs import Graphs
     from qmann_tpu_torch.models import memn2n
     from qmann_tpu_torch.numerics import fixed_max_float
     from qmann_tpu_torch.train import eval_split, train_epoch
@@ -67,10 +68,14 @@ def main(argv=None) -> int:
     # quantized scores clip AT the bound, so count values pinned there
     maxf = float(fixed_max_float(fmt.iwl, fmt.frac))
 
+    graphs = Graphs(dev)
+    lr_t = graphs.static("lr", ())
     for itr, lr, rm in lr_schedule(cfg):
-        lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
-        params, _, match = train_epoch(params, batches, lr_t, cfg, rm)
-        _, err_valid, _ = eval_split(params, data.valid, cfg, device=dev)
+        lr_t.fill_(lr)
+        params, _, match = train_epoch(params, batches, lr_t, cfg, rm,
+                                       graphs=graphs)
+        _, err_valid, _ = eval_split(params, data.valid, cfg, device=dev,
+                                     graphs=graphs)
         with torch.no_grad():
             out = memn2n.forward(params, pm, pq, pmask, cfg)
         scores = out.scores.cpu().numpy()

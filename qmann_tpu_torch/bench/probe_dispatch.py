@@ -15,8 +15,9 @@ Prints one JSON line:
                          of the predictions to the host;
   per_call_prepared_qps  the same with ``forward_prepared``;
   device_scan_qps        ``forward_prepared`` over --scan-k dependent
-                         batches, one host sync at the end (on the card the
-                         loop runs under torch's sync debug mode "error");
+                         batches, one host sync at the end (on the card one
+                         captured CUDA graph, replayed under torch's sync
+                         debug mode "error");
   prepared_speedup_x     per_call_prepared_qps / per_call_qps;
   dispatch_overhead_x    device_scan_qps / per_call_qps (JAX's ratio);
   prepared_dispatch_overhead_x  device_scan_qps / per_call_prepared_qps:
@@ -69,6 +70,7 @@ def main(argv=None) -> int:
 
     from qmann_tpu_torch.config import QmannConfig
     from qmann_tpu_torch.device import resolve_device
+    from qmann_tpu_torch.graphs import Graphs
     from qmann_tpu_torch.models import memn2n
     from qmann_tpu_torch.ops.losses import argmax_last
 
@@ -116,14 +118,16 @@ def main(argv=None) -> int:
 
     k = args.scan_k
     mem, que, mask = waves[0]
+    graphs = Graphs(dev)
+
+    def forward_p(m, q, msk):
+        return memn2n.forward_prepared(prepared, m, q, msk, cfg)
 
     def scan():
-        return dependent_batches(
-            lambda m, q, msk: memn2n.forward_prepared(prepared, m, q, msk,
-                                                      cfg),
-            mem, que, mask, k)
+        return dependent_batches(forward_p, mem, que, mask, k, graphs)
 
-    scan()
+    scan()   # eager: builds the kernels
+    scan()   # captures the graph
     timer.start()
     sync_free(scan, dev)
     scan_qps = n * k / timer.stop()

@@ -12,7 +12,8 @@ Measures four numbers, as the JAX tool does:
   * serving_engine_qps — the ``InferenceEngine`` (batch 256, 0.5 ms wait)
     answering ``--requests`` requests;
   * train_samples_per_sec and epoch_seconds — ``train_epoch`` over the
-    training split, ``--train-iters`` epochs.
+    training split, ``--train-iters`` epochs (on the card replays of the
+    step's graph, captured in the untimed first epoch).
 Inputs are qa1 (``load_task_native`` at ``--data-path`` /
 ``--raw-data-path``) or, with ``--synthetic``, ``synthetic_task`` at qa1's
 shape (V=19, M=10, W=6; 9000/1000/1000 stories, or ``--max-samples``
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
 
     from qmann_tpu_torch.config import QmannConfig
     from qmann_tpu_torch.device import resolve_device
+    from qmann_tpu_torch.graphs import Graphs
     from qmann_tpu_torch.models import memn2n
     from qmann_tpu_torch.ops.losses import cross_entropy
     from qmann_tpu_torch.serve import InferenceEngine
@@ -108,10 +110,11 @@ def main(argv=None) -> int:
                _batched_arrays(data.train, cfg.size_batch).items()}
     lr = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=dev)
     p_train = {k: v.clone() for k, v in params.items()}
-    train_epoch(p_train, batches, lr, cfg)
+    graphs = Graphs(dev)   # the epoch's graph, captured in the first
+    train_epoch(p_train, batches, lr, cfg, graphs=graphs)
     timer.start()
     for _ in range(args.train_iters):
-        train_epoch(p_train, batches, lr, cfg)
+        train_epoch(p_train, batches, lr, cfg, graphs=graphs)
     epoch_s = timer.stop() / args.train_iters
     train_sps = len(data.train) / epoch_s
 

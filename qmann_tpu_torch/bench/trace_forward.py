@@ -32,6 +32,14 @@ turns the integer fast path off in the inference forward; the training
 step always runs without it, as JAX's ``train_epoch`` does by default.
 JAX's compiled cost analysis has no counterpart and is left out.
 
+The buckets need each launch's Python path, so the traced program runs
+eagerly.  On the card the inference program is then also run as the one
+CUDA graph the serving tools replay (``dependent_batches`` with a
+``Graphs``) and profiled again: ``graph_replay`` in the JSON line gives,
+per hand kernel, the kernel records CUPTI kept for the replays beside the
+launches the wrappers' counts added (a replay's kernels have no Python
+path of their own: they were launched at the capture).
+
 The profiler may keep fewer kernel records than launches late in a long
 process (PERF.md), so every time is given over the records kept, never
 over the calls; for the four hand kernels the output puts the wrappers'
@@ -220,6 +228,33 @@ def summarize(records, launches, top: int):
     }
 
 
+def graph_records(run, wrappers, iters: int):
+    """``run(graphs)`` (the inference program) captured as one CUDA graph
+    and replayed ``iters`` times under the profiler: per hand kernel, the
+    kernel records CUPTI kept and the launches the wrappers' counts
+    added."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qmann_tpu_torch.graphs import Graphs
+    graphs = Graphs("cuda")
+    run(graphs)   # eager
+    run(graphs)   # the capture and its replay
+    before = {k: fn.launches for k, fn in wrappers.items()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run(graphs)
+    recorded = collections.Counter()
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            for k, stem in HAND_KERNELS.items():
+                if stem in ev.key:
+                    recorded[k] += ev.count
+    return {k: {"records": recorded[k],
+                "launches": fn.launches - before[k]}
+            for k, fn in wrappers.items()}
+
+
 def build_parser() -> argparse.ArgumentParser:
     from qmann_tpu_torch.bench.common import add_data_flags
     p = argparse.ArgumentParser(prog="qmann_tpu_torch.bench.trace_forward")
@@ -287,8 +322,8 @@ def main(argv=None) -> int:
             def forward(mem, que, msk):
                 return memn2n.forward(params, mem, que, msk, cfg)
 
-        def run():
-            dependent_batches(forward, memory, question, mask, 30)
+        def run(graphs=None):
+            dependent_batches(forward, memory, question, mask, 30, graphs)
             sync()
 
     wrappers = {"hop_chain": hop_chain.fused_hop_chain,
@@ -309,6 +344,8 @@ def main(argv=None) -> int:
     records = aggregate_trace(os.path.join(args.out, "trace.json"),
                               on_device)
     s = summarize(records, launches, args.top)
+    graph_replay = (graph_records(run, wrappers, args.iters)
+                    if on_device and not args.train else None)
     what = "device" if on_device else "host (outermost aten ops)"
     print(f"\n{what} total: {s['total_ms']:.3f} ms over {s['records']} "
           f"records ({s['records_without_path']} without a Python path), "
@@ -322,10 +359,16 @@ def main(argv=None) -> int:
         print(f"  {op['ms']:9.3f} ms  {op['records']:6d} records  "
               f"{op['ms_per_record']:.5f} ms/record  {op['bucket']}  "
               f"{op['name'][:80]}")
+    if graph_replay is not None:
+        print("\n== the program as one CUDA graph: kernel records / "
+              "launches per hand kernel ==")
+        for k, v in graph_replay.items():
+            print(f"  {k:<16s} {v['records']} / {v['launches']}")
     print(json.dumps({
         **s, "timed": "kernel" if on_device else "cpu_op",
         "iters": args.iters, "wall_s": wall, "train": args.train,
         "device": str(dev), "card": card() if on_device else None,
+        "graph_replay": graph_replay,
         "data": source, "trace": os.path.join(args.out, "trace.json"),
         "route": {"use_fused_chain": cfg.use_fused_chain,
                   "en_integer_fast_path": cfg.en_integer_fast_path}}),

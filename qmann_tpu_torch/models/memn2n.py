@@ -201,6 +201,14 @@ def _integer_fast_decisions(cfg: QmannConfig, question, query_w, memory,
     return host.get("q"), mem
 
 
+def fast_path_reads_host(cfg: QmannConfig) -> bool:
+    """Whether ``forward`` under cfg reads the integer fast path's
+    decisions on the host (``_integer_fast_decisions``): on the plain
+    route with the fast path on.  No CUDA graph can hold that read."""
+    return (cfg.en_integer_fast_path and cfg.en_fixed_point
+            and not cfg.use_pallas)
+
+
 def forward(params: Params, memory: torch.Tensor, question: torch.Tensor,
             mask: torch.Tensor, cfg: QmannConfig,
             remove_softmax: bool = False) -> ForwardResult:
@@ -229,7 +237,7 @@ def embed(params: Params, memory: torch.Tensor, question: torch.Tensor,
     mem_ws = [w[0] for w in hop_w] + [w[1] for w in hop_w]
     mem_fmts = [fmt_w[h] for h in range(K)] * 2
     fast_q = fast_m = None
-    if cfg.en_integer_fast_path and q and backend == "plain":
+    if fast_path_reads_host(cfg) and backend == "plain":
         fast_q, fast_m = _integer_fast_decisions(
             cfg, question, _query_weight(params, cfg), memory, mem_ws,
             mem_fmts)

@@ -129,13 +129,13 @@ def float_quant_blocks(x: torch.Tensor, fmts: Sequence[QFormat],
 @functools.lru_cache(maxsize=64)
 def _block_columns(vals: tuple, widths: tuple, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
-    """vals[k] repeated widths[k] times, on device; cached, so that a
-    forward on the card copies its per-block constants to it once and not
-    in every call (each copy from host memory waits on the device).  Made
-    outside inference mode, so that autograd may save it."""
+    """vals[k] repeated widths[k] times, on device; cached.  Filled on
+    the device, with no copy from host memory (which waits on the device,
+    and which no CUDA graph warm-up may hold).  Made outside inference
+    mode, so that autograd may save it."""
     with torch.inference_mode(False):
-        return torch.repeat_interleave(torch.tensor(vals, dtype=dtype),
-                                       torch.tensor(widths)).to(device)
+        return torch.cat([torch.full((w,), v, dtype=dtype, device=device)
+                          for v, w in zip(vals, widths)])
 
 
 def fixed_mul(a: torch.Tensor, b: torch.Tensor, fmt_a: QFormat,

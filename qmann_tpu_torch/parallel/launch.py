@@ -6,22 +6,25 @@ localhost store through ``initialize_multihost``, calls ``fn(*args)`` in
 each and returns the ranks' results in rank order.  Each rank sets
 torchrun's environment variables (RANK, LOCAL_RANK, WORLD_SIZE,
 LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT), so ``fn`` sees what it would
-under ``python -m torch.distributed.run``.  ``fn`` must be importable by
-name: a spawned rank imports its module (and, through this one,
-``qmann_tpu_torch``, whose import turns TF32 off before any matmul).
+under ``python -m torch.distributed.run``.  ``group_timeout`` is the
+group's collective timeout (``initialize_multihost``).  ``fn`` must be
+importable by name: a spawned rank imports its module (and, through this
+one, ``qmann_tpu_torch``, whose import turns TF32 off before any
+matmul).
 
 ``init_single_process`` makes the group of one process in process (an
 in-memory store): what a mesh of one rank needs outside torchrun.
 """
 from __future__ import annotations
 
+import datetime
 import multiprocessing as mp
 import os
 import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -46,7 +49,8 @@ def init_single_process(device="cuda") -> str:
 
 
 def _rank_main(fn, rank: int, world: int, port: int, device: str,
-               args: Sequence, results) -> None:
+               args: Sequence, results,
+               group_timeout: Optional[datetime.timedelta]) -> None:
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
@@ -54,7 +58,7 @@ def _rank_main(fn, rank: int, world: int, port: int, device: str,
         # many small ops per rank, several ranks per host: one thread each
         torch.set_num_threads(1)
     try:
-        initialize_multihost(device=device)
+        initialize_multihost(device=device, timeout=group_timeout)
         out = fn(*args)
         results.put((rank, True, out))
     except BaseException:  # noqa: BLE001 - reported to the parent, re-raised
@@ -66,17 +70,21 @@ def _rank_main(fn, rank: int, world: int, port: int, device: str,
 
 
 def run_ranks(fn: Callable, world: int, args: Sequence = (),
-              device="cuda", timeout: float = 600.0) -> List[Any]:
+              device="cuda", timeout: float = 600.0,
+              group_timeout: Optional[datetime.timedelta] = None
+              ) -> List[Any]:
     """Run ``fn(*args)`` on ``world`` spawned ranks of one process group
     and return their results in rank order.  Raises RuntimeError with the
     traceback of a rank that failed, TimeoutError when the ranks outlive
-    ``timeout`` seconds; every rank is ended either way."""
+    ``timeout`` seconds; every rank is ended either way.  group_timeout
+    bounds each collective of the group (None: torch's default)."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, world, port, str(device), tuple(args),
-                               results)) for r in range(world)]
+                               results, group_timeout))
+             for r in range(world)]
     for p in procs:
         p.start()
     got, errors = {}, {}

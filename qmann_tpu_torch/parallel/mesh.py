@@ -22,10 +22,16 @@ of the port is one of those two.  Each rank's device is
 The process group is the caller's: ``initialize_multihost`` makes it
 (``python -m torch.distributed.run`` / torchrun sets the environment it
 reads), and every rank then calls ``make_mesh`` with the same arguments.
+
+Each of them takes torch's own ``timeout`` (a ``datetime.timedelta``; None
+is torch's default, 30 minutes for gloo and NCCL): a collective that a
+peer never joins raises on the others after it (gloo), or the NCCL
+watchdog aborts the group after it.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Callable, Dict, Optional
 
@@ -116,15 +122,16 @@ def rank0_only(log: Callable = print,
 
 def make_mesh(n_devices: Optional[int] = None,
               model_parallelism: Optional[int] = None,
-              device="cuda") -> Mesh:
+              device="cuda",
+              timeout: Optional[datetime.timedelta] = None) -> Mesh:
     """Build this rank's ("data", "model") mesh over the process group.
 
     n_devices is the number of ranks (default: the world size; a mesh
     spans the whole world, so any other value raises).  model_parallelism
     defaults to JAX's rule: 4, else 2, else 1, whichever first divides n.
     Every rank must call this with the same arguments: the axis groups are
-    made collectively, in one order.  Without a process group, only a mesh
-    of one rank can be built."""
+    made collectively, in one order, each with ``timeout``.  Without a
+    process group, only a mesh of one rank can be built."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = world if n_devices is None else n_devices
     if n != world:
@@ -143,12 +150,14 @@ def make_mesh(n_devices: Optional[int] = None,
     # every rank creates every group, in the same order
     if mp > 1:
         for d in range(n // mp):
-            g = dist.new_group([d * mp + j for j in range(mp)])
+            g = dist.new_group([d * mp + j for j in range(mp)],
+                               timeout=timeout)
             if d == data_idx:
                 groups[MODEL_AXIS] = g
     if n // mp > 1:
         for j in range(mp):
-            g = dist.new_group([d * mp + j for d in range(n // mp)])
+            g = dist.new_group([d * mp + j for d in range(n // mp)],
+                               timeout=timeout)
             if j == model_idx:
                 groups[DATA_AXIS] = g
     dev = rank_device(device)
@@ -160,14 +169,17 @@ def make_mesh(n_devices: Optional[int] = None,
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
-                         device="cuda") -> str:
+                         device="cuda",
+                         timeout: Optional[datetime.timedelta] = None
+                         ) -> str:
     """Join the process group (``torch.distributed.init_process_group``)
     with the backend rule's backend; returns it.
 
     Without coordinator_address the group is read from the environment
     torchrun sets (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK); else
     "host:port" of rank 0's store, with num_processes and process_id.
-    Call once per process before make_mesh / make_hybrid_mesh."""
+    timeout bounds the group's collectives (module docstring).  Call once
+    per process before make_mesh / make_hybrid_mesh."""
     dev_type = torch.device(device).type
     if coordinator_address is None:
         init = dict(init_method="env://")
@@ -181,11 +193,12 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     backend = backend_for(dev_type, local_world, count)
     if backend == "nccl":
         torch.cuda.set_device(rank_device(device))
-    dist.init_process_group(backend, **init)
+    dist.init_process_group(backend, timeout=timeout, **init)
     return backend
 
 
-def make_hybrid_mesh(model_parallelism: int = 4, device="cuda") -> Mesh:
+def make_hybrid_mesh(model_parallelism: int = 4, device="cuda",
+                     timeout: Optional[datetime.timedelta] = None) -> Mesh:
     """The multi-host mesh: the "model" axis stays inside one host and the
     "data" axis spans hosts.  torchrun numbers ranks host by host, so the
     row-major layout keeps a row on one host when model_parallelism
@@ -195,5 +208,5 @@ def make_hybrid_mesh(model_parallelism: int = 4, device="cuda") -> Mesh:
         raise ValueError(f"model parallelism {model_parallelism} does not "
                          f"divide the {local} ranks of a host: the model "
                          "axis would cross hosts")
-    return make_mesh(None, model_parallelism, device)
+    return make_mesh(None, model_parallelism, device, timeout)
 

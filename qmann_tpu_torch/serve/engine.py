@@ -14,8 +14,11 @@ With ``prepare=True`` (the default) the weights are frozen into serving
 layout once (``prepare_inference``) and each wave runs
 ``forward_prepared``; ``prepare=False`` runs the training ``forward`` on
 the raw weights (under ``use_pallas``, the lattice and read kernels), the
-A/B baseline of ``bench/engine_bench.py``.  The engine runs on the card
-unless the caller passes ``device="cpu"``.
+A/B baseline of ``bench/engine_bench.py``.  On the card a wave replays one
+captured CUDA graph of that forward and ``argmax_last`` at the engine's
+fixed padded batch (``graphs.py``; JAX jits its ``_infer``), with the
+integer fast path off (bit-identical either way).  The engine runs on the
+card unless the caller passes ``device="cpu"``.
 
 With ``mesh=`` (``parallel/mesh.py``) every rank builds the engine alike
 and calls ``start`` and ``stop``.  As in JAX, the mesh pins the plain
@@ -34,11 +37,19 @@ and those submitted later, and ``error`` holds the cause on every rank.
 A wave that fails before its broadcast (in the vectorizer) fails alone,
 as off a mesh.  A rank that fails between two of a wave's collectives
 leaves the others inside one: their loops end when that collective
-raises (the peer's exit, or the group's timeout).
+raises, at the peer's exit or after ``mesh_timeout``.  The wave's
+broadcast and status word run on a group of the engine's own with that
+timeout (default ``MESH_TIMEOUT``, 60 s; under NCCL its watchdog aborts
+the group after it), and rank 0 broadcasts an idle tick every quarter of
+it while no wave comes, so that the followers' wait for the next wave is
+never the one that times out.  The sharded forward's own collectives run
+on the mesh's groups, with the timeout ``make_mesh`` gave them.  A mesh
+wave runs eagerly: no graph spans ranks.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import queue
 import threading
 import time
@@ -51,9 +62,16 @@ import torch
 from qmann_tpu_torch.config import QmannConfig
 from qmann_tpu_torch.data import DataDims, Dictionary
 from qmann_tpu_torch.device import resolve_device
+from qmann_tpu_torch.graphs import Graphs, without_fast_path
 from qmann_tpu_torch.models import memn2n
 from qmann_tpu_torch.ops import argmax_last
 from qmann_tpu_torch.serve.packet import IndexedSample
+
+# the bound on each collective of a mesh engine's waves
+MESH_TIMEOUT = datetime.timedelta(seconds=60)
+# the header rank 0 broadcasts before each wave: the end, a wave, an idle
+# tick
+_END, _WAVE, _IDLE = 0.0, 1.0, 2.0
 
 
 @dataclasses.dataclass
@@ -84,7 +102,8 @@ class InferenceEngine:
     def __init__(self, params: Mapping[str, torch.Tensor], cfg: QmannConfig,
                  dims: DataDims, dictionary: Dictionary,
                  batch_size: int = 64, max_wait_ms: float = 2.0,
-                 prepare: bool = True, mesh=None, device="cuda"):
+                 prepare: bool = True, mesh=None, device="cuda",
+                 mesh_timeout: datetime.timedelta = MESH_TIMEOUT):
         if mesh is not None:
             from qmann_tpu_torch.parallel.sharding import serving_config
             cfg = serving_config(cfg)
@@ -109,6 +128,19 @@ class InferenceEngine:
             self.params, cfg, max_count=float(dims.max_word + 1),
             max_rowsum=float(dims.max_word + 1)) if prepare else None
         self._multi = mesh is not None and mesh.world > 1
+        self._group = None
+        if self._multi:
+            import torch.distributed as dist
+            # made alike on every rank, as the engine is
+            self._group = dist.new_group(list(range(mesh.world)),
+                                         timeout=mesh_timeout)
+        self._idle_s = mesh_timeout.total_seconds() / 4
+        self._last_head = time.monotonic()
+        # the unsharded wave's program, and what it reads by closure
+        self._graphs = Graphs(self.device)
+        self._graph_cfg = without_fast_path(cfg)
+        self._bound = list(self.params.values()) + [
+            t for t in self.prepared or () if isinstance(t, torch.Tensor)]
         leader = mesh is None or mesh.rank == 0
         self._thread = threading.Thread(
             target=self._lead if leader else self._follow, daemon=True)
@@ -213,41 +245,54 @@ class InferenceEngine:
                  torch.from_numpy(mask).to(dev))
         if self.mesh is not None:
             if self._multi:
-                batch = self._broadcast_wave(batch)
+                batch = self._broadcast_wave(batch)[1]
             return self._wave_on_mesh(lambda: self._infer_sharded(
                 *batch).cpu().numpy())
+        pred = self._graphs(("infer", self._graph_cfg), self._predict, *batch,
+                            bound=self._bound)
+        return pred.cpu().numpy()
+
+    def _predict(self, mem, que, mask) -> torch.Tensor:
+        """The wave's program: the forward and argmax_last, on the
+        device."""
+        cfg = self._graph_cfg
         with torch.inference_mode():
             if self.prepared is not None:
-                out = memn2n.forward_prepared(self.prepared, *batch, self.cfg)
+                out = memn2n.forward_prepared(self.prepared, mem, que, mask,
+                                              cfg)
             else:
-                out = memn2n.forward(self.params, *batch, self.cfg)
-            return argmax_last(out.logits, dim=-1).cpu().numpy()
+                out = memn2n.forward(self.params, mem, que, mask, cfg)
+            return argmax_last(out.logits, dim=-1)
 
     def _infer_sharded(self, mem, que, mask) -> torch.Tensor:
         from qmann_tpu_torch.parallel.sharding import sharded_predict
         model = self.prepared if self.prepared is not None else self.params
         return sharded_predict(model, mem, que, mask, self.cfg, self.mesh)
 
-    def _broadcast_wave(self, batch):
-        """Rank 0's wave (mem, que, mask), or None for the end, to every
-        rank as one float32 buffer after a one-number header."""
+    def _broadcast_wave(self, batch, head: float = _WAVE):
+        """Rank 0's header (``_END``, ``_WAVE`` or ``_IDLE``; the other
+        ranks pass anything) and, for a wave, its arrays (mem, que, mask)
+        to every rank as one float32 buffer.  Returns (the header, the
+        wave or None)."""
         import torch.distributed as dist
         d, n = self.dims, self.batch_size
         sizes = (n * d.max_line * d.dim_input, n * d.dim_input,
                  n * d.max_line)
-        head = torch.tensor([0.0 if batch is None else 1.0],
-                            device=self.device)
-        dist.broadcast(head, 0)
-        if not head.item():
-            return None
+        h = torch.tensor([head], device=self.device)
+        dist.broadcast(h, 0, group=self._group)
+        self._last_head = time.monotonic()
+        head = h.item()
+        if head != _WAVE:
+            return head, None
         if batch is None:
             buf = torch.empty(sum(sizes), device=self.device)
         else:
             buf = torch.cat([t.reshape(-1).to(torch.float32) for t in batch])
-        dist.broadcast(buf, 0)
+        dist.broadcast(buf, 0, group=self._group)
         mem, que, mask = torch.split(buf, sizes)
-        return (mem.view(n, d.max_line, d.dim_input), que.view(n, d.dim_input),
-                mask.view(n, d.max_line).to(torch.bool))
+        return head, (mem.view(n, d.max_line, d.dim_input),
+                      que.view(n, d.dim_input),
+                      mask.view(n, d.max_line).to(torch.bool))
 
     def _wave_on_mesh(self, compute):
         """Run this rank's part of a broadcast wave, then (on a mesh of
@@ -262,7 +307,7 @@ class InferenceEngine:
             import torch.distributed as dist
             failed = torch.tensor([float(error is not None)],
                                   device=self.device)
-            dist.all_reduce(failed, op=dist.ReduceOp.MAX)
+            dist.all_reduce(failed, op=dist.ReduceOp.MAX, group=self._group)
             if failed.item() and error is None:
                 error = RuntimeError("the wave failed on another rank of "
                                      "the mesh")
@@ -275,10 +320,11 @@ class InferenceEngine:
         broadcasts, until the end or a failed wave (``error``)."""
         try:
             while True:
-                batch = self._broadcast_wave(None)
-                if batch is None:
+                head, batch = self._broadcast_wave(None)
+                if head == _END:
                     break
-                self._wave_on_mesh(lambda: self._infer_sharded(*batch))
+                if head == _WAVE:
+                    self._wave_on_mesh(lambda: self._infer_sharded(*batch))
         except Exception as exc:  # noqa: BLE001 - the mesh's engine ends
             self.error = exc
 
@@ -288,7 +334,7 @@ class InferenceEngine:
         rank's loop already."""
         self._loop()
         if self._multi and self.error is None:
-            self._broadcast_wave(None)
+            self._broadcast_wave(None, _END)
 
     def _close(self, exc: BaseException) -> None:
         """A failed wave on a mesh: fail what is queued and whatever is
@@ -314,6 +360,13 @@ class InferenceEngine:
             try:
                 first = self._queue.get(timeout=0.1)
             except queue.Empty:
+                if (self._multi
+                        and time.monotonic() - self._last_head > self._idle_s):
+                    try:
+                        self._broadcast_wave(None, _IDLE)
+                    except Exception as exc:  # noqa: BLE001 - a peer is gone
+                        self._close(exc)
+                        break
                 continue
             if first is None:
                 break

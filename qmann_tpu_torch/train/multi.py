@@ -15,6 +15,19 @@ each run's own, and cost and matches are kept per run.  (Stacked, not
 autograd.Function would need a vmap rule calling the same R-axis kernels,
 and the in-place SGD step does not compose with functorch.)
 
+``multi_epoch`` is JAX's one-program epoch (``jit`` over a ``lax.scan`` of
+the steps, a ``lax.scan`` of the validation chunks and the best-model
+selection): on the card it replays one captured CUDA graph of the family
+step per batch and one of a validation chunk per chunk (``graphs.py``),
+each reading its batch or chunk from device buffers through a device
+counter, and selects the best snapshots with ``torch.where`` in place.
+The host builds each epoch's permutations once, as JAX builds the scan's
+inputs, and copies them into a buffer the graph reads.  On the plain
+route with the integer fast path on (``memn2n.fast_path_reads_host``)
+each forward reads the fast path's decisions on the host, where JAX's
+``lax.cond`` decides on the device; no graph can hold that read, so that
+route runs the same bodies eagerly.
+
 Per run the semantics are ``trainer.train_task``'s, with JAX's two
 documented deviations: no early-stopping break (every run trains the full
 schedule; best-model tracking, and so the reported test error, is the
@@ -24,11 +37,11 @@ kept in ``ind_best``), and validation in chunks of ``eval_chunk`` samples
 
 Batching: every task's train split is padded to the largest; per-(run,
 batch) sample masks and live counts give the reference's partial-batch
-divisor, and an all-padding batch leaves its run untouched (the run's
-parameters are restored, JAX's ``where(size_b > 0, new, old)``, weight
-decay included).  The splits live on the device in int8 where the features
-are small integers and are gathered and cast per batch.  Per-run shuffles
-draw from ``np.random.default_rng(seed)``, as ``train_task`` does.
+divisor, and an all-padding batch leaves its run untouched (JAX's
+``where(size_b > 0, new, old)`` per parameter, weight decay included).
+The splits live on the device in int8 where the features are small
+integers and are gathered and cast per batch.  Per-run shuffles draw from
+``np.random.default_rng(seed)``, as ``train_task`` does.
 
 The integer fast path (``en_integer_fast_path``, on by default here as in
 JAX): off ``use_pallas`` the embeddings take the exact GEMM for the runs
@@ -49,6 +62,7 @@ import torch
 from qmann_tpu_torch.config import QmannConfig
 from qmann_tpu_torch.data.babi import TaskData, VectorizedSplit
 from qmann_tpu_torch.device import resolve_device
+from qmann_tpu_torch.graphs import Graphs
 from qmann_tpu_torch.models import memn2n
 from qmann_tpu_torch.ops.losses import argmax_last
 from qmann_tpu_torch.train.optim import (lr_schedule, sgd_update,
@@ -109,20 +123,30 @@ def family_update(params: Params, grads: Mapping[str, torch.Tensor], lr,
                   size_b: torch.Tensor, cfg: QmannConfig, scale_dim: int,
                   padding_runs: Optional[np.ndarray] = None) -> Params:
     """The family's SGD step in place: ``sgd_update`` with the per-run
-    divisor max(size_b, 1), ``zero_null_columns``, then the runs of
-    padding_runs (host indices: runs whose batch is all padding) put back
-    as they were, as JAX's where(size_b > 0, new, old)."""
-    saved = None
-    if padding_runs is not None and len(padding_runs):
+    divisor max(size_b, 1), ``zero_null_columns``, then the runs whose
+    batch is all padding put back as they were.  Without padding_runs
+    that is JAX's where(size_b > 0, new, old) per parameter, on the device
+    (what a graph holds); padding_runs (host indices of those runs)
+    restores just their rows instead.  Both select the old values
+    exactly."""
+    if padding_runs is None:
+        saved, live = {k: v.clone() for k, v in params.items()}, size_b > 0
+    elif len(padding_runs):
         rows = torch.from_numpy(np.asarray(padding_runs)).to(size_b.device)
         saved = {k: v[rows].clone() for k, v in params.items()}
+    else:
+        saved = None
     sgd_update(params, grads, lr, torch.clamp_min(size_b, 1.0), cfg,
                scale_dim=scale_dim)
     zero_null_columns(params, cfg)
     if saved is not None:
         with torch.no_grad():
             for k, v in saved.items():
-                params[k][rows] = v
+                if padding_runs is None:
+                    keep = live.reshape((-1,) + (1,) * (v.dim() - 1))
+                    torch.where(keep, params[k], v, out=params[k])
+                else:
+                    params[k][rows] = v
     return params
 
 
@@ -149,31 +173,149 @@ def family_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
     return met.cost.detach(), met.matches
 
 
+def _family_epoch_step(params: Params, data: Data, task_id: torch.Tensor,
+                       perm: torch.Tensor, smask: torch.Tensor,
+                       size_b: torch.Tensor, lr, counter: torch.Tensor,
+                       costs: torch.Tensor, matches: torch.Tensor,
+                       cfg: QmannConfig, remove_softmax: bool) -> None:
+    """Family step ``counter`` of an epoch, all on the device: batch
+    ``counter`` of every run's grid (perm [R, NB * B], smask [NB, R, B],
+    size_b [NB, R]) gathered from the stacked split, ``family_step`` with
+    the where-form restore, the per-run cost and matches written into row
+    ``counter`` of [NB, R] ``costs`` and ``matches``, then the counter
+    ([1], int64) advanced.  The body ``multi_epoch`` replays."""
+    R, nb = task_id.shape[0], smask.shape[0]
+    idx = perm.view(R, nb, -1).index_select(1, counter)[:, 0]
+    mem, qst, ans, msk = _gather(data, task_id, idx)
+    batch = {"memory": mem, "question": qst, "answer": ans, "mask": msk,
+             "sample_mask": smask.index_select(0, counter)[0],
+             "size_b": size_b.index_select(0, counter)[0]}
+    c, m = family_step(params, batch, lr, cfg, remove_softmax)
+    costs.index_copy_(0, counter, c[None])
+    matches.index_copy_(0, counter, m[None])
+    counter.add_(1)
+
+
 @torch.no_grad()
+def _eval_chunk(params: Params, data: Data, task_id: torch.Tensor,
+                vidx: torch.Tensor, vlive: torch.Tensor,
+                counter: torch.Tensor, cost: torch.Tensor,
+                match: torch.Tensor, cfg: QmannConfig) -> None:
+    """Validation chunk ``counter`` (of [NC, E] vidx, vlive) for every run,
+    all on the device: the forward, the masked metrics added into the [R]
+    ``cost`` and ``match`` accumulators, the counter advanced.  The body
+    ``multi_eval`` replays."""
+    vi = vidx.index_select(0, counter)[0]
+    lv = vlive.index_select(0, counter)[0]
+    R = task_id.shape[0]
+    mem, qst, ans, msk = _gather(data, task_id, vi[None].expand(R, -1))
+    sm = (lv[None] & (vi[None] < data["n"][task_id][:, None])).to(
+        torch.float32)
+    out = memn2n.forward(params, mem, qst, msk, cfg)
+    c_r, m_r = _masked_eval_metrics(out.logits, ans, sm)
+    cost.add_(c_r)
+    match.add_(m_r)
+    counter.add_(1)
+
+
+def _eager(key, body, *inputs, bound=()):
+    """A ``Graphs`` call's body, run eagerly."""
+    return body(*inputs)
+
+
+def _runner(graphs: Graphs, cfg: QmannConfig):
+    """What runs the bodies of an epoch under cfg: graphs, or ``_eager``
+    where the forward reads the host."""
+    return _eager if memn2n.fast_path_reads_host(cfg) else graphs
+
+
 def multi_eval(params: Params, data: Data, task_id: torch.Tensor,
-               cfg: QmannConfig, eval_chunk: int):
+               cfg: QmannConfig, eval_chunk: int,
+               graphs: Optional[Graphs] = None):
     """Forward-only pass over a stacked split for every run, in chunks of
     eval_chunk samples (the index wraps; samples past a task's count are
-    masked out).  Returns (cost [R], error [R]) on the device."""
+    masked out).  Returns (cost [R], error [R]) on the device.  On the card
+    each chunk is one replay of the graph of ``_eval_chunk`` (``graphs``:
+    the run's programs, else a new ``Graphs``; params and data are bound
+    to it; eagerly where the forward reads the host, ``_runner``)."""
     dev = task_id.device
+    graphs = Graphs(dev) if graphs is None else graphs
+    run = _runner(graphs, cfg)
     nv = data["memory"].shape[1]
-    n_run = data["n"][task_id]
-    cost = torch.zeros(task_id.shape[0], dtype=torch.float32, device=dev)
-    match = torch.zeros_like(cost)
+    R = task_id.shape[0]
     ncheck = -(-nv // eval_chunk)
     pos = torch.arange(ncheck * eval_chunk, device=dev)
-    vidx, vlive = pos % nv, pos < nv
-    for c in range(ncheck):
-        vi = vidx[c * eval_chunk:(c + 1) * eval_chunk]
-        lv = vlive[c * eval_chunk:(c + 1) * eval_chunk]
-        mem, qst, ans, msk = _gather(data, task_id,
-                                     vi[None].expand(task_id.shape[0], -1))
-        sm = (lv[None] & (vi[None] < n_run[:, None])).to(torch.float32)
-        out = memn2n.forward(params, mem, qst, msk, cfg)
-        c_r, m_r = _masked_eval_metrics(out.logits, ans, sm)
-        cost, match = cost + c_r, match + m_r
-    err = 1.0 - match / torch.clamp_min(n_run.to(torch.float32), 1.0)
-    return cost, err
+    vidx = graphs.static("eval_index", (ncheck, eval_chunk), torch.int64)
+    vlive = graphs.static("eval_live", (ncheck, eval_chunk), torch.bool)
+    vidx.copy_((pos % nv).view(ncheck, eval_chunk))
+    vlive.copy_((pos < nv).view(ncheck, eval_chunk))
+    counter = graphs.static("eval_chunk", (1,), torch.int64)
+    cost = graphs.static("eval_cost", (R,))
+    match = graphs.static("eval_match", (R,))
+    for t in (counter, cost, match):
+        t.zero_()
+    bound = [*params.values(), *data.values(), task_id, vidx, vlive, counter,
+             cost, match]
+    for _ in range(ncheck):
+        run(("multi_eval", cfg), lambda: _eval_chunk(
+            params, data, task_id, vidx, vlive, counter, cost, match, cfg),
+            bound=bound)
+    err = 1.0 - match / torch.clamp_min(
+        data["n"][task_id].to(torch.float32), 1.0)
+    return cost.clone(), err
+
+
+def multi_epoch(params: Params, best: Params, best_err: torch.Tensor,
+                best_cost: torch.Tensor, ind_best: torch.Tensor, itr: int,
+                train_data: Data, valid_data: Data, task_id: torch.Tensor,
+                perm: torch.Tensor, smask: torch.Tensor,
+                size_b: torch.Tensor, lr, cfg: QmannConfig,
+                remove_softmax: bool, batch: int, eval_chunk: int,
+                graphs: Optional[Graphs] = None):
+    """One epoch for all R runs (JAX's ``multi_epoch``): every family step
+    on the batch grid (perm [R, NB * batch], smask [NB, R, batch], size_b
+    [NB, R]), the full validation pass in chunks of eval_chunk, and the
+    best-model tracking of MemN2N/MemN2N.c:2168-2198 (error and cost must
+    both not regress).  params, best, best_err, best_cost and ind_best are
+    updated in place, on the device.  On the card the steps and the chunks
+    replay their graphs (``graphs``: the run's programs, else a new
+    ``Graphs`` for this call; params, the data, perm, smask, size_b and a
+    tensor lr are bound to them: keep their storage), or run eagerly where
+    the forward reads the host (``_runner``).
+
+    Returns (params, best, best_err, best_cost, ind_best, cost_train [R],
+    match_train [R], cost_valid [R], err_valid [R]), JAX's outputs; the
+    train sums are taken once over the per-step rows in step order."""
+    dev = task_id.device
+    graphs = Graphs(dev) if graphs is None else graphs
+    run = _runner(graphs, cfg)
+    R, nb = task_id.shape[0], smask.shape[0]
+    counter = graphs.static("epoch_step", (1,), torch.int64)
+    costs = graphs.static("epoch_costs", (nb, R))
+    matches = graphs.static("epoch_matches", (nb, R), torch.int32)
+    counter.zero_()
+    tensor_lr = isinstance(lr, torch.Tensor)
+    key = ("family_step", cfg, remove_softmax, None if tensor_lr else lr)
+    bound = [*params.values(), *train_data.values(), task_id, perm, smask,
+             size_b, counter, costs, matches] + ([lr] if tensor_lr else [])
+    for _ in range(nb):
+        run(key, lambda: _family_epoch_step(
+            params, train_data, task_id, perm, smask, size_b, lr, counter,
+            costs, matches, cfg, remove_softmax), bound=bound)
+    cost_train = costs.sum(0)
+    match_train = matches.sum(0)
+    cost_valid, err_valid = multi_eval(params, valid_data, task_id, cfg,
+                                       eval_chunk, graphs)
+    improved = (err_valid <= best_err) & (cost_valid <= best_cost)
+    best_err.copy_(torch.where(improved, err_valid, best_err))
+    best_cost.copy_(torch.where(improved, cost_valid, best_cost))
+    ind_best.copy_(torch.where(improved, itr, ind_best))
+    if cfg.en_save_best_model:
+        for k, v in params.items():
+            imp = improved.reshape((-1,) + (1,) * (v.dim() - 1))
+            torch.where(imp, v, best[k], out=best[k])
+    return (params, best, best_err, best_cost, ind_best, cost_train,
+            match_train, cost_valid, err_valid)
 
 
 @dataclasses.dataclass
@@ -259,18 +401,21 @@ def train_tasks_multi(cfg: QmannConfig, tasks: Mapping[int, TaskData],
     n_train = np.array([len(d.train) for d in datas], np.int64)
     n_run = n_train[run_task]
     nb = int(-(-n_train.max() // B))
-    # per-run batch grid, train_task's batching of each task
+    # per-run batch grid, train_task's batching of each task, laid out as
+    # JAX's scan inputs: smask [nb, R, B], size_b [nb, R]
     grid = np.arange(nb * B)
     perm_base = np.zeros((R, nb * B), np.int64)
-    smask = np.zeros((R, nb, B), np.float32)
+    smask = np.zeros((nb, R, B), np.float32)
     for r in range(R):
         perm_base[r, :n_run[r]] = np.arange(n_run[r])
-        smask[r] = (grid < n_run[r]).reshape(nb, B)
-    size_b = smask.sum(axis=2)                                # [R, nb]
-    padding_runs = [np.flatnonzero(size_b[:, i] == 0) for i in range(nb)]
+        smask[:, r] = (grid < n_run[r]).reshape(nb, B)
     smask_d = torch.from_numpy(smask).to(dev)
-    size_b_d = torch.from_numpy(size_b).to(dev)
-    perm_const = torch.from_numpy(perm_base).to(dev)
+    size_b_d = torch.from_numpy(smask.sum(axis=2)).to(dev)
+    # the run's programs and the buffers they bind: the epoch's
+    # permutations (copied in once per epoch) and the lr tensor
+    graphs = Graphs(dev)
+    perm_d = torch.from_numpy(perm_base).to(dev)
+    lr_t = graphs.static("lr", ())
     rngs = [np.random.default_rng(s) for s in run_seed]
 
     best = {k: v.clone() for k, v in params.items()}
@@ -285,34 +430,13 @@ def train_tasks_multi(cfg: QmannConfig, tasks: Mapping[int, TaskData],
             perm = perm_base.copy()
             for r in range(R):
                 perm[r, :n_run[r]] = rngs[r].permutation(n_run[r])
-            perm_d = torch.from_numpy(perm).to(dev)
-        else:
-            perm_d = perm_const
-        lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
-        costs, matches = [], []
-        for i in range(nb):
-            mem, qst, ans, msk = _gather(train_data, task_id,
-                                         perm_d[:, i * B:(i + 1) * B])
-            batch = {"memory": mem, "question": qst, "answer": ans,
-                     "mask": msk, "sample_mask": smask_d[:, i],
-                     "size_b": size_b_d[:, i]}
-            c, m = family_step(params, batch, lr_t, cfg, remove_softmax,
-                               padding_runs[i])
-            costs.append(c)
-            matches.append(m)
-        cost_train = torch.stack(costs).sum(0)
-        match_train = torch.stack(matches).sum(0)
-        cost_valid, err_valid = multi_eval(params, valid_data, task_id, cfg,
-                                           eval_chunk)
-        # best-model tracking: the error AND the cost must not regress
-        improved = (err_valid <= best_err) & (cost_valid <= best_cost)
-        best_err = torch.where(improved, err_valid, best_err)
-        best_cost = torch.where(improved, cost_valid, best_cost)
-        ind_best = torch.where(improved, itr, ind_best)
-        if cfg.en_save_best_model:
-            for k, v in params.items():
-                imp = improved.reshape((-1,) + (1,) * (v.dim() - 1))
-                best[k] = torch.where(imp, v, best[k])
+            perm_d.copy_(torch.from_numpy(perm))
+        lr_t.fill_(lr)
+        (params, best, best_err, best_cost, ind_best, cost_train,
+         match_train, cost_valid, err_valid) = multi_epoch(
+            params, best, best_err, best_cost, ind_best, itr, train_data,
+            valid_data, task_id, perm_d, smask_d, size_b_d, lr_t, cfg,
+            remove_softmax, B, eval_chunk, graphs)
         err_train = 1.0 - match_train.cpu().numpy() / np.maximum(n_run, 1)
         history.append({
             "cost_train": cost_train.cpu().numpy(),
@@ -331,7 +455,7 @@ def train_tasks_multi(cfg: QmannConfig, tasks: Mapping[int, TaskData],
     eval_params = best if cfg.en_save_best_model else params
     t0 = time.time()
     cost_test, err_test = multi_eval(eval_params, test_data, task_id, cfg,
-                                     eval_chunk)
+                                     eval_chunk, graphs)
     cost_test, err_test = cost_test.cpu().numpy(), err_test.cpu().numpy()
     time_test = time.time() - t0
 

@@ -3,12 +3,19 @@ per-batch SGD with the reference's clip, lr halving schedule, NULL column
 zeroing and last-partial-batch divisor, per-epoch validation, best-model
 tracking and early stopping, and the reference's metrics.
 
-JAX scans the SGD step over an epoch inside one compiled program; here
-``train_epoch`` is a Python loop over batches that stay on the device, and
-each ``train_step`` is forward -> autograd backward -> in-place SGD with
-no read back to the host.  The host reads the epoch's summed cost and
-matches once per epoch.  Entry points run on the card unless the caller
-passes ``device="cpu"``.
+JAX scans the SGD step over an epoch inside one compiled program
+(``jit`` and ``lax.scan``) and jits ``evaluate``.  Here each
+``train_step`` is forward -> autograd backward -> in-place SGD with no
+read back to the host, and on the card ``train_epoch`` replays one
+captured CUDA graph of the step per batch (``graphs.py``): the step reads
+batch i of the epoch's [NB, B, ...] device buffers through a device step
+counter and writes its cost and matches into slot i, so no host copy
+falls between steps.  ``eval_split`` replays one graph of ``evaluate`` per
+chunk.  The host reads the epoch's summed cost and matches once per
+epoch.  ``train_task`` keeps one ``Graphs`` (one memory pool) for its
+run: its parameters, epoch buffers and learning-rate tensor keep their
+storage from epoch to epoch.  Entry points run on the card unless the
+caller passes ``device="cpu"``; on the CPU the same bodies run eagerly.
 
 With ``en_linear_start`` the first ``num_itr_linear_start`` epochs train
 with the attention softmax removed, at half the learning rate
@@ -35,6 +42,7 @@ import torch
 from qmann_tpu_torch.config import QmannConfig
 from qmann_tpu_torch.data.babi import TaskData, VectorizedSplit
 from qmann_tpu_torch.device import resolve_device
+from qmann_tpu_torch.graphs import Graphs, without_fast_path
 from qmann_tpu_torch.models import memn2n
 from qmann_tpu_torch.ops.losses import cross_entropy
 from qmann_tpu_torch.train.optim import (lr_schedule, sgd_update,
@@ -111,11 +119,6 @@ def _pack_shuffled(memory: torch.Tensor, question: torch.Tensor,
             "answer": pack(answer), "mask": pack(mask)}
 
 
-def _without_fast_path(cfg: QmannConfig) -> QmannConfig:
-    return (cfg.replace(en_integer_fast_path=False)
-            if cfg.en_integer_fast_path else cfg)
-
-
 def train_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
                cfg: QmannConfig, remove_softmax: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,7 +127,7 @@ def train_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
     matches as device tensors (no host sync).  The integer fast path is
     off here, as in JAX's ``train_epoch`` (it would cost a host sync per
     step; bit-identical either way)."""
-    cfg = _without_fast_path(cfg)
+    cfg = without_fast_path(cfg)
     names = list(params)
     leaves = [params[k].requires_grad_() for k in names]
     try:
@@ -146,20 +149,52 @@ def train_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
     return met.cost.detach(), met.matches
 
 
+def _epoch_step(params: Params, batches: Mapping[str, torch.Tensor], lr,
+                counter: torch.Tensor, costs: torch.Tensor,
+                matches: torch.Tensor, cfg: QmannConfig,
+                remove_softmax: bool) -> None:
+    """Step ``counter`` of an epoch, all on the device: ``train_step`` on
+    batch ``counter`` of the [NB, B, ...] ``batches``, its cost and matches
+    written into slot ``counter`` of [NB] ``costs`` and ``matches``, then
+    the counter ([1], int64) advanced.  The body ``train_epoch`` replays."""
+    batch = {k: v.index_select(0, counter)[0] for k, v in batches.items()}
+    c, m = train_step(params, batch, lr, cfg, remove_softmax)
+    costs.index_copy_(0, counter, c.reshape(1))
+    matches.index_copy_(0, counter, m.reshape(1))
+    counter.add_(1)
+
+
 def train_epoch(params: Params, batches: Mapping[str, torch.Tensor], lr,
-                cfg: QmannConfig, remove_softmax: bool = False
+                cfg: QmannConfig, remove_softmax: bool = False,
+                graphs: Optional[Graphs] = None
                 ) -> Tuple[Params, torch.Tensor, torch.Tensor]:
     """``train_step`` over every batch of [NB, B, ...] device arrays, in
     order; params are updated in place.  Returns (params, summed cost,
-    summed matches), the sums as device tensors."""
-    cfg = _without_fast_path(cfg)
-    costs, matches = [], []
-    for i in range(batches["memory"].shape[0]):
-        c, m = train_step(params, {k: v[i] for k, v in batches.items()}, lr,
-                          cfg, remove_softmax)
-        costs.append(c)
-        matches.append(m)
-    return params, torch.stack(costs).sum(), torch.stack(matches).sum()
+    summed matches), the sums as device tensors, taken once over the
+    per-step slots in step order (as a sum over the steps' stacked
+    results).
+
+    On the card each step is one replay of the graph of ``_epoch_step``
+    (``graphs``: the run's programs; by default a new ``Graphs`` for this
+    call).  params, batches and a tensor lr are bound to the graph: keep
+    their storage between calls.  A float lr is a static argument."""
+    cfg = without_fast_path(cfg)
+    dev = batches["memory"].device
+    nb = batches["memory"].shape[0]
+    graphs = Graphs(dev) if graphs is None else graphs
+    counter = graphs.static("epoch_step", (1,), torch.int64)
+    costs = graphs.static("epoch_costs", (nb,), torch.float32)
+    matches = graphs.static("epoch_matches", (nb,), torch.int32)
+    counter.zero_()
+    tensor_lr = isinstance(lr, torch.Tensor)
+    key = ("train_step", cfg, remove_softmax, None if tensor_lr else lr)
+    bound = [*params.values(), *batches.values(), counter, costs, matches]
+    bound += [lr] if tensor_lr else []
+    for _ in range(nb):
+        graphs(key, lambda: _epoch_step(params, batches, lr, counter, costs,
+                                        matches, cfg, remove_softmax),
+               bound=bound)
+    return params, costs.sum(), matches.sum()
 
 
 def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
@@ -182,7 +217,8 @@ def evaluate(params: Params, memory: torch.Tensor, question: torch.Tensor,
 
 
 def eval_split(params: Params, split: VectorizedSplit, cfg: QmannConfig,
-               chunk: int = 1024, device="cuda", mesh=None
+               chunk: int = 1024, device="cuda", mesh=None,
+               graphs: Optional[Graphs] = None
                ) -> Tuple[float, float, np.ndarray]:
     """Returns (cost, error_rate, predictions).
 
@@ -190,20 +226,27 @@ def eval_split(params: Params, split: VectorizedSplit, cfg: QmannConfig,
     (one shape per run).  Zero-padded samples contribute nothing: the cost
     -sum(y*p) and the match test hit==1.0 are both null on an all-zero
     answer, and a sample with no live memory row is NaN-free.  The host
-    reads the sums once, after the last chunk.
+    reads the sums once, after the last chunk.  On the card each chunk is
+    one replay of the graph of ``evaluate`` (``graphs``: the run's
+    programs, else a new ``Graphs`` for this call; params are bound to it),
+    with the integer fast path off (bit-identical either way).
 
     mesh: every rank calls this alike, with params whole on its device; a
     chunk's batch goes over "data" and its memory over "model" as
     ``parallel.sharding.infer_specs`` places them, and every rank returns
-    the whole split's results."""
+    the whole split's results (eagerly: no graph spans ranks)."""
     n = len(split)
     costs, matches, preds = [], [], []
     if mesh is None:
         dev = resolve_device(device)
+        graphs = Graphs(dev) if graphs is None else graphs
+        cfg_g = without_fast_path(cfg)
 
         def run(*arrays):
-            return evaluate(params, *(torch.from_numpy(a).to(dev)
-                                      for a in arrays), cfg)
+            return graphs(("evaluate", cfg_g), lambda *t: evaluate(
+                params, *t, cfg_g), *(torch.from_numpy(a).to(dev)
+                                      for a in arrays),
+                bound=list(params.values()))
     else:
         from qmann_tpu_torch.parallel.sharding import sharded_evaluate
 
@@ -292,6 +335,11 @@ def train_task(cfg: QmannConfig, data: TaskData,
 
     n_train = len(data.train)
     batches_np = _batched_arrays(data.train, cfg.size_batch)
+    # the run's programs, and its buffers that keep their storage: the
+    # epoch's batches (each shuffle is copied in), the lr tensor (filled
+    # each epoch) and the parameters (updated in place)
+    graphs = Graphs(dev)
+    lr_t = graphs.static("lr", ())
     if mesh is None:
         batches = {k: torch.from_numpy(v).to(dev)
                    for k, v in batches_np.items()}
@@ -325,8 +373,9 @@ def train_task(cfg: QmannConfig, data: TaskData,
     for itr, lr, remove_softmax in lr_schedule(cfg):
         if train_dev is not None:
             perm = torch.from_numpy(rng.permutation(n_train)).to(dev)
-            batches = {**batches, **_pack_shuffled(*train_dev, perm,
-                                                   cfg.size_batch)}
+            for k, v in _pack_shuffled(*train_dev, perm,
+                                       cfg.size_batch).items():
+                batches[k].copy_(v)
         elif cfg.en_sample_shuffled:
             perm = rng.permutation(n_train)
             t = data.train
@@ -334,10 +383,11 @@ def train_task(cfg: QmannConfig, data: TaskData,
                 t.memory[perm], t.question[perm], t.answer[perm],
                 t.n_sen[perm], t.answer_index[perm]), cfg.size_batch)
             cut = None
-        lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+        lr_t.fill_(lr)
         if mesh is None:
             params, cost_t, match_t = train_epoch(params, batches, lr_t, cfg,
-                                                  remove_softmax)
+                                                  remove_softmax,
+                                                  graphs=graphs)
         else:
             # linear start keeps the memory whole: cut again when the
             # layout changes
@@ -350,7 +400,8 @@ def train_task(cfg: QmannConfig, data: TaskData,
         err_train = 1.0 - int(match_t) / max(n_train, 1)
 
         cost_valid, err_valid, _ = eval_split(params, data.valid, cfg,
-                                              device=dev, mesh=mesh)
+                                              device=dev, mesh=mesh,
+                                              graphs=graphs)
         if analyzer is not None:
             _similarity_dump(analyzer, itr, params, data.valid, cfg, dev)
 
@@ -359,8 +410,11 @@ def train_task(cfg: QmannConfig, data: TaskData,
             ind_early_stopping = itr
             err_valid_best = err_valid
             cost_valid_best = cost_valid
-            if cfg.en_save_best_model:
+            if cfg.en_save_best_model and best_params is None:
                 best_params = {k: v.clone() for k, v in params.items()}
+            elif cfg.en_save_best_model:
+                for k, v in params.items():
+                    best_params[k].copy_(v)
 
         history.append(EpochMetrics(cost_train, err_train, cost_valid,
                                     err_valid, lr))
@@ -381,7 +435,7 @@ def train_task(cfg: QmannConfig, data: TaskData,
                                   and best_params is not None) else params
     t0 = time.time()
     cost_test, err_test, _ = eval_split(eval_params, data.test, cfg,
-                                        device=dev, mesh=mesh)
+                                        device=dev, mesh=mesh, graphs=graphs)
     time_test = time.time() - t0
     return TrainResult(params, best_params, history, err_test, cost_test,
                        time_train, time_test)

@@ -201,7 +201,7 @@ def _rank_checks(model, inputs):
     return out
 
 
-def _engine(inputs, mesh, chain=True):
+def _engine(inputs, mesh, chain=True, **kw):
     from qmann_tpu_torch.data import Dictionary
     from qmann_tpu_torch.serve import InferenceEngine
     dictionary = Dictionary()
@@ -213,7 +213,7 @@ def _engine(inputs, mesh, chain=True):
     dims = DataDims(dim_dict=DIM_INPUT - M_ROWS, max_line=M_ROWS,
                     max_word=6, dim_word=7, dim_input=DIM_INPUT)
     return InferenceEngine(params, cfg, dims, dictionary, batch_size=8,
-                           max_wait_ms=20.0, mesh=mesh, device="cpu")
+                           max_wait_ms=20.0, mesh=mesh, device="cpu", **kw)
 
 
 def _engine_answers(inputs, mesh):
@@ -672,6 +672,70 @@ def test_vectorizer_failure_on_the_mesh_fails_one_wave(failures):
         [a for i, a in enumerate(plain) if i not in bad]
     assert lead["late"] == plain[0]
     assert lead["error"] is None and follow["error"] is None
+
+
+# the collective timeout of the hung-peer case, seconds
+HUNG_TIMEOUT_S = 3.0
+
+
+def _hung_peer_engine(inputs, done_file):
+    """On a (1, 2) mesh whose groups (the world's, the mesh's and the
+    engine's) time out after HUNG_TIMEOUT_S: rank 1 computes its part of
+    the first wave and raises before the wave's status all_reduce, which
+    rank 0 then waits in.  Rank 1 stays alive until rank 0 has returned
+    from stop (done_file), at most 10 timeouts, so that only the timeout
+    can end rank 0's wait.  Returns what each rank saw and its seconds
+    from the wave's submission to the return of stop."""
+    import datetime
+    import os
+    import time
+    timeout = datetime.timedelta(seconds=HUNG_TIMEOUT_S)
+    mesh = pmesh.make_mesh(2, 2, device="cpu", timeout=timeout)
+    eng = _engine(inputs, mesh, mesh_timeout=timeout)
+    if mesh.rank == 1:
+        def hang(compute):
+            compute()
+            raise RuntimeError("injected on rank 1")
+        eng._wave_on_mesh = hang
+    eng.start()
+    seen = {}
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        fut = eng.submit(*inputs["stories"][0])
+        try:
+            seen["answer"] = fut.result(timeout=60)
+        except Exception as exc:  # noqa: BLE001 - the expected failure
+            seen["answer"] = repr(exc)
+        eng.stop(timeout=60)
+        seen["seconds"] = time.perf_counter() - t0
+        open(done_file, "w").close()
+    else:
+        eng._thread.join(60)
+        deadline = time.monotonic() + 10 * HUNG_TIMEOUT_S
+        while not os.path.exists(done_file) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        eng.stop(timeout=60)
+        seen["seconds"] = time.perf_counter() - t0
+    seen["error"] = repr(eng.error) if eng.error else None
+    return seen
+
+
+def test_hung_peer_ends_the_mesh_engine_within_its_timeout(inputs,
+                                                           tmp_path):
+    """A rank that fails between a wave's broadcast and its status
+    all_reduce leaves rank 0 inside that collective: the engine group's
+    timeout ends it, rank 0 fails the wave and closes, and both ranks
+    return within twice the timeout (the spawned group is the test's own:
+    a group that timed out is broken)."""
+    import datetime
+    lead, follow = run_ranks(
+        _hung_peer_engine, 2, (inputs, str(tmp_path / "rank0_done")),
+        device="cpu", timeout=120,
+        group_timeout=datetime.timedelta(seconds=HUNG_TIMEOUT_S))
+    assert isinstance(lead["answer"], str)
+    assert "RuntimeError" in lead["answer"] and lead["error"]
+    assert "injected on rank 1" in follow["error"]
+    assert max(lead["seconds"], follow["seconds"]) < 2 * HUNG_TIMEOUT_S
 
 
 def _cli_on_rank(argv):
