@@ -7,7 +7,7 @@ NVIDIA GPU.
 Phases, one line each; any failure exits non-zero:
   1. device  — a CUDA device is required (no CPU fallback); prints
                nvidia-smi's name and power limit
-  2. build   — compiles the four kernels from qmann_tpu_torch/csrc, one
+  2. build   — compiles the five kernels from qmann_tpu_torch/csrc, one
                nvcc per source, all started together
   3. kernel  — the hop-chain kernel against its plain PyTorch version, both
                on the card, at the flagship shape (B=1000, M=10, I=29, D=60,
@@ -65,17 +65,20 @@ Attention mode 3 (the Hamming attention):
                answers
  11. mode3-train — train_task at iwl 1, mode 3, use_pallas=True for 2 epochs
                on the same synthetic_task (10 qmatvec and 3 read launches
-               per step and eval chunk, costs finite); one SGD step equal
-               across the kernel and plain routes (a full and the partial
-               batch), a non-zero gradient on A; one step under
-               use_pallas_hamming launches the Hamming kernel 3 times and
-               equals the plain step
+               per step and eval chunk, 3 surrogate backward launches per
+               step, costs finite); one SGD step equal across the kernel
+               and plain routes (a full and the partial batch; 3 backward
+               launches per kernel-route step, none on the plain route), a
+               non-zero gradient on A; one step under use_pallas_hamming
+               launches the Hamming kernel and the backward 3 times each
+               and equals the plain step
  12. mode3-times — the Hamming kernel and the mode-3 read alone at B=32,
                B=1024 and the wide layout, the mode-3 chain at B=1000
                (cached Q(H) and raw H, as phase 5), forward_prepared at
                B=1000 on both routes and one train step on both routes
-               (CUDA events, median of 7; the profiler's device time, busy
-               time and idle share)
+               (gate: 3 backward launches in a kernel-route step, 0 in a
+               plain one; CUDA events, median of 7; the profiler's device
+               time, busy time and idle share)
 The lattice past its whole-row limit, and the command-line run:
  13. lattice — qmatvec tiled over I (O*I + I > 12288 floats) against its
                plain version, bit for bit, at the joint block's memory
@@ -97,9 +100,9 @@ The lattice past its whole-row limit, and the command-line run:
                192 --max-sen-len 64 --use-pallas, 1 epoch: dim_input 256,
                qmatvec launched at I=256, 10 + 3 launches per forward); mode
                3 at iwl 1 with --use-pallas-hamming (1 epoch, 3 Hamming
-               launches per forward); bench/qps.py --synthetic (one JSON
-               line, four positive numbers); verify_kernels() on the card
-               (every entry passes)
+               launches per forward, 3 backward launches per step);
+               bench/qps.py --synthetic (one JSON line, four positive
+               numbers); verify_kernels() on the card (every entry passes)
 The model features (on the unfused hop, as JAX's envelope routes them):
  15. features — at the flagship widths on the same synthetic_task, on
                cuda:0: train_task with linear start (2 epochs without the
@@ -112,11 +115,13 @@ The model features (on the unfused hop, as JAX's envelope routes them):
                equal across the routes (full and partial batch), 10
                lattice launches per step and nothing else, every value
                finite; mode 3 iwl 1 with EN_SC_ATT: one epoch at 10 lattice
-               + 3 Hamming launches per forward and no read, one step
-               equal across the routes; an engine with EN_SC_ATT,
-               use_pallas and use_fused_chain answers ~100 requests with
-               the plain route's answers, 3 lattice launches per wave (the
-               lin maps) and no chain launch.  Each path's step is timed
+               + 3 Hamming launches per forward, 3 backward launches per
+               step and no read, one step equal across the routes (10 + 3
+               + 3 launches on the kernel route, none on the plain one);
+               an engine with EN_SC_ATT, use_pallas and use_fused_chain
+               answers ~100 requests with the plain route's answers, 3
+               lattice launches per wave (the lin maps) and no chain
+               launch.  Each path's step is timed
                on the kernel route (event time, busy time, launches,
                idle share; findings, not gates)
 The family trainer (train/multi.py), at the flagship widths and
@@ -137,7 +142,8 @@ megasweep's padded layout (V=64, M=50: dim_input 114), use_pallas:
                costs within rtol 2e-4); the sweep_fixed.sh family (mode 3,
                iwl 1, 20 tasks x 2 seeds, 1 epoch) on use_pallas (10 + 3
                read launches per forward) and use_pallas_hamming (3
-               Hamming launches per forward); megasweep.main() at its
+               Hamming launches per forward), 3 surrogate backward
+               launches per family step on both; megasweep.main() at its
                default route (integer fast path, no use_pallas; R = 200, 1
                epoch, no kernel launch; how many (weight, run) pairs took
                the slow branch, read by a spy on the fast path's
@@ -202,13 +208,14 @@ The device mesh (parallel/), at the flagship widths:
                the mesh answering 200 requests as the plain route, no
                failed wave.  (1, 1): one rank over NCCL, one step equal
                to the single-device plain step.  The ranks keep the
-               lattice's, the Hamming kernel's and the read's inputs at
-               every signature they launch them at; each kernel is then
+               lattice's, the two Hamming kernels' and the read's inputs
+               at every signature they launch them at; each kernel is then
                run on those inputs against its plain version on the card
                (the lattice and the Hamming kernel bit for bit, the read
-               within its tolerances).  The launches summed
-               over ranks (gates: the lattice at both, the Hamming kernel
-               at (2, 2), the read at (1, 1), where the memory is whole;
+               within its tolerances, the backward as phase 20).  The
+               launches summed over ranks (gates: the lattice at both,
+               the Hamming kernel and its backward at (2, 2), the read at
+               (1, 1), where the memory is whole;
                the chain none, the mesh pins the plain prepared forward);
                the sharded step's event time at (1, 1) and (2, 2).  Then
                python -m torch.distributed.run --nproc-per-node 2 -m
@@ -227,7 +234,8 @@ JAX's compiled programs as CUDA graphs (graphs.py):
                (gates: parameters and costs bit-identical, or else within
                rtol 1e-4, atol 1e-6 with the differing elements counted;
                the launches of the graphed epochs those of the eager
-               steps, the launches per replay those of one eager step);
+               steps, the launches per replay those of one eager step, 3
+               surrogate backward launches per mode-3 replay);
                the event time per step, graphed against eager, in 5
                strictly alternating pairs of 10 steps, with the profiler's
                busy time and idle share; bench.py's program
@@ -240,6 +248,19 @@ JAX's compiled programs as CUDA graphs (graphs.py):
                forward on the vectorized waves, host clock); phase 16's
                R = 200 family for 2 epochs through multi_epoch, graphed
                and eager (parameters bit-identical; epoch seconds)
+The mode-3 surrogate backward (XLA's fusion of _hamming_bwd in JAX):
+ 20. mode3-backward — csrc/hamming_bwd.cu against hamming_backward on the
+               card at B=32 and B=1024 (M=10, D=60) and the wide layout
+               (M=50) at iwl 1 and each rounding mode; num_bit 1..32 at
+               iwl 0/1/5/31 and each rounding mode at B=32; the mode-3
+               family's [40, 32, 50, 60] and [40, 128, 50, 60] (phase 16's
+               inputs, and phase 9's edge inputs at the same shapes);
+               gates: dm bit-identical (int32 views), du within
+               2*M*2^-24*sum_r|grad_appx*g| per element (the count of
+               differing elements and the largest difference printed),
+               two launches bitwise equal; the kernel's and the plain
+               version's event ms, device ms per recorded launch, bound and
+               share at those shapes
 Then one JSON line of kernels (the read's and the Hamming kernel's with
 their eval-chunk and wide entries, qmatvec's with its tiled shapes, each
 with its launches on phase 15's paths, each one's family entry, the
@@ -263,7 +284,9 @@ other query bit-identical.  qmatvec: bit-identical (every lattice sum is
 exact).  Mode-1 attention read: rtol 1e-5, atol 1e-6 (float sums in
 another order).  SGD step: parameters within rtol 1e-5, atol 1e-6.
 Hamming score kernel: bit-identical (integer work, and row sums exact at
-num_bit <= 19).  Mode-3 read and chain: as mode 2.
+num_bit <= 19).  Mode-3 read and chain: as mode 2.  Surrogate backward:
+dm bit-identical (one product of the same two floats); du within
+2*M*2^-24*sum_r|grad_appx*g| (an M-term float32 sum in another order).
 
 bound_ms is the larger of the bytes the call must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
@@ -276,7 +299,11 @@ element pair the preprocess of 8, the match of 3 (the match word read as a
 fixed-point fraction up to num_bit 25; above that the word would round, so
 3 per compared bit), 4 for the sign, the scale and the row sum, and the
 term's requant; counted against the int32 rate, half the float32 rate (an
-SM has half as many int32 lanes as float32 lanes): 33.5 TOP/s.
+SM has half as many int32 lanes as float32 lanes): 33.5 TOP/s.  The
+surrogate backward moves m, u and g once and writes dm and du once; its
+integer work is the two encodes, per element pair the preprocess of 8,
+tmp_a's signed popcount of 8 and 3 per compared bit for grad_appx's walk,
+and its float work 5 per pair (two scales, two products, the sum).
 """
 import json
 import math
@@ -391,6 +418,22 @@ def hamming_bound(m, u, num_bit):
     B, M, D = m.shape
     return _bound(_nbytes(m, u) + 4 * B * M, 0,
                   ham_score_ops(B, M, D, num_bit))
+
+
+def ham_backward_ops(B, M, D, num_bit):
+    """(float, integer) operations of one surrogate backward (module
+    docstring): the encodes of m and u; per element pair the preprocess,
+    tmp_a's signed popcount and grad_appx's walk over the compared bits;
+    the two scales and products and the sum over the memory rows."""
+    return (B * M * D * 5,
+            6 * B * D * (M + 1) + B * M * D * (8 + 8 + 3 * num_bit))
+
+
+def hamming_backward_bound(m, u, g, num_bit):
+    """Bytes: m, u and g read once, dm and du written once."""
+    B, M, D = m.shape
+    return _bound(_nbytes(m, u, g) + 4 * (B * M * D + B * D),
+                  *ham_backward_ops(B, M, D, num_bit))
 
 
 def _read_ops(B, M, D, num_bit=None):
@@ -553,6 +596,26 @@ def check_read(got, want, fmt_act, quantized):
             and torch.equal(got[0][~flipped], want[0][~flipped])
             and int(flipped.sum()) <= 1)
     return diffs, int(flipped.sum()), good, sound
+
+
+def check_backward(got, want, m, u, g, iwl, num_bit, const_scale=-3,
+                   round_mode=3):
+    """The surrogate backward kernel's (dm, du) against its plain version's
+    on the same inputs: dm bit for bit (int32 views: the sign of a zero
+    counts); du within 2 * M * 2^-24 * sum_r |grad_appx * g| per element
+    (two M-term float32 sums in different orders).  Returns (max |du
+    difference|, elements of du that differ, both hold)."""
+    import torch
+    from qmann_tpu_torch.ops.attention import surrogate_terms
+    (dm, du), (want_dm, want_du) = got, want
+    _, grad_appx = surrogate_terms(m, u, iwl, num_bit, const_scale,
+                                   round_mode)
+    M = m.shape[-2]
+    slack = 2 * M * 2.0 ** -24 * (grad_appx * g[..., None]).abs().sum(-2)
+    diff = (du - want_du).abs()
+    dm_equal = torch.equal(dm.view(torch.int32), want_dm.view(torch.int32))
+    return (float(diff.max()), int((du != want_du).sum()),
+            dm_equal and bool((diff <= slack).all()))
 
 
 def serve_requests(params, cfg, cfg_plain, dims, dictionary, stories, dev,
@@ -1020,7 +1083,7 @@ def phase_serve(card, dev, counters, ckpt_dir, data_path, raw_path,
         fail("the unprepared engine's answers differ from the plain route's")
     if engine.prepared is not None or unprepared != {
             "qmatvec": 10 * waves, "attention_read": 3 * waves,
-            "hamming_score": 0, "hop_chain": 0}:
+            "hamming_score": 0, "hop_chain": 0, "hamming_backward": 0}:
         fail("the unprepared engine did not run the lattice and read kernels "
              "once per wave and hop")
     out["unprepared"] = {"qmatvec": unprepared["qmatvec"],
@@ -1137,24 +1200,29 @@ MESH_LR = 0.3
 
 
 def kernel_counters():
-    """The four wrappers whose .launches count their kernel's launches."""
+    """The five wrappers whose .launches count their kernel's launches."""
     from qmann_tpu_torch.ops.cuda import attention_read as ar
     from qmann_tpu_torch.ops.cuda import hamming as ham
+    from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
     return {"qmatvec": qmv.quantized_matvec, "attention_read": ar.fused_read,
             "hamming_score": ham.hamming_score_kernel,
-            "hop_chain": hop_chain.fused_hop_chain}
+            "hop_chain": hop_chain.fused_hop_chain,
+            "hamming_backward": hbwd.hamming_backward_kernel}
 
 
 # the wrappers whose calls phase 18 records on the ranks: (module, name in
 # it through which the mesh path calls the wrapper, kernel's key in the
-# kernels line).  The lattice and the Hamming wrappers are looked up on
-# their own modules at each call; the read is called through ops/fused.py
+# kernels line).  The lattice and the two Hamming wrappers are looked up
+# on their own modules at each call; the read is called through
+# ops/fused.py
 MESH_RECORDED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
                   "qmatvec"),
                  ("qmann_tpu_torch.ops.cuda.hamming", "hamming_score_kernel",
                   "hamming_score"),
+                 ("qmann_tpu_torch.ops.cuda.hamming_bwd",
+                  "hamming_backward_kernel", "hamming_backward"),
                  ("qmann_tpu_torch.ops.fused", "fused_read",
                   "attention_read"))
 
@@ -1307,17 +1375,21 @@ def check_recorded_calls(results, dev, tag):
     """Each kernel on the inputs the mesh's ranks gave it, at every
     signature they launched it at (record_calls), against its plain
     version on the card: the lattice and the Hamming kernel bit for bit,
-    the read within its tolerances (check_read).  Returns {kernel key:
+    the read within its tolerances (check_read), the surrogate backward
+    as phase 20 holds it (check_backward).  Returns {kernel key:
     {"max_abs_err", "shapes"}}; fails on a disagreement."""
     import numpy as np
     import torch
     from qmann_tpu_torch.ops.cuda import attention_read as ar
     from qmann_tpu_torch.ops.cuda import hamming as ham
+    from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
     pairs = {"qmatvec": (qmv.quantized_matvec,
                          qmv.quantized_matvec_reference),
              "hamming_score": (ham.hamming_score_kernel,
                                ham.hamming_score_reference),
+             "hamming_backward": (hbwd.hamming_backward_kernel,
+                                  hbwd.hamming_backward),
              "attention_read": (ar.fused_read, ar.fused_read_reference)}
     calls = {}
     for r in results:
@@ -1332,6 +1404,8 @@ def check_recorded_calls(results, dev, tag):
         if key == "attention_read":
             diffs, flips, good, _ = check_read(got, want, args[6], args[8])
             err = max(diffs.values())
+        elif key == "hamming_backward":
+            err, _, good = check_backward(got, want, *args)
         else:
             err = float((got - want).abs().max())
             good = torch.equal(got, want)
@@ -1582,8 +1656,9 @@ def phase_mesh(card, dev, data_path, raw_path, single_err):
           f"kernel); the mesh pins the plain prepared forward (no chain)",
           flush=True)
     if (n22["qmatvec"] < 1 or n22["hamming_score"] < 1 or n22["hop_chain"]
+            or n22["hamming_backward"] < 1
             or n11["qmatvec"] < 1 or n11["attention_read"] < 1):
-        fail("the mesh path did not launch the lattice, the Hamming kernel "
+        fail("the mesh path did not launch the lattice, the Hamming kernels "
              "or the read where it routes them")
     if any(n22[k] + n11[k] and k not in at_mesh for k in n22):
         fail("a kernel launched on the mesh path was not checked at its "
@@ -1680,7 +1755,8 @@ GRAPH_STEPS = (("mode 2 iwl 5, use_pallas", dict(use_pallas=True)),
 GRAPH_PAIRS = 5            # strictly alternating (eager, graphed) samples
 GRAPH_TIMED_STEPS = 10     # steps per timing sample
 GRAPH_ENGINE_REQUESTS, GRAPH_WAVE = 200, 64
-KERNEL_KEYS = ("qmatvec", "attention_read", "hamming_score", "hop_chain")
+KERNEL_KEYS = ("qmatvec", "attention_read", "hamming_score", "hop_chain",
+               "hamming_backward")   # graphs.COUNTED's order
 
 
 def event_ms(fn):
@@ -1801,6 +1877,10 @@ def phase_graphs(card, dev, data, serve_dims, dictionary, family):
                 or captured.replays != 2 * nb - 1):
             fail(f"the graphed epochs launched other kernels than the eager "
                  f"steps ({name})")
+        if per_replay["hamming_backward"] != (
+                3 if cfg.attention_mode == 3 else 0):
+            fail(f"a graphed step did not launch the surrogate backward "
+                 f"kernel once per mode-3 hop ({name})")
         same_values(name, "parameters after 2 epochs", p_g, p_e)
         same_values(name, "epoch costs", torch.stack(cost_g),
                     torch.stack(cost_e))
@@ -1961,6 +2041,125 @@ def phase_graphs(card, dev, data, serve_dims, dictionary, family):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 20. the surrogate backward kernel (csrc/hamming_bwd.cu) against its plain
+# version
+# ---------------------------------------------------------------------------
+
+BWD_SHAPES = {"train": (TRAIN_BATCH, 10, 60), "eval": (EVAL_CHUNK, 10, 60),
+              "wide": (TRAIN_BATCH, 50, 60)}
+BWD_NUM_BITS = range(1, 33)
+
+
+def phase_backward(card, dev, nb3, fam3):
+    """Phase 20: hamming_backward_kernel against hamming_backward on the
+    card (check_backward: dm bit for bit, du within its rounding bound; a
+    second launch bitwise equal to the first): at iwl 1 and num_bit nb3
+    (the mode-3 training config) at each BWD_SHAPES entry and each
+    rounding mode; num_bit 1..32 at iwl 0/1/5/31 and each rounding mode at
+    B=32; the mode-3 family's [R, B, M, D] batches, which the wrapper
+    folds (fam3: {label: (m, u)} from phase 16, and the edge inputs at the
+    same shapes).  All on phase 9's inputs (ham_inputs: the encode's edge
+    list in sample 0).
+    Then the kernel's and the plain version's times at the path's shapes.
+    Returns {"max_abs_err", "du_differ", "cases", "times": {shape:
+    entry}}."""
+    import numpy as np
+    import torch
+    from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
+    tag = "20 mode3-backward"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+    kernel, plain = hbwd.hamming_backward_kernel, hbwd.hamming_backward
+    worst, n_differ, n_cases, bad = 0.0, 0, 0, []
+    timed = {}
+
+    def g_for(m):
+        return torch.from_numpy(rng.normal(
+            0.0, 1.0, m.shape[:-1]).astype(np.float32)).to(dev)
+
+    def hold(label, m, u, g, iwl, num_bit, round_mode):
+        nonlocal worst, n_differ, n_cases
+        args = (m, u, g, iwl, num_bit, -3, round_mode)
+        got, again = kernel(*args), kernel(*args)
+        err, differ, good = check_backward(got, plain(*args), *args)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, again))
+        worst = max(worst, err)
+        n_differ += differ
+        n_cases += 1
+        if not (good and same):
+            bad.append(f"{label} iwl {iwl} num_bit {num_bit} round "
+                       f"{round_mode} (du within bound and dm equal: {good}, "
+                       f"launches equal: {same})")
+        return args
+
+    def inputs(iwl, shape):
+        m, u = (torch.from_numpy(a).to(dev)
+                for a in ham_inputs(rng, iwl, *shape))
+        return m, u, g_for(m)
+
+    for name, shape in BWD_SHAPES.items():
+        m, u, g = inputs(1, shape)
+        for rm in ROUND_MODES:
+            args = hold(name, m, u, g, 1, nb3, rm)
+            if rm == ROUND_MODES[0]:
+                timed[name] = args
+    for iwl in HAM_IWLS:
+        m, u, g = inputs(iwl, BWD_SHAPES["train"])
+        for rm in ROUND_MODES:
+            for num_bit in BWD_NUM_BITS:
+                hold("train", m, u, g, iwl, num_bit, rm)
+    for label, (m_f, u_f) in fam3.items():
+        timed[f"family {label}"] = hold(f"family {label}", m_f, u_f,
+                                        g_for(m_f), 1, nb3, 3)
+        m_e, u_e = (torch.from_numpy(a).to(dev) for a in ham_inputs(
+            rng, 1, m_f.shape[0] * m_f.shape[1], *m_f.shape[2:]))
+        for rm in ROUND_MODES:
+            hold(f"family {label} edge", m_e.reshape(m_f.shape),
+                 u_e.reshape(u_f.shape), g_for(m_f), 1, nb3, rm)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {n_cases} cases ({list(BWD_SHAPES.values())} at iwl 1 "
+          f"num_bit {nb3}; num_bit 1..32 at iwl {HAM_IWLS}; the family's "
+          f"{[tuple(a[0].shape) for k, a in timed.items() if 'family' in k]}"
+          f"; rounding modes {ROUND_MODES}; edge list in sample 0): dm "
+          f"bit-identical and du within 2*M*2^-24*sum_r|grad_appx*g| in "
+          f"{n_cases - len(bad)}; du elements that differ from the plain "
+          f"sum {n_differ}, largest |difference| {worst:.3g}; two launches "
+          f"bitwise equal; failing: {bad or 'none'}", flush=True)
+    if bad:
+        fail("the surrogate backward kernel disagrees with its plain version "
+             "or is not deterministic")
+    times = {}
+    with torch.inference_mode():
+        for shape, args in timed.items():
+            big = args[0].numel() > 1e6
+            t_k = cuda_ms(lambda a=args: kernel(*a))
+            t_p = cuda_ms(lambda a=args: plain(*a), n_iter=2 if big else 10,
+                          samples=3 if big else 7)
+            t_dev = recorded_ms(lambda a=args: kernel(*a))
+            m, u, g = args[:3]
+            b = hamming_backward_bound(m.reshape(-1, *m.shape[-2:]),
+                                       u.reshape(-1, u.shape[-1]),
+                                       g.reshape(-1, g.shape[-1]), args[4])
+            dev_txt = ("not measured (the profiler kept no record)"
+                       if t_dev is None else
+                       f"{t_dev:.4f} ms per recorded launch, "
+                       f"{b[0] / t_dev:.1%} of the bound")
+            print(f"[{tag}] {card} | hamming_backward {shape} "
+                  f"{tuple(m.shape)}: kernel {t_k:.4f} ms (device "
+                  f"{dev_txt}), plain {t_p:.4f} ms, bound {b[0]:.5f} ms "
+                  f"({b[1]})", flush=True)
+            times[shape] = {"shape": list(m.shape), "ms": t_k,
+                            "plain_ms": t_p, "device_ms": t_dev,
+                            "bound_ms": b[0], "bound_by": b[1]}
+    print(f"[{tag}] library: no single PyTorch call computes the surrogate "
+          f"(bit matches of sign-magnitude words): library_ms is null; "
+          f"phase time {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"max_abs_err": worst, "du_differ": n_differ, "cases": n_cases,
+            "times": times}
+
+
 def main():
     try:
         import torch
@@ -1979,6 +2178,7 @@ def main():
     from qmann_tpu_torch.ops import exact_matmul
     from qmann_tpu_torch.ops.cuda import attention_read as ar
     from qmann_tpu_torch.ops.cuda import hamming as ham
+    from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
 
@@ -1991,7 +2191,8 @@ def main():
 
     # 2. build: one nvcc per source, all started together
     kernel_mods = {"hop_chain": hop_chain, "qmatvec": qmv,
-                   "attention_read": ar, "hamming": ham}
+                   "attention_read": ar, "hamming": ham,
+                   "hamming_backward": hbwd}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernel_mods)) as pool:
         built = dict(zip(kernel_mods, pool.map(lambda m: m.build(),
@@ -2413,15 +2614,21 @@ def main():
     # 11. mode-3 training at iwl 1 on the kernel route
     cfg11 = cfg3.replace(num_itr=2)
     cfg11_plain = cfg11.replace(use_pallas=False)
+    n_steps11, _ = n_forwards(cfg11, data)
     qmv.quantized_matvec.launches = 0
     ar.fused_read.launches = 0
+    hbwd.hamming_backward_kernel.launches = 0
     _, finite = train_route(cfg11, data, dev, "11 mode3-train", "kernel")
     qmv3_launches = qmv.quantized_matvec.launches
     ar3_launches = ar.fused_read.launches
-    print(f"[11 mode3-train] {n_calls} forwards: qmatvec launches "
-          f"{qmv3_launches} (want {10 * n_calls}), attention_read launches "
-          f"{ar3_launches} (want {3 * n_calls})", flush=True)
-    if qmv3_launches != 10 * n_calls or ar3_launches != 3 * n_calls:
+    bwd3_launches = hbwd.hamming_backward_kernel.launches
+    print(f"[11 mode3-train] {n_calls} forwards ({n_steps11} steps): "
+          f"qmatvec launches {qmv3_launches} (want {10 * n_calls}), "
+          f"attention_read launches {ar3_launches} (want {3 * n_calls}), "
+          f"hamming_backward launches {bwd3_launches} (want "
+          f"{3 * n_steps11})", flush=True)
+    if (qmv3_launches != 10 * n_calls or ar3_launches != 3 * n_calls
+            or bwd3_launches != 3 * n_steps11):
         fail("mode-3 training did not launch each kernel as expected")
     if not finite:
         fail("a mode-3 training or evaluation cost is not finite")
@@ -2429,8 +2636,17 @@ def main():
         cfg11, data.dims, torch.Generator().manual_seed(SEED),
         device=dev).items()}
     cfg11_ham = cfg11_plain.replace(use_pallas_hamming=True)
+    hbwd.hamming_backward_kernel.launches = 0
     sgd_steps_agree((cfg11_plain, cfg11), base3, batches_np, dev,
                     "11 mode3-train")
+    bwd_steps = hbwd.hamming_backward_kernel.launches
+    print(f"[11 mode3-train] use_pallas: hamming_backward launches "
+          f"{bwd_steps} in 2 kernel-route and 2 plain-route steps (want 6)",
+          flush=True)
+    if bwd_steps != 6:
+        fail("the use_pallas steps did not launch the surrogate backward "
+             "kernel 3 times per kernel-route step and never on the plain "
+             "route")
     leaves = {k: v.clone().requires_grad_() for k, v in base3.items()}
     loss, _ = memn2n.loss_and_metrics(
         leaves, batch0["memory"], batch0["question"], batch0["answer"],
@@ -2442,14 +2658,17 @@ def main():
     if not float(g_a.abs().max()) > 0:
         fail("mode-3 training gives A no gradient")
     ham.hamming_score_kernel.launches = 0
+    hbwd.hamming_backward_kernel.launches = 0
     sgd_steps_agree((cfg11_plain, cfg11_ham), base3, batches_np, dev,
                     "11 mode3-train use_pallas_hamming")
     ham_launches = ham.hamming_score_kernel.launches
+    bwd_ham_launches = hbwd.hamming_backward_kernel.launches
     print(f"[11 mode3-train] use_pallas_hamming: Hamming kernel launches "
-          f"{ham_launches} in 2 steps (want 6)", flush=True)
-    if ham_launches != 6:
+          f"{ham_launches}, hamming_backward launches {bwd_ham_launches} in "
+          f"2 steps (want 6 and 6)", flush=True)
+    if ham_launches != 6 or bwd_ham_launches != 6:
         fail("the use_pallas_hamming step did not launch the Hamming kernel "
-             "3 times per step")
+             "and its surrogate backward 3 times per step")
 
     # 12. mode-3 times
     prep_c3 = memn2n.prepare_inference(
@@ -2466,8 +2685,19 @@ def main():
         time_steps(fp3, "12 mode3-times forward_prepared")
     print(f"[12 mode3-times] train step B={TRAIN_BATCH}, mode 3 iwl 1",
           flush=True)
-    t3_steps = time_steps(step_fns(cfg11, cfg11_plain, base3),
-                          "12 mode3-times train step")
+    steps12 = step_fns(cfg11, cfg11_plain, base3)
+    hbwd.hamming_backward_kernel.launches = 0
+    steps12["kernel route"]()
+    bwd12 = [hbwd.hamming_backward_kernel.launches]
+    steps12["plain route"]()
+    bwd12.append(hbwd.hamming_backward_kernel.launches - bwd12[0])
+    print(f"[12 mode3-times] hamming_backward launches in one step: kernel "
+          f"route {bwd12[0]} (want 3), plain route {bwd12[1]} (want 0)",
+          flush=True)
+    if bwd12 != [3, 0]:
+        fail("a mode-3 step did not launch the surrogate backward kernel "
+             "once per hop on the kernel route only")
+    t3_steps = time_steps(steps12, "12 mode3-times train step")
     k3 = time_kernels(
         {**{("hamming", shape): (
             lambda a=a: ham.hamming_score_kernel(*a),
@@ -2708,20 +2938,27 @@ def main():
     if not j_finite:
         fail("a joint-block cost is not finite")
 
-    # attention mode 3 at iwl 1, the score through the Hamming kernel
+    # attention mode 3 at iwl 1, the score and its surrogate backward
+    # through the Hamming kernels
     ham.hamming_score_kernel.launches = 0
+    hbwd.hamming_backward_kernel.launches = 0
     rc, lines = run_quiet(cli.main, [
         "1", "1", "1", "1", "--attention-mode", "3", "--use-pallas-hamming",
         "--epochs", "1", "--out-dir", str(out / "mode3"), *files])
     ham_cli = ham.hamming_score_kernel.launches
+    bwd_cli = hbwd.hamming_backward_kernel.launches
     n_m3 = forwards(1, n_file, n_test)
+    steps_m3 = math.ceil((n_file - int(n_file * 0.1))
+                         / QmannConfig().size_batch)
     m3_epochs, m3_finite = cli_costs(lines)
     m3_finite &= m3_epochs == 1
     print(f"[14 cli] mode 3, iwl 1, --use-pallas-hamming, 1 epoch: rc {rc}; "
-          f"Hamming kernel launches {ham_cli} (want {3 * n_m3}); costs "
-          f"finite: {m3_finite}", flush=True)
-    if rc != 0 or ham_cli != 3 * n_m3:
-        fail("the mode-3 CLI run did not launch the Hamming kernel per hop")
+          f"Hamming kernel launches {ham_cli} (want {3 * n_m3}), "
+          f"hamming_backward launches {bwd_cli} (want {3 * steps_m3}); "
+          f"costs finite: {m3_finite}", flush=True)
+    if rc != 0 or ham_cli != 3 * n_m3 or bwd_cli != 3 * steps_m3:
+        fail("the mode-3 CLI run did not launch the Hamming kernels per "
+             "hop")
     if not m3_finite:
         fail("a mode-3 CLI cost is not finite")
 
@@ -2756,7 +2993,8 @@ def main():
     from qmann_tpu_torch.train import trainer as trainer_mod
     counters = {"qmatvec": qmv.quantized_matvec, "attention_read":
                 ar.fused_read, "hamming_score": ham.hamming_score_kernel,
-                "hop_chain": hop_chain.fused_hop_chain}
+                "hop_chain": hop_chain.fused_hop_chain,
+                "hamming_backward": hbwd.hamming_backward_kernel}
 
     def zero_counts():
         for fn in counters.values():
@@ -2765,9 +3003,11 @@ def main():
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
 
-    def want_counts(qmatvec=0, attention_read=0, hamming_score=0):
+    def want_counts(qmatvec=0, attention_read=0, hamming_score=0,
+                    hamming_backward=0):
         return {"qmatvec": qmatvec, "attention_read": attention_read,
-                "hamming_score": hamming_score, "hop_chain": 0}
+                "hamming_score": hamming_score, "hop_chain": 0,
+                "hamming_backward": hamming_backward}
 
     def feature_base(cfg_f):
         return {k: 4.0 * v for k, v in memn2n.init_params(
@@ -2867,15 +3107,22 @@ def main():
     n_m3 = m3_steps + m3_chunks
     got = counts()
     feature_launches["mode3_sc_att"] = got
-    want = want_counts(qmatvec=10 * n_m3, hamming_score=3 * n_m3)
-    print(f"[15 features] mode 3 sc_att iwl 1: {n_m3} forwards, launches "
-          f"{got} (want {want})", flush=True)
+    want = want_counts(qmatvec=10 * n_m3, hamming_score=3 * n_m3,
+                       hamming_backward=3 * m3_steps)
+    print(f"[15 features] mode 3 sc_att iwl 1: {n_m3} forwards ({m3_steps} "
+          f"steps), launches {got} (want {want})", flush=True)
     if got != want or not finite:
         fail("the mode-3 EN_SC_ATT epoch launched other counts than "
              "expected or gave a cost that is not finite")
     base_m3 = feature_base(cfg_m3)
+    zero_counts()
     sgd_steps_agree((cfg_m3.replace(use_pallas=False), cfg_m3), base_m3,
                     batches_np, dev, "15 features mode 3 sc_att")
+    if counts() != want_counts(qmatvec=20, hamming_score=6,
+                               hamming_backward=6):
+        fail(f"the mode-3 EN_SC_ATT steps launched {counts()}, want 10 "
+             "lattice, 3 Hamming and 3 surrogate backward launches per "
+             "kernel-route step and none on the plain route")
     step_cfgs["mode 3 sc_att"] = (cfg_m3, base_m3, False)
 
     # (d) serving with EN_SC_ATT: the chain's envelope excludes it, the
@@ -3159,9 +3406,9 @@ def main():
     fam3_launches = {}
     for label, kw, step_want in (
             ("use_pallas", dict(use_pallas=True),
-             want_counts(qmatvec=10, attention_read=3)),
+             want_counts(qmatvec=10, attention_read=3, hamming_backward=3)),
             ("use_pallas_hamming", dict(use_pallas_hamming=True),
-             want_counts(hamming_score=3))):
+             want_counts(hamming_score=3, hamming_backward=3))):
         cfg_f3 = QmannConfig(iwl=1, attention_mode=3, num_itr=1,
                              verbose=False, **kw)
         zero_counts()
@@ -3173,7 +3420,9 @@ def main():
             restore()
         n_fwd3 = nb16 + math.ceil(FAMILY_VALID / 128) + math.ceil(
             FAMILY_TEST / 128)
-        want3 = {k: v * n_fwd3 for k, v in step_want.items()}
+        # the forward kernels per step and eval chunk, the backward per step
+        want3 = {k: v * (nb16 if k == "hamming_backward" else n_fwd3)
+                 for k, v in step_want.items()}
         odd3 = [i for i, c in enumerate(steps3) if c != step_want]
         fam3_launches[label] = total3
         print(f"[16 family] sweep_fixed family, mode 3 iwl 1, {label}: "
@@ -3316,6 +3565,14 @@ def main():
     # 19. the captured programs against the eager route
     graphs19 = phase_graphs(card, dev, data, serve_dims, dictionary,
                             (fam, seeds16, stacked, cfg16))
+
+    # 20. the surrogate backward kernel against its plain version, at the
+    # training path's shapes and the mode-3 family's [R, B, M, D]
+    R3 = len(run_task3)
+    bwd20 = phase_backward(card, dev, nb3, {
+        label: (h_args[0].reshape(R3, -1, *h_args[0].shape[1:]),
+                h_args[1].reshape(R3, -1, h_args[1].shape[-1]))
+        for label, (_, h_args) in fam3_args.items()})
 
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
@@ -3474,6 +3731,24 @@ def main():
              **fam3_shapes("hamming")},
          **at_shapes(k3, "hamming", ham_args,
                      lambda a: hamming_bound(*a[:2], num_bit=nb3))},
+        {"name": "hamming_backward", "route": "cuda",
+         "source": "qmann_tpu_torch/csrc/hamming_bwd.cu",
+         "replaces": "qmann_tpu/ops/attention.py:176",
+         "pallas_counterpart": None,   # XLA's fusion of _hamming_bwd
+         "launches": bwd3_launches, "max_abs_err": bwd20["max_abs_err"],
+         "du_differ": bwd20["du_differ"], "cases": bwd20["cases"],
+         **{k: bwd20["times"]["train"][k] for k in (
+             "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "use_pallas_hamming": {"launches": bwd_ham_launches},
+         "cli_launches": bwd_cli,
+         "features": {"mode3_sc_att":
+                      feature_launches["mode3_sc_att"]["hamming_backward"]},
+         "family": {"launches": {k: v["hamming_backward"]
+                                 for k, v in fam3_launches.items()},
+                    **{label: bwd20["times"][f"family {label}"]
+                       for label in fam3_args}},
+         **{shape: bwd20["times"][shape] for shape in ("eval", "wide")}},
     ]
     for entry in kernels_line:
         entry["mesh"] = {"added_in": 10, **mesh18[entry["name"]]}

@@ -3,6 +3,8 @@
 // hamming.cu (the score alone), attention_read.cu and hop_chain.cu.  The
 // counterpart of _hamming_score_block (qmann_tpu/ops/pallas/qkernels.py),
 // which the TPU package shares between its three kernels the same way.
+// The surrogate backward (hamming_bwd.cu) reuses its encode and
+// preprocess.
 //
 // Per pair, as the plain version (qmann_tpu_torch/ops/attention.py):
 //   1. encode m and u as 32-bit sign-magnitude words at the full-width
@@ -25,7 +27,8 @@
 // The rounding mode is a template argument (the kernels instantiate one
 // per mode), so the encode and both requants compile without a branch.
 // ham_encode and ham_pair are split so that a kernel encodes each query's
-// u once and pairs the word with each memory row's.
+// u once and pairs the word with each memory row's; ham_preprocess is
+// split out of ham_pair for the surrogate backward (hamming_bwd.cu).
 //
 // The word form of step 3.  Let match = ~differ & mask, with mask the
 // bits 30 .. 32-num_bit (the bits i in [1, num_bit), bit i at position
@@ -102,18 +105,27 @@ __device__ __forceinline__ uint32_t ham_encode(float x, const HamFmt& h) {
   return neg ? (mag | 0x80000000u) : mag;
 }
 
+// The common-mode preprocess of one pair of encoded words (step 2): the
+// preprocessed words, sign bits included, in *pm and *pu.  Shared by the
+// score (ham_pair) and the surrogate backward (hamming_bwd.cu).
+__device__ __forceinline__ void ham_preprocess(uint32_t wm, uint32_t wu,
+                                               uint32_t* pm, uint32_t* pu) {
+  const uint32_t sm = wm & 0x80000000u, su = wu & 0x80000000u;
+  const uint32_t mm = wm & 0x7fffffffu, mu = wu & 0x7fffffffu;
+  const uint32_t mn = mm < mu ? mm : mu;
+  const bool same = sm == su, ge = mm >= mu;
+  *pm = sm | (same ? mm - mn : (ge ? mm + mn : 0u));
+  *pu = su | (same ? mu - mn : (ge ? 0u : mu + mn));
+}
+
 // The requanted term of one pair of encoded words.  Word: the word form
 // (only where h.word says it is exact); else the float loop.
 template <int Mode, bool Word>
 __device__ __forceinline__ float ham_pair(uint32_t wm, uint32_t wu,
                                           const HamFmt& h) {
-  const uint32_t sm = wm & 0x80000000u, su = wu & 0x80000000u;
-  const uint32_t mm = wm & 0x7fffffffu, mu = wu & 0x7fffffffu;
-  const uint32_t mn = mm < mu ? mm : mu;
-  const bool same = sm == su, ge = mm >= mu;
-  const uint32_t pm = same ? mm - mn : (ge ? mm + mn : 0u);
-  const uint32_t pu = same ? mu - mn : (ge ? 0u : mu + mn);
-  const uint32_t differ = (sm | pm) ^ (su | pu);
+  uint32_t pm, pu;
+  ham_preprocess(wm, wu, &pm, &pu);
+  const uint32_t differ = pm ^ pu;
   const uint32_t match = ~differ & h.mask;
   float sim;
   if constexpr (Word) {

@@ -59,7 +59,9 @@ from qmann_tpu_torch.config import QmannConfig
 COUNTED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec"),
            ("qmann_tpu_torch.ops.cuda.attention_read", "fused_read"),
            ("qmann_tpu_torch.ops.cuda.hamming", "hamming_score_kernel"),
-           ("qmann_tpu_torch.ops.cuda.hop_chain", "fused_hop_chain"))
+           ("qmann_tpu_torch.ops.cuda.hop_chain", "fused_hop_chain"),
+           ("qmann_tpu_torch.ops.cuda.hamming_bwd",
+            "hamming_backward_kernel"))
 
 
 def without_fast_path(cfg: QmannConfig) -> QmannConfig:
@@ -73,12 +75,12 @@ def without_fast_path(cfg: QmannConfig) -> QmannConfig:
 
 def _counters() -> List[Callable]:
     """The objects whose ``.launches`` the wrappers count on now."""
-    import qmann_tpu_torch.ops.cuda  # noqa: F401  (loads the four modules)
+    import qmann_tpu_torch.ops.cuda  # noqa: F401  (loads the five modules)
     return [getattr(sys.modules[m], n) for m, n in COUNTED]
 
 
 def launch_counts() -> Tuple[int, ...]:
-    """The four wrappers' launch counts, in ``COUNTED``'s order."""
+    """The five wrappers' launch counts, in ``COUNTED``'s order."""
     return tuple(fn.launches for fn in _counters())
 
 

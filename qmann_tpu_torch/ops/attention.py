@@ -23,10 +23,13 @@ The Hamming forward, per (m, u) element pair:
 score through the hand-written CUDA kernel (``ops/cuda/hamming.py``), the
 leading dims (a family's runs) folded into B, as JAX's vmap batches the
 Pallas kernel; on a CPU tensor it takes the plain version, and so do
-other ranks, as the JAX package's Pallas route does.  The surrogate backward is plain
-PyTorch, as it is plain jnp in JAX: it re-encodes and re-preprocesses the
-inputs, reads the operand signs from the original words, and keeps the
-reference's stale-accumulate quirk in the query gradient.
+other ranks, as the JAX package's Pallas route does.  The surrogate
+backward re-encodes and re-preprocesses the inputs, reads the operand
+signs from the original words, and keeps the reference's stale-accumulate
+quirk in the query gradient.  In JAX it is a loop of jnp ops that XLA
+fuses under jit; here the kernel route's backward runs it as one
+hand-written CUDA kernel (``ops/cuda/hamming_bwd.py``) and the plain
+route as ``hamming_backward``, the kernel's plain version.
 """
 from __future__ import annotations
 
@@ -128,20 +131,19 @@ def hamming_score_reference(m: torch.Tensor, u: torch.Tensor, iwl: int,
     return float_quant(term.sum(-1), fmt_full)
 
 
-def hamming_backward(m: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
-                     iwl: int, num_bit: int,
-                     const_scale: int = DEFAULT_CONST_SCALE,
-                     round_mode: int = 3):
-    """The reference's surrogate gradients (dm, du) for upstream g [..., M].
+def surrogate_terms(m: torch.Tensor, u: torch.Tensor, iwl: int,
+                    num_bit: int, const_scale: int = DEFAULT_CONST_SCALE,
+                    round_mode: int = 3):
+    """The surrogate's per-element factors (tmp_a, grad_appx), each
+    [..., M, D], before the upstream gradient multiplies them.
 
     Per bit i in [0, num_bit) where the preprocessed bits differ (diff =
-    mb - ub): the memory gradient accumulates diff * sign_m * 2^ACS at
-    i == 0 and -diff * sign_u * 2^ACS above; the query gradient's tmp_v is
-    assigned -diff * sign_u * 2^ACS at i == 0 and diff * sign_m * 2^ACS
-    above, but added into grad_appx at every bit, so a stale value is
-    re-added where the bits match.  The signs are those of the original
-    words (word >= 0), not of the preprocessed ones.  The weight_para and
-    unweighted variants change the forward only."""
+    mb - ub): tmp_a accumulates diff * sign_m * 2^ACS at i == 0 and
+    -diff * sign_u * 2^ACS above; tmp_v is assigned -diff * sign_u * 2^ACS
+    at i == 0 and diff * sign_m * 2^ACS above, but added into grad_appx at
+    every bit, so a stale value is re-added where the bits match.  The
+    signs are those of the original words (word >= 0), not of the
+    preprocessed ones."""
     scale = float(2.0 ** const_scale)
     wm = _encode_words(m, iwl, round_mode)
     wu = _encode_words(u, iwl, round_mode)[..., None, :]
@@ -165,14 +167,34 @@ def hamming_backward(m: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
         tmp_a = tmp_a + torch.where(differ, contrib_m, 0.0)
         tmp_v = torch.where(differ, assign_v, tmp_v)
         grad_appx = grad_appx + tmp_v
+    return tmp_a, grad_appx
+
+
+def hamming_backward(m: torch.Tensor, u: torch.Tensor, g: torch.Tensor,
+                     iwl: int, num_bit: int,
+                     const_scale: int = DEFAULT_CONST_SCALE,
+                     round_mode: int = 3):
+    """The reference's surrogate gradients (dm, du) for upstream g
+    [..., M]: dm = tmp_a * g, du = sum over the memory rows of
+    grad_appx * g (``surrogate_terms``).  The weight_para and unweighted
+    variants change the forward only.  The plain version of
+    ``ops/cuda/hamming_bwd.py``'s kernel."""
+    tmp_a, grad_appx = surrogate_terms(m, u, iwl, num_bit, const_scale,
+                                       round_mode)
     g_row = g[..., :, None]
     return tmp_a * g_row, (grad_appx * g_row).sum(-2)
 
 
+def _kernel_route(m, u, backend) -> bool:
+    """Whether the score and its backward take the kernels: a
+    [..., B, M, D] x [..., B, D] score with backend="kernel"."""
+    _check_backend(backend)
+    return backend == "kernel" and m.dim() >= 3 and u.dim() == m.dim() - 1
+
+
 def _hamming_forward(m, u, iwl, num_bit, const_scale, round_mode, backend,
                      weight_para, weighted):
-    _check_backend(backend)
-    if backend == "kernel" and m.dim() >= 3 and u.dim() == m.dim() - 1:
+    if _kernel_route(m, u, backend):
         # leading dims before [B, M, D] (a family's runs) fold into B
         from qmann_tpu_torch.ops.cuda.hamming import hamming_score_kernel
         M, D = m.shape[-2:]
@@ -190,13 +212,19 @@ class _HammingScore(torch.autograd.Function):
                 weight_para, weighted):
         ctx.save_for_backward(m, u)
         ctx.knobs = (iwl, num_bit, const_scale, round_mode)
+        ctx.kernel = _kernel_route(m, u, backend)
         return _hamming_forward(m, u, iwl, num_bit, const_scale, round_mode,
                                 backend, weight_para, weighted)
 
     @staticmethod
     def backward(ctx, g):
         m, u = ctx.saved_tensors
-        dm, du = hamming_backward(m, u, g, *ctx.knobs)
+        if ctx.kernel:   # the surrogate on the route the forward took
+            from qmann_tpu_torch.ops.cuda.hamming_bwd import (
+                hamming_backward_kernel)
+            dm, du = hamming_backward_kernel(m, u, g, *ctx.knobs)
+        else:
+            dm, du = hamming_backward(m, u, g, *ctx.knobs)
         return (dm, du) + (None,) * 7
 
 
@@ -210,9 +238,10 @@ def hamming_score(m: torch.Tensor, u: torch.Tensor, iwl: int, num_bit: int,
 
     num_bit: the compared bits, 1 + iwl + frac of the layer's nominal
     format.  backend="kernel" runs a [..., B, M, D] x [..., B, D] forward
-    through the CUDA kernel (bit-identical).  weight_para offsets the
-    bit-weight exponent; weighted=False selects the unweighted bit-match
-    count."""
+    and its surrogate backward through the CUDA kernels (bit-identical,
+    but the query gradient's sum over the memory rows).  weight_para
+    offsets the bit-weight exponent; weighted=False selects the unweighted
+    bit-match count."""
     return _HammingScore.apply(m, u, iwl, num_bit, const_scale, round_mode,
                                backend, weight_para, weighted)
 

@@ -6,6 +6,9 @@ from qmann_tpu_torch.ops.cuda.attention_read import (
 from qmann_tpu_torch.ops.cuda.hamming import (
     hamming_score_kernel, hamming_score_reference,
 )
+from qmann_tpu_torch.ops.cuda.hamming_bwd import (
+    hamming_backward, hamming_backward_kernel,
+)
 from qmann_tpu_torch.ops.cuda.hop_chain import (
     fused_hop_chain, fused_hop_chain_reference,
 )
@@ -14,6 +17,7 @@ from qmann_tpu_torch.ops.cuda.qmatvec import (
 )
 
 __all__ = ["fused_hop_chain", "fused_hop_chain_reference", "fused_read",
-           "fused_read_reference", "hamming_score_kernel",
+           "fused_read_reference", "hamming_backward",
+           "hamming_backward_kernel", "hamming_score_kernel",
            "hamming_score_reference", "quantized_matvec",
            "quantized_matvec_reference"]

@@ -1,15 +1,17 @@
 """The launch rule and shape limits shared by the read kernel
-(``csrc/attention_read.cu``) and the Hamming kernel (``csrc/hamming.cu``):
-both take up to ``MAX_QUERIES_PER_BLOCK`` queries per block, stage the
-block's rows in dynamic shared memory and give each score row G lanes.
+(``csrc/attention_read.cu``), the Hamming kernel (``csrc/hamming.cu``) and
+its surrogate backward (``csrc/hamming_bwd.cu``): each takes up to
+``MAX_QUERIES_PER_BLOCK`` queries per block and stages the block's rows in
+dynamic shared memory; the two scores give each score row G lanes.
 Their wrappers (``attention_read.read_geometry``,
-``hamming.hamming_geometry``) pass in their kernel's shared-memory size.
+``hamming.hamming_geometry``, ``hamming_bwd.backward_geometry``) pass in
+their kernel's shared-memory size.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-# bounds of both kernels (kMaxMem, kMaxDim, kMaxThreads in their sources)
+# bounds of the kernels (kMaxMem, kMaxDim, kMaxThreads in their sources)
 MAX_MEM, MAX_DIM = 64, 256
 MAX_THREADS = 512
 SMEM_LIMIT = 232448        # 227 KB; the kernels take no static shared memory
@@ -57,7 +59,7 @@ def block_geometry(B: int, M: int, D: int,
 
 
 def check_shape(name: str, B: int, M: int, D: int) -> None:
-    """The shapes both kernels take (B >= 1, 1 <= M <= 64, 1 <= D <= 256),
+    """The shapes the kernels take (B >= 1, 1 <= M <= 64, 1 <= D <= 256),
     checked before any launch."""
     if not (B >= 1 and 1 <= M <= MAX_MEM and 1 <= D <= MAX_DIM):
         raise ValueError(f"{name}: B={B}, M={M}, D={D} outside the kernel's "

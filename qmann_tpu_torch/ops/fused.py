@@ -6,21 +6,24 @@ the whole hop read (score -> masked softmax -> weighted sum) on CUDA
 tensors, its plain PyTorch version on CPU tensors.
 
 Backward: the raw-float composition of the three ops' reference backwards,
-in plain PyTorch as in JAX (no kernel is owed: the TPU package has none):
-the weighted-sum backward (float, or the quantized contractions under
-``sum_grad_quantized``), then the softmax backward p*(dp - sum(p*dp)),
-then the score backward on the raw m and u: the float qscore backward in
-modes 1 and 2, the reference's Hamming surrogate in mode 3
-(``ops.attention.hamming_backward``).  So training through the kernel is
-gradient-identical to the unfused op chain.
+as in JAX: the weighted-sum backward (float, or the quantized contractions
+under ``sum_grad_quantized``) and the softmax backward p*(dp - sum(p*dp))
+in plain PyTorch, as plain jnp in JAX (the TPU package has no kernel for
+them); then the score backward on the raw m and u: the float qscore
+backward in modes 1 and 2, and in mode 3 the reference's Hamming
+surrogate, which XLA fuses in JAX and the port runs as one hand-written
+CUDA kernel (``ops/cuda/hamming_bwd.py``; its plain version,
+``ops.attention.hamming_backward``, for CPU tensors).  So training through
+the kernel is gradient-identical to the unfused op chain (the query
+gradient's sum over the memory rows aside).
 """
 from __future__ import annotations
 
 import torch
 
 from qmann_tpu_torch.numerics import QFormat
-from qmann_tpu_torch.ops.attention import hamming_backward
 from qmann_tpu_torch.ops.cuda.attention_read import fused_read
+from qmann_tpu_torch.ops.cuda.hamming_bwd import hamming_backward_kernel
 from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
 from qmann_tpu_torch.ops.softmax import softmax_backward
 
@@ -65,7 +68,7 @@ class _FusedAttentionRead(torch.autograd.Function):
             ds_p = softmax_backward(p, dp)   # padded entries have p == 0
             ds = ds_p if ds is None else ds_p + ds
         if ds is not None and ctx.hamming is not None:
-            dm, du = hamming_backward(m, u, ds, *ctx.hamming)
+            dm, du = hamming_backward_kernel(m, u, ds, *ctx.hamming)
         elif ds is not None:
             # the float qscore backward on the raw m, u (the fused read's
             # VJP is raw-float: EN_GRAD_QUANT keeps the unfused chain)

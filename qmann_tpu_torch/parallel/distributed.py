@@ -98,8 +98,10 @@ def _attention_read_local(m_l, c_l, u, mask_l, cfg: QmannConfig, hop: int,
     Returns (o, replicated over ``group``; p_l, this rank's rows).
 
     Under ``use_pallas`` (and ``use_pallas_hamming`` in mode 3) the mode-3
-    score runs on the Hamming kernel; the read kernel fuses the softmax,
-    which needs global statistics here, so the rest is the plain ops."""
+    score runs on the Hamming kernel, and its surrogate backward on the
+    backward kernel (``ops.attention._HammingScore``); the read kernel
+    fuses the softmax, which needs global statistics here, so the rest is
+    the plain ops."""
     fmt_att, fmt_act = cfg.fmt_att[hop], cfg.fmt_act[hop]
     mask_l = mask_l.to(torch.bool)
     if cfg.att_score_mod != "none" and cfg.attention_mode == 2:

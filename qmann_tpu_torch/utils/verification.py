@@ -24,6 +24,7 @@ import torch
 from qmann_tpu_torch.config import QmannConfig
 from qmann_tpu_torch.device import resolve_device, to_numpy
 from qmann_tpu_torch.numerics import QFormat, fixed_max_float, float_quant
+from qmann_tpu_torch.ops.attention import surrogate_terms
 
 TH_ERROR_FLOAT = 1e-6  # lib/common.h:178
 
@@ -94,14 +95,17 @@ def _flips(name: str, keep: torch.Tensor) -> VerificationResult:
 
 def verify_kernels(rng: Optional[np.random.Generator] = None,
                    device="cuda") -> List[VerificationResult]:
-    """The four hand-written kernels against their plain versions on
+    """The five hand-written kernels against their plain versions on
     ``device``, on small seeded inputs: the lattice (whole-row and tiled
-    over I) and the Hamming score bit for bit; the attention read (mode 2)
+    over I) and the Hamming score bit for bit; the Hamming surrogate
+    backward's dm bit for bit and du within the rounding of a sum over the
+    memory rows in another order; the attention read (mode 2)
     and the hop chain with their scores bit for bit, p within
     TH_ERROR_FLOAT, and the output bit for bit in every query whose
     Q(p, act) did not flip (at most one may)."""
     from qmann_tpu_torch.ops.cuda import attention_read as ar
     from qmann_tpu_torch.ops.cuda import hamming as ham
+    from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
     dev = resolve_device(device)
@@ -129,6 +133,18 @@ def verify_kernels(rng: Optional[np.random.Generator] = None,
                            ham.hamming_score_kernel(*ham_args),
                            ham.hamming_score_reference(*ham_args),
                            threshold=0.0))
+    g = t(8, 6)
+    bwd_args = (m, u, g, 5, 8, -3, act.mode)
+    (dm_g, du_g), (dm_w, du_w) = (hbwd.hamming_backward_kernel(*bwd_args),
+                                  hbwd.hamming_backward(*bwd_args))
+    # du: two 6-term float32 sums in different orders
+    _, grad_appx = surrogate_terms(m, u, 5, 8, -3, act.mode)
+    du_bound = 2 * 6 * 2.0 ** -24 * float(
+        (grad_appx * g[..., None]).abs().sum(-2).max())
+    results += [compare("hamming_backward dm kernel-vs-plain", dm_g, dm_w,
+                        threshold=0.0),
+                compare("hamming_backward du kernel-vs-plain", du_g, du_w,
+                        threshold=du_bound)]
 
     B, M, D = 8, 10, 12
     mask = (torch.arange(M)[None, :]

@@ -1,0 +1,136 @@
+#!/usr/bin/env python3
+"""Time one training step of the PyTorch/CUDA port at B=32, eager and as
+a replayed CUDA graph, on one NVIDIA GPU, and count its kernel records by
+kernel name.
+
+    python3 step_times.py [--root DIR] [--tag NAME] [--out FILE]
+
+Three configurations at the flagship widths (mode 2 iwl 5 on
+`use_pallas`; mode 3 iwl 1 on `use_pallas` and on `use_pallas_hamming`),
+each on the first 10 batches of a seeded qa1-shaped `synthetic_task` with
+weights x4: the eager `train_step` loop against `train_epoch` through
+`graphs.Graphs` (event ms per step, median of 5 strictly alternating
+pairs of 10 steps), the profiler's busy ms and kernel records per step of
+each, and the eager step's records by kernel name (the 12 most frequent).
+
+`--root DIR` takes `qmann_tpu_torch` from DIR, such as an older commit
+unpacked into the gitignored `chip_parent/`; the inputs and timers come
+from this checkout (`chip_smoke.py`), so two commits are timed by the same
+code.  Compare two commits in one call, in turns:
+
+    for r in chip_parent . . chip_parent; do
+      python3 step_times.py --root $r --tag $r --out steps.jsonl
+    done
+
+Prints one JSON line per configuration and one for the run, with the
+card's name and power limit; `--out` appends the last.
+"""
+import argparse
+import importlib
+import json
+import statistics
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+CONFIGS = (("mode 2 iwl 5, use_pallas", dict(use_pallas=True)),
+           ("mode 3 iwl 1, use_pallas", dict(attention_mode=3, iwl=1,
+                                             use_pallas=True)),
+           ("mode 3 iwl 1, use_pallas_hamming",
+            dict(attention_mode=3, iwl=1, use_pallas_hamming=True)))
+STEPS, TOP = 10, 12
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        cs.fail("step_times.py needs a GPU")
+    sys.path.insert(0, str(root))
+    import qmann_tpu_torch
+    if not Path(qmann_tpu_torch.__file__).resolve().is_relative_to(root):
+        cs.fail(f"imported {qmann_tpu_torch.__file__}, not the package at "
+                f"{root}")
+    # every kernel module the package has, built in parallel
+    mods = []
+    for name in ("hop_chain", "qmatvec", "attention_read", "hamming",
+                 "hamming_bwd"):
+        try:
+            mods.append(importlib.import_module(
+                f"qmann_tpu_torch.ops.cuda.{name}"))
+        except ModuleNotFoundError:   # an older commit without it
+            pass
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: m.build(), mods))
+    from qmann_tpu_torch import graphs
+    from qmann_tpu_torch.config import QmannConfig
+    from qmann_tpu_torch.data import synthetic_task
+    from qmann_tpu_torch.models import memn2n
+    from qmann_tpu_torch.train import train_epoch, train_step
+    from qmann_tpu_torch.train.trainer import _batched_arrays
+
+    dev = torch.device(cs.DEVICE)
+    data = synthetic_task(np.random.default_rng(cs.SEED), 1000, 100, 100,
+                          19, 10, 6)
+    batches = {k: torch.from_numpy(v[:STEPS]).contiguous().to(dev)
+               for k, v in _batched_arrays(data.train,
+                                           cs.TRAIN_BATCH).items()}
+    run = {"tag": args.tag, "root": str(root), "card": cs.card_line(),
+           "kernel_modules": len(mods)}
+    for name, kw in CONFIGS:
+        cfg = QmannConfig(verbose=False, **kw)
+        base = {k: 4.0 * v for k, v in memn2n.init_params(
+            cfg, data.dims, torch.Generator().manual_seed(cs.SEED),
+            device=dev).items()}
+        lr = torch.tensor(cfg.learning_rate, device=dev)
+        p_e = {k: v.clone() for k, v in base.items()}
+        p_g = {k: v.clone() for k, v in base.items()}
+        g = graphs.Graphs(dev)
+
+        def eager():
+            for i in range(STEPS):
+                train_step(p_e, {k: v[i] for k, v in batches.items()}, lr,
+                           cfg)
+
+        def graphed():
+            train_epoch(p_g, batches, lr, cfg, graphs=g)
+
+        eager()
+        graphed()   # warm-up and capture
+        t = cs.paired_ms(eager, graphed, STEPS)
+        row = {"tag": args.tag, "config": name}
+        for side, fn in (("eager", eager), ("graphed", graphed)):
+            kernels = cs.device_ms(fn, n_iter=2)
+            row[side] = {"event_ms": statistics.median(t[side]),
+                         "samples_ms": t[side],
+                         "busy_ms": sum(ms for ms, _ in kernels.values())
+                         / STEPS,
+                         "records": sum(n for _, n in kernels.values())
+                         / STEPS}
+            if side == "eager":
+                top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+                row["eager_records_by_kernel"] = {
+                    key: n / STEPS for key, (_, n) in top[:TOP]}
+        run[name] = row
+        print(json.dumps(row), flush=True)
+    print(json.dumps(run), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(json.dumps(run) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,8 +14,10 @@ read: scores bit-identical, p within atol 1e-6, o bit-identical but for at
 most one flipped query.  Mode-1 read: rtol 1e-5, atol 1e-6 (float sums in
 another order).  Hamming score kernel: bit-identical (integer work and
 exact sums), on random inputs and on the encode's edge list.  Mode-3 read
-and chain: as mode 2.  One SGD step, kernel route against plain route:
-rtol 1e-5, atol 1e-6.
+and chain: as mode 2.  Hamming surrogate backward: dm bit-identical (int32
+views), du within 2*M*2^-24*sum_r|grad_appx*g| (an M-term float32 sum in
+another order), two launches bitwise equal.  One SGD step, kernel route
+against plain route: rtol 1e-5, atol 1e-6.
 """
 import numpy as np
 import pytest
@@ -29,7 +31,9 @@ from qmann_tpu_torch.numerics import float_quant  # noqa: E402
 from qmann_tpu_torch.ops import exact_matmul  # noqa: E402
 from qmann_tpu_torch.numerics import QFormat  # noqa: E402
 from qmann_tpu_torch.ops.cuda import attention_read as ar  # noqa: E402
+from qmann_tpu_torch.ops.attention import surrogate_terms  # noqa: E402
 from qmann_tpu_torch.ops.cuda import hamming as ham  # noqa: E402
+from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd  # noqa: E402
 from qmann_tpu_torch.ops.cuda import hop_chain  # noqa: E402
 from qmann_tpu_torch.ops.cuda import qmatvec as qmv  # noqa: E402
 from qmann_tpu_torch.ops.qlinear import (  # noqa: E402
@@ -296,6 +300,77 @@ def test_hamming_kernel_rejects_what_it_cannot_take(cuda):
         ham.hamming_score_kernel(m.double(), u, 1, 8)
 
 
+def _assert_backward_matches(m, u, g, iwl, num_bit, mode):
+    """The surrogate backward kernel against hamming_backward on the card:
+    one launch counted, dm bit for bit, du within its rounding bound, a
+    second launch bitwise equal."""
+    args = (m, u, g, iwl, num_bit, -3, mode)
+    before = hbwd.hamming_backward_kernel.launches
+    dm, du = hbwd.hamming_backward_kernel(*args)
+    want_dm, want_du = hbwd.hamming_backward(*args)
+    again = hbwd.hamming_backward_kernel(*args)
+    torch.cuda.synchronize()
+    assert hbwd.hamming_backward_kernel.launches == before + 2
+    assert dm.shape == m.shape and du.shape == u.shape
+    assert torch.equal(dm.view(torch.int32), want_dm.view(torch.int32))
+    _, grad_appx = surrogate_terms(m, u, iwl, num_bit, -3, mode)
+    slack = (2 * m.shape[-2] * 2.0 ** -24
+             * (grad_appx * g[..., None]).abs().sum(-2))
+    assert bool(((du - want_du).abs() <= slack).all())
+    assert torch.equal(again[0].view(torch.int32), dm.view(torch.int32))
+    assert torch.equal(again[1].view(torch.int32), du.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [3, 0, 1, 2])
+@pytest.mark.parametrize("iwl", [0, 1, 5, 31])
+@pytest.mark.parametrize("B,M,D", [(32, 10, 60), (1024, 10, 60),
+                                   (32, 50, 60)])
+def test_hamming_backward_kernel_matches_plain(cuda, B, M, D, iwl, mode):
+    """At the training, eval-chunk and wide shapes, on ham_inputs (the
+    encode's edge list in sample 0), num_bit 1, 8, 25 and 32."""
+    m, u = (torch.from_numpy(a).to(cuda) for a in ham_inputs(iwl, B, M, D))
+    g = torch.from_numpy(np.random.default_rng(iwl).normal(
+        0.0, 1.0, (B, M)).astype(np.float32)).to(cuda)
+    g[0, :2] = torch.tensor([0.0, -0.0])
+    for num_bit in (1, 8, 25, 32):
+        _assert_backward_matches(m, u, g, iwl, num_bit, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [32, 128])
+def test_hamming_backward_kernel_folds_a_family(cuda, B):
+    """The mode-3 family's [R, B, M, D] = [40, B, 50, 60], folded into the
+    kernel's batch by the wrapper."""
+    m, u = (torch.from_numpy(a).to(cuda) for a in ham_inputs(1, 40 * B, 50,
+                                                             60))
+    m, u = m.reshape(40, B, 50, 60), u.reshape(40, B, 60)
+    g = torch.from_numpy(np.random.default_rng(B).normal(
+        0.0, 1.0, (40, B, 50)).astype(np.float32)).to(cuda)
+    _assert_backward_matches(m, u, g, 1, 8, 3)
+
+
+@pytest.mark.cuda
+def test_hamming_backward_kernel_rejects_what_it_cannot_take(cuda):
+    m = torch.zeros((4, 6, 8), device=cuda)
+    u = torch.zeros((4, 8), device=cuda)
+    g = torch.zeros((4, 6), device=cuda)
+    before = hbwd.hamming_backward_kernel.launches
+    with pytest.raises(ValueError, match="num_bit in"):
+        hbwd.hamming_backward_kernel(m, u, g, 1, 33)
+    with pytest.raises(ValueError, match="shapes"):
+        hbwd.hamming_backward_kernel(m, u[:, :7], g, 1, 8)
+    with pytest.raises(ValueError, match="M<=64, 1<=D<=256"):
+        hbwd.hamming_backward_kernel(torch.zeros((2, 65, 8), device=cuda),
+                                     u[:2], torch.zeros((2, 65),
+                                                        device=cuda), 1, 8)
+    with pytest.raises(ValueError, match="different devices"):
+        hbwd.hamming_backward_kernel(m, u, g.cpu(), 1, 8)
+    with pytest.raises(TypeError, match="float32"):
+        hbwd.hamming_backward_kernel(m.double(), u, g, 1, 8)
+    assert hbwd.hamming_backward_kernel.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("iwl", [1, 5])
 @pytest.mark.parametrize("V,M,W,B", [(19, 10, 6, 32), (19, 10, 6, 1024),
@@ -338,14 +413,15 @@ def test_chain_kernel_mode3_matches_plain(cuda, V, M, W, kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra,launches", [
-    ({"use_pallas": True}, (10, 3, 0)),
-    ({"use_pallas_hamming": True}, (0, 0, 3)),
-    ({"use_pallas": True, "en_grad_quant": True}, (10, 0, 3))])
+    ({"use_pallas": True}, (10, 3, 0, 3)),
+    ({"use_pallas_hamming": True}, (0, 0, 3, 3)),
+    ({"use_pallas": True, "en_grad_quant": True}, (10, 0, 3, 3))])
 def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
                                                           launches):
     """One SGD step at iwl 1, mode 3, on a partial batch: the kernel routes
-    launch the lattice, the mode-3 read or the Hamming kernel as many
-    times as a step runs them, and agree with plain PyTorch."""
+    launch the lattice, the mode-3 read or the Hamming kernel, and the
+    surrogate backward once per hop, as many times as a step runs them,
+    and agree with plain PyTorch."""
     from qmann_tpu_torch.data import synthetic_task
     from qmann_tpu_torch.train import train_step
     from qmann_tpu_torch.train.trainer import _batched_arrays
@@ -360,11 +436,11 @@ def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
     for route in (cfg.replace(**extra), cfg):
         params = {k: v.clone() for k, v in base.items()}
         counters = (qmv.quantized_matvec, ar.fused_read,
-                    ham.hamming_score_kernel)
+                    ham.hamming_score_kernel, hbwd.hamming_backward_kernel)
         before = [f.launches for f in counters]
         cost, _ = train_step(params, batch, lr, route)
         launched = tuple(f.launches - b for f, b in zip(counters, before))
-        assert launched == (launches if route is not cfg else (0, 0, 0))
+        assert launched == (launches if route is not cfg else (0, 0, 0, 0))
         assert torch.isfinite(cost)
         after.append(params)
     for k in base:
