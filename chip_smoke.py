@@ -7,7 +7,7 @@ NVIDIA GPU.
 Phases, one line each; any failure exits non-zero:
   1. device  — a CUDA device is required (no CPU fallback); prints
                nvidia-smi's name and power limit
-  2. build   — compiles the five kernels from qmann_tpu_torch/csrc, one
+  2. build   — compiles the six kernels from qmann_tpu_torch/csrc, one
                nvcc per source, all started together
   3. kernel  — the hop-chain kernel against its plain PyTorch version, both
                on the card, at the flagship shape (B=1000, M=10, I=29, D=60,
@@ -65,20 +65,21 @@ Attention mode 3 (the Hamming attention):
                answers
  11. mode3-train — train_task at iwl 1, mode 3, use_pallas=True for 2 epochs
                on the same synthetic_task (10 qmatvec and 3 read launches
-               per step and eval chunk, 3 surrogate backward launches per
-               step, costs finite); one SGD step equal across the kernel
-               and plain routes (a full and the partial batch; 3 backward
-               launches per kernel-route step, none on the plain route), a
-               non-zero gradient on A; one step under use_pallas_hamming
-               launches the Hamming kernel and the backward 3 times each
-               and equals the plain step
+               per step and eval chunk, 3 surrogate backward and 3
+               weighted-sum backward launches per step, costs finite); one
+               SGD step equal across the kernel and plain routes (a full
+               and the partial batch; 3 launches of each backward kernel per
+               kernel-route step, none on the plain route), a non-zero
+               gradient on A; one step under use_pallas_hamming launches
+               the Hamming kernel and each backward 3 times and equals the
+               plain step
  12. mode3-times — the Hamming kernel and the mode-3 read alone at B=32,
                B=1024 and the wide layout, the mode-3 chain at B=1000
                (cached Q(H) and raw H, as phase 5), forward_prepared at
                B=1000 on both routes and one train step on both routes
-               (gate: 3 backward launches in a kernel-route step, 0 in a
-               plain one; CUDA events, median of 7; the profiler's device
-               time, busy time and idle share)
+               (gate: 3 launches of each backward kernel in a kernel-route
+               step, 0 in a plain one; CUDA events, median of 7; the
+               profiler's device time, busy time and idle share)
 The lattice past its whole-row limit, and the command-line run:
  13. lattice — qmatvec tiled over I (O*I + I > 12288 floats) against its
                plain version, bit for bit, at the joint block's memory
@@ -100,7 +101,8 @@ The lattice past its whole-row limit, and the command-line run:
                192 --max-sen-len 64 --use-pallas, 1 epoch: dim_input 256,
                qmatvec launched at I=256, 10 + 3 launches per forward); mode
                3 at iwl 1 with --use-pallas-hamming (1 epoch, 3 Hamming
-               launches per forward, 3 backward launches per step);
+               launches per forward, 3 launches of each backward kernel
+               per step);
                bench/qps.py --synthetic (one JSON line, four positive
                numbers); verify_kernels() on the card (every entry passes)
 The model features (on the unfused hop, as JAX's envelope routes them):
@@ -115,9 +117,10 @@ The model features (on the unfused hop, as JAX's envelope routes them):
                equal across the routes (full and partial batch), 10
                lattice launches per step and nothing else, every value
                finite; mode 3 iwl 1 with EN_SC_ATT: one epoch at 10 lattice
-               + 3 Hamming launches per forward, 3 backward launches per
-               step and no read, one step equal across the routes (10 + 3
-               + 3 launches on the kernel route, none on the plain one);
+               + 3 Hamming launches per forward, 3 launches of each
+               backward kernel per step and no read, one step equal across
+               the routes (10 + 3 + 3 + 3 launches on the kernel route,
+               none on the plain one);
                an engine with EN_SC_ATT, use_pallas and use_fused_chain
                answers ~100 requests with the plain route's answers, 3
                lattice launches per wave (the lin maps) and no chain
@@ -142,8 +145,9 @@ megasweep's padded layout (V=64, M=50: dim_input 114), use_pallas:
                costs within rtol 2e-4); the sweep_fixed.sh family (mode 3,
                iwl 1, 20 tasks x 2 seeds, 1 epoch) on use_pallas (10 + 3
                read launches per forward) and use_pallas_hamming (3
-               Hamming launches per forward), 3 surrogate backward
-               launches per family step on both; megasweep.main() at its
+               Hamming launches per forward), 3 surrogate backward and 3
+               weighted-sum backward launches per family step on both;
+               megasweep.main() at its
                default route (integer fast path, no use_pallas; R = 200, 1
                epoch, no kernel launch; how many (weight, run) pairs took
                the slow branch, read by a spy on the fast path's
@@ -208,14 +212,15 @@ The device mesh (parallel/), at the flagship widths:
                the mesh answering 200 requests as the plain route, no
                failed wave.  (1, 1): one rank over NCCL, one step equal
                to the single-device plain step.  The ranks keep the
-               lattice's, the two Hamming kernels' and the read's inputs
-               at every signature they launch them at; each kernel is then
-               run on those inputs against its plain version on the card
-               (the lattice and the Hamming kernel bit for bit, the read
-               within its tolerances, the backward as phase 20).  The
-               launches summed over ranks (gates: the lattice at both,
-               the Hamming kernel and its backward at (2, 2), the read at
-               (1, 1), where the memory is whole;
+               lattice's, the two Hamming kernels', the weighted-sum
+               backward's and the read's inputs at every signature they
+               launch them at; each kernel is then run on those inputs
+               against its plain version on the card (the lattice and the
+               Hamming kernel bit for bit, the read within its tolerances,
+               the backwards as phases 20 and 21).  The launches summed
+               over ranks (gates: the lattice at both, the Hamming kernel
+               and both backwards at (2, 2), the read at (1, 1), where the
+               memory is whole;
                the chain none, the mesh pins the plain prepared forward);
                the sharded step's event time at (1, 1) and (2, 2).  Then
                python -m torch.distributed.run --nproc-per-node 2 -m
@@ -235,7 +240,8 @@ JAX's compiled programs as CUDA graphs (graphs.py):
                rtol 1e-4, atol 1e-6 with the differing elements counted;
                the launches of the graphed epochs those of the eager
                steps, the launches per replay those of one eager step, 3
-               surrogate backward launches per mode-3 replay);
+               surrogate backward and 3 weighted-sum backward launches per
+               mode-3 replay);
                the event time per step, graphed against eager, in 5
                strictly alternating pairs of 10 steps, with the profiler's
                busy time and idle share; bench.py's program
@@ -261,6 +267,22 @@ The mode-3 surrogate backward (XLA's fusion of _hamming_bwd in JAX):
                two launches bitwise equal; the kernel's and the plain
                version's event ms, device ms per recorded launch, bound and
                share at those shapes
+The weighted sum's quantized backward (XLA's fusion of the quantized
+branch of _qweighted_sum_bwd in JAX):
+ 21. wsum-backward — csrc/qweighted_sum_bwd.cu against
+               qweighted_sum_backward(grad_quantized=True) on the card at
+               B=32 and B=1024 (M=10, D=60) and the wide layout (M=50):
+               8-bit words at iwl 0/1/5 in each rounding mode and the
+               binary format (gates: dc and dp bit-identical, int32
+               views), 16-, 24- and 32-bit words at iwl 1 in each rounding
+               mode (dc bit-identical; dp bit-identical at 16 bits, where
+               every sum is exact, and within dp_interval at 24 and 32,
+               with the rows whose requant flipped counted and printed);
+               the mode-3 family's folded [40, 32, 50, 60] and
+               [40, 128, 50, 60] (phase 16's inputs); two launches bitwise
+               equal; the kernel's and the plain version's event ms,
+               device ms per recorded launch, bound and share at those
+               shapes
 Then one JSON line of kernels (the read's and the Hamming kernel's with
 their eval-chunk and wide entries, qmatvec's with its tiled shapes, each
 with its launches on phase 15's paths, each one's family entry, the
@@ -287,6 +309,11 @@ Hamming score kernel: bit-identical (integer work, and row sums exact at
 num_bit <= 19).  Mode-3 read and chain: as mode 2.  Surrogate backward:
 dm bit-identical (one product of the same two floats); du within
 2*M*2^-24*sum_r|grad_appx*g| (an M-term float32 sum in another order).
+Weighted-sum backward: dc bit-identical (the same chain of roundings); dp
+bit-identical where every partial sum is exact (words of up to 16 bits at
+D <= 256, the binary format), elsewhere within dp_interval: the exact sum
+moved by D*2^-24*sum_d|product| (a D-term float32 sum in another order),
+then requantized.
 
 bound_ms is the larger of the bytes the call must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
@@ -303,7 +330,11 @@ SM has half as many int32 lanes as float32 lanes): 33.5 TOP/s.  The
 surrogate backward moves m, u and g once and writes dm and du once; its
 integer work is the two encodes, per element pair the preprocess of 8,
 tmp_a's signed popcount of 8 and 3 per compared bit for grad_appx's walk,
-and its float work 5 per pair (two scales, two products, the sum).
+and its float work 5 per pair (two scales, two products, the sum).  The
+weighted-sum backward moves c, p, the mask and g once and writes dc and dp
+once; per element it does two products, four requants (Q(c), the two
+products', dc's Q_fo), the mask multiply and the add, per query the
+requants of g's row and p's row, per row dp's Q_fo and mask.
 """
 import json
 import math
@@ -434,6 +465,23 @@ def hamming_backward_bound(m, u, g, num_bit):
     B, M, D = m.shape
     return _bound(_nbytes(m, u, g) + 4 * (B * M * D + B * D),
                   *ham_backward_ops(B, M, D, num_bit))
+
+
+def wsum_backward_ops(B, M, D):
+    """Float operations of one weighted-sum backward (module docstring):
+    per element two products, four requants, the mask and the add; per
+    query the requants of g and p; per row dp's requant and mask."""
+    return (B * M * D * (4 + 4 * Q_OPS) + B * (D + M) * Q_OPS
+            + B * M * (Q_OPS + 1))
+
+
+def wsum_backward_bound(c, p, mask, g):
+    """Bytes: c, p, mask and g read once, dc and dp written once (leading
+    dims folded)."""
+    M, D = c.shape[-2:]
+    B = c.numel() // (M * D)
+    return _bound(_nbytes(c, p, mask, g) + 4 * (B * M * D + B * M),
+                  wsum_backward_ops(B, M, D))
 
 
 def _read_ops(B, M, D, num_bit=None):
@@ -616,6 +664,30 @@ def check_backward(got, want, m, u, g, iwl, num_bit, const_scale=-3,
     dm_equal = torch.equal(dm.view(torch.int32), want_dm.view(torch.int32))
     return (float(diff.max()), int((du != want_du).sum()),
             dm_equal and bool((diff <= slack).all()))
+
+
+def check_wsum_backward(got, want, c, p, mask, g, fmt):
+    """The weighted-sum backward kernel's (dc, dp) against its plain
+    version's on the same inputs: dc bit for bit (int32 views: the sign of
+    a zero counts); dp bit for bit where every sum is exact (sums_exact),
+    elsewhere within dp_interval.  Returns (max |dp difference|, rows of
+    dp that differ: the requants that flipped, both hold)."""
+    import torch
+    from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
+    (dc, dp), (want_dc, want_dp) = got, want
+    good = torch.equal(dc.view(torch.int32), want_dc.view(torch.int32))
+    if wsb.sums_exact(fmt, c.shape[-1]):
+        good &= torch.equal(dp.view(torch.int32), want_dp.view(torch.int32))
+    lo, hi = wsb.dp_interval(c, mask, g, fmt)
+    good &= bool(((lo <= dp) & (dp <= hi)).all())
+    return (float((dp - want_dp).abs().max()), int((dp != want_dp).sum()),
+            good)
+
+
+def wsum_plain(c, p, mask, g, fmt):
+    """The weighted-sum backward kernel's plain version."""
+    from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
+    return qweighted_sum_backward(c, p, mask, g, fmt, grad_quantized=True)
 
 
 def serve_requests(params, cfg, cfg_plain, dims, dictionary, stories, dev,
@@ -1083,7 +1155,8 @@ def phase_serve(card, dev, counters, ckpt_dir, data_path, raw_path,
         fail("the unprepared engine's answers differ from the plain route's")
     if engine.prepared is not None or unprepared != {
             "qmatvec": 10 * waves, "attention_read": 3 * waves,
-            "hamming_score": 0, "hop_chain": 0, "hamming_backward": 0}:
+            "hamming_score": 0, "hop_chain": 0, "hamming_backward": 0,
+            "qweighted_sum_backward": 0}:
         fail("the unprepared engine did not run the lattice and read kernels "
              "once per wave and hop")
     out["unprepared"] = {"qmatvec": unprepared["qmatvec"],
@@ -1200,29 +1273,33 @@ MESH_LR = 0.3
 
 
 def kernel_counters():
-    """The five wrappers whose .launches count their kernel's launches."""
+    """The six wrappers whose .launches count their kernel's launches."""
     from qmann_tpu_torch.ops.cuda import attention_read as ar
     from qmann_tpu_torch.ops.cuda import hamming as ham
     from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
+    from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
     return {"qmatvec": qmv.quantized_matvec, "attention_read": ar.fused_read,
             "hamming_score": ham.hamming_score_kernel,
             "hop_chain": hop_chain.fused_hop_chain,
-            "hamming_backward": hbwd.hamming_backward_kernel}
+            "hamming_backward": hbwd.hamming_backward_kernel,
+            "qweighted_sum_backward": wsb.qweighted_sum_backward_kernel}
 
 
 # the wrappers whose calls phase 18 records on the ranks: (module, name in
 # it through which the mesh path calls the wrapper, kernel's key in the
-# kernels line).  The lattice and the two Hamming wrappers are looked up
-# on their own modules at each call; the read is called through
-# ops/fused.py
+# kernels line).  The lattice, the two Hamming wrappers and the
+# weighted-sum backward (from ops/qlinear.py) are looked up on their own
+# modules at each call; the read is called through ops/fused.py
 MESH_RECORDED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
                   "qmatvec"),
                  ("qmann_tpu_torch.ops.cuda.hamming", "hamming_score_kernel",
                   "hamming_score"),
                  ("qmann_tpu_torch.ops.cuda.hamming_bwd",
                   "hamming_backward_kernel", "hamming_backward"),
+                 ("qmann_tpu_torch.ops.cuda.qweighted_sum_bwd",
+                  "qweighted_sum_backward_kernel", "qweighted_sum_backward"),
                  ("qmann_tpu_torch.ops.fused", "fused_read",
                   "attention_read"))
 
@@ -1376,7 +1453,8 @@ def check_recorded_calls(results, dev, tag):
     signature they launched it at (record_calls), against its plain
     version on the card: the lattice and the Hamming kernel bit for bit,
     the read within its tolerances (check_read), the surrogate backward
-    as phase 20 holds it (check_backward).  Returns {kernel key:
+    as phase 20 holds it (check_backward), the weighted-sum backward as
+    phase 21 holds it (check_wsum_backward).  Returns {kernel key:
     {"max_abs_err", "shapes"}}; fails on a disagreement."""
     import numpy as np
     import torch
@@ -1384,12 +1462,15 @@ def check_recorded_calls(results, dev, tag):
     from qmann_tpu_torch.ops.cuda import hamming as ham
     from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
+    from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
     pairs = {"qmatvec": (qmv.quantized_matvec,
                          qmv.quantized_matvec_reference),
              "hamming_score": (ham.hamming_score_kernel,
                                ham.hamming_score_reference),
              "hamming_backward": (hbwd.hamming_backward_kernel,
                                   hbwd.hamming_backward),
+             "qweighted_sum_backward": (wsb.qweighted_sum_backward_kernel,
+                                        wsum_plain),
              "attention_read": (ar.fused_read, ar.fused_read_reference)}
     calls = {}
     for r in results:
@@ -1406,6 +1487,8 @@ def check_recorded_calls(results, dev, tag):
             err = max(diffs.values())
         elif key == "hamming_backward":
             err, _, good = check_backward(got, want, *args)
+        elif key == "qweighted_sum_backward":
+            err, _, good = check_wsum_backward(got, want, *args)
         else:
             err = float((got - want).abs().max())
             good = torch.equal(got, want)
@@ -1657,9 +1740,10 @@ def phase_mesh(card, dev, data_path, raw_path, single_err):
           flush=True)
     if (n22["qmatvec"] < 1 or n22["hamming_score"] < 1 or n22["hop_chain"]
             or n22["hamming_backward"] < 1
+            or n22["qweighted_sum_backward"] < 1
             or n11["qmatvec"] < 1 or n11["attention_read"] < 1):
-        fail("the mesh path did not launch the lattice, the Hamming kernels "
-             "or the read where it routes them")
+        fail("the mesh path did not launch the lattice, the Hamming kernels, "
+             "the weighted-sum backward or the read where it routes them")
     if any(n22[k] + n11[k] and k not in at_mesh for k in n22):
         fail("a kernel launched on the mesh path was not checked at its "
              "shapes there")
@@ -1756,7 +1840,8 @@ GRAPH_PAIRS = 5            # strictly alternating (eager, graphed) samples
 GRAPH_TIMED_STEPS = 10     # steps per timing sample
 GRAPH_ENGINE_REQUESTS, GRAPH_WAVE = 200, 64
 KERNEL_KEYS = ("qmatvec", "attention_read", "hamming_score", "hop_chain",
-               "hamming_backward")   # graphs.COUNTED's order
+               "hamming_backward",
+               "qweighted_sum_backward")   # graphs.COUNTED's order
 
 
 def event_ms(fn):
@@ -1877,10 +1962,12 @@ def phase_graphs(card, dev, data, serve_dims, dictionary, family):
                 or captured.replays != 2 * nb - 1):
             fail(f"the graphed epochs launched other kernels than the eager "
                  f"steps ({name})")
-        if per_replay["hamming_backward"] != (
-                3 if cfg.attention_mode == 3 else 0):
-            fail(f"a graphed step did not launch the surrogate backward "
-                 f"kernel once per mode-3 hop ({name})")
+        want_bwd = 3 if cfg.attention_mode == 3 else 0
+        if (per_replay["hamming_backward"] != want_bwd
+                or per_replay["qweighted_sum_backward"] != want_bwd):
+            fail(f"a graphed step did not launch the surrogate and the "
+                 f"weighted-sum backward kernels once per mode-3 hop "
+                 f"({name})")
         same_values(name, "parameters after 2 epochs", p_g, p_e)
         same_values(name, "epoch costs", torch.stack(cost_g),
                     torch.stack(cost_e))
@@ -2160,6 +2247,137 @@ def phase_backward(card, dev, nb3, fam3):
             "times": times}
 
 
+# ---------------------------------------------------------------------------
+# 21. the weighted sum's quantized backward kernel
+# (csrc/qweighted_sum_bwd.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+def wsum_formats():
+    """8-bit words at iwl 0/1/5 in each rounding mode and the binary format
+    (every dp sum exact), then 16-, 24- and 32-bit words at iwl 1 in each
+    rounding mode (bw_wl as sweep_fixed.sh sweeps it)."""
+    from qmann_tpu_torch.numerics import QFormat
+    return ([QFormat(iwl, 7 - iwl, rm) for iwl in (0, 1, 5)
+             for rm in ROUND_MODES] + [QFormat(0, 0, 3)]
+            + [QFormat(1, wl - 2, rm) for wl in (16, 24, 32)
+               for rm in ROUND_MODES])
+
+
+def wsum_inputs(rng, fmt, B, M, D):
+    """c [B, M, D], p and mask [B, M], g [B, D] as numpy float32: Gaussian
+    c and g at the format's range, p in [0, 1); sample 0 holds an edge list
+    in c (+-0.0, +-the bound, beyond it, tiny values, +-3e38); sample 1's
+    upstream row is zero; padded rows in every sample with p non-zero on
+    them, so that negative values meet the mask's 0."""
+    import numpy as np
+    from qmann_tpu_torch.numerics import fixed_max_float
+    top = 1.0 if fmt.is_binary else fixed_max_float(fmt.iwl, fmt.frac)
+    c = rng.normal(0.0, 0.6 * top, (B, M, D)).astype(np.float32)
+    edge = np.array([0.0, -0.0, top, -top, 1.5 * top, -1.5 * top, 1e-7,
+                     -1e-7, 3e38, -3e38], np.float32)[:D]
+    c[0, 0, :len(edge)] = edge
+    p = rng.uniform(0.0, 1.0, (B, M)).astype(np.float32)
+    g = rng.normal(0.0, 0.6 * top, (B, D)).astype(np.float32)
+    g[min(1, B - 1)] = 0.0
+    mask = (np.arange(M) < rng.integers(1, M + 1, (B, 1))).astype(np.float32)
+    return c, p, mask, g
+
+
+def phase_wsum_backward(card, dev, fmt_train, fam):
+    """Phase 21: qweighted_sum_backward_kernel against its plain version on
+    the card (check_wsum_backward: dc bit for bit, dp bit for bit where
+    every sum is exact and within dp_interval elsewhere; a second launch
+    bitwise equal to the first): every wsum_formats() entry at each
+    BWD_SHAPES entry, and fmt_train (the mode-3 training config's
+    fmt_act) there too; the mode-3 family's folded [R, B, M, D] batches
+    (fam: {label: (c, p, mask, fmt)} from phase 16's read).  Then the
+    kernel's and the plain
+    version's times at the training path's shapes.  Returns
+    {"max_abs_err", "dp_flips", "cases", "times": {shape: entry}}."""
+    import numpy as np
+    import torch
+    from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
+    tag = "21 wsum-backward"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 21)
+    kernel = wsb.qweighted_sum_backward_kernel
+    worst, n_cases, bad, timed = 0.0, 0, [], {}
+    flips = {}
+
+    def hold(label, c, p, mask, g, fmt):
+        nonlocal worst, n_cases
+        args = (c, p, mask, g, fmt)
+        got, again = kernel(*args), kernel(*args)
+        err, differ, good = check_wsum_backward(got, wsum_plain(*args),
+                                                *args)
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, again))
+        worst = max(worst, err)
+        wl = 1 if fmt.is_binary else fmt.iwl + fmt.frac + 1
+        flips[wl] = flips.get(wl, 0) + differ
+        n_cases += 1
+        if not (good and same):
+            bad.append(f"{label} fmt {tuple(fmt)} (dc equal and dp within "
+                       f"its bound: {good}, launches equal: {same})")
+        return args
+
+    formats = wsum_formats()
+    formats += [fmt_train] if fmt_train not in formats else []
+    for name, shape in BWD_SHAPES.items():
+        for fmt in formats:
+            args = hold(name, *(torch.from_numpy(a).to(dev) for a in
+                                wsum_inputs(rng, fmt, *shape)), fmt)
+            if fmt == fmt_train:
+                timed[name] = args
+    for label, (c, p, mask, fmt) in fam.items():
+        g = torch.from_numpy(rng.normal(0.0, 1.0, c.shape[:-2] + c.shape[-1:])
+                             .astype(np.float32)).to(dev)
+        timed[f"family {label}"] = hold(f"family {label}", c, p, mask, g,
+                                        fmt)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {n_cases} cases ({list(BWD_SHAPES.values())} at "
+          f"{len(formats)} formats: 8-bit words at iwl 0/1/5 and "
+          f"rounding modes {ROUND_MODES}, the binary format, 16/24/32-bit "
+          f"words at iwl 1; the family's "
+          f"{[tuple(a[0].shape) for k, a in timed.items() if 'family' in k]}"
+          f"): dc bit-identical and dp bit-identical "
+          f"(words of up to 16 bits) or within dp_interval in "
+          f"{n_cases - len(bad)}; dp rows whose requant flipped, by word "
+          f"length: {flips}; largest |dp difference| {worst:.3g}; two "
+          f"launches bitwise equal; failing: {bad or 'none'}", flush=True)
+    if bad:
+        fail("the weighted-sum backward kernel disagrees with its plain "
+             "version or is not deterministic")
+    if any(flips[wl] for wl in flips if wl <= 16):
+        fail("dp differs from the plain version where every sum is exact")
+    times = {}
+    with torch.inference_mode():
+        for shape, args in timed.items():
+            big = args[0].numel() > 1e6
+            t_k = cuda_ms(lambda a=args: kernel(*a))
+            t_p = cuda_ms(lambda a=args: wsum_plain(*a),
+                          n_iter=2 if big else 10, samples=3 if big else 7)
+            t_dev = recorded_ms(lambda a=args: kernel(*a))
+            b = wsum_backward_bound(*args[:4])
+            dev_txt = ("not measured (the profiler kept no record)"
+                       if t_dev is None else
+                       f"{t_dev:.4f} ms per recorded launch, "
+                       f"{b[0] / t_dev:.1%} of the bound")
+            print(f"[{tag}] {card} | qweighted_sum_backward {shape} "
+                  f"{tuple(args[0].shape)}: kernel {t_k:.4f} ms (device "
+                  f"{dev_txt}), plain {t_p:.4f} ms, bound {b[0]:.5f} ms "
+                  f"({b[1]})", flush=True)
+            times[shape] = {"shape": list(args[0].shape), "ms": t_k,
+                            "plain_ms": t_p, "device_ms": t_dev,
+                            "bound_ms": b[0], "bound_by": b[1]}
+    print(f"[{tag}] library: no single PyTorch call computes the backward "
+          f"(each product is requantized before the sum): library_ms is "
+          f"null; phase time {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"max_abs_err": worst, "dp_flips": flips, "cases": n_cases,
+            "times": times}
+
+
 def main():
     try:
         import torch
@@ -2181,6 +2399,7 @@ def main():
     from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
+    from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
 
     # 1. device
     dev = torch.device(DEVICE)
@@ -2192,7 +2411,7 @@ def main():
     # 2. build: one nvcc per source, all started together
     kernel_mods = {"hop_chain": hop_chain, "qmatvec": qmv,
                    "attention_read": ar, "hamming": ham,
-                   "hamming_backward": hbwd}
+                   "hamming_backward": hbwd, "qweighted_sum_backward": wsb}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernel_mods)) as pool:
         built = dict(zip(kernel_mods, pool.map(lambda m: m.build(),
@@ -2618,17 +2837,21 @@ def main():
     qmv.quantized_matvec.launches = 0
     ar.fused_read.launches = 0
     hbwd.hamming_backward_kernel.launches = 0
+    wsb.qweighted_sum_backward_kernel.launches = 0
     _, finite = train_route(cfg11, data, dev, "11 mode3-train", "kernel")
     qmv3_launches = qmv.quantized_matvec.launches
     ar3_launches = ar.fused_read.launches
     bwd3_launches = hbwd.hamming_backward_kernel.launches
+    wsum3_launches = wsb.qweighted_sum_backward_kernel.launches
     print(f"[11 mode3-train] {n_calls} forwards ({n_steps11} steps): "
           f"qmatvec launches {qmv3_launches} (want {10 * n_calls}), "
           f"attention_read launches {ar3_launches} (want {3 * n_calls}), "
-          f"hamming_backward launches {bwd3_launches} (want "
-          f"{3 * n_steps11})", flush=True)
+          f"hamming_backward launches {bwd3_launches} and "
+          f"qweighted_sum_backward launches {wsum3_launches} (want "
+          f"{3 * n_steps11} each)", flush=True)
     if (qmv3_launches != 10 * n_calls or ar3_launches != 3 * n_calls
-            or bwd3_launches != 3 * n_steps11):
+            or bwd3_launches != 3 * n_steps11
+            or wsum3_launches != 3 * n_steps11):
         fail("mode-3 training did not launch each kernel as expected")
     if not finite:
         fail("a mode-3 training or evaluation cost is not finite")
@@ -2637,16 +2860,18 @@ def main():
         device=dev).items()}
     cfg11_ham = cfg11_plain.replace(use_pallas_hamming=True)
     hbwd.hamming_backward_kernel.launches = 0
+    wsb.qweighted_sum_backward_kernel.launches = 0
     sgd_steps_agree((cfg11_plain, cfg11), base3, batches_np, dev,
                     "11 mode3-train")
-    bwd_steps = hbwd.hamming_backward_kernel.launches
-    print(f"[11 mode3-train] use_pallas: hamming_backward launches "
-          f"{bwd_steps} in 2 kernel-route and 2 plain-route steps (want 6)",
-          flush=True)
-    if bwd_steps != 6:
-        fail("the use_pallas steps did not launch the surrogate backward "
-             "kernel 3 times per kernel-route step and never on the plain "
-             "route")
+    bwd_steps = (hbwd.hamming_backward_kernel.launches,
+                 wsb.qweighted_sum_backward_kernel.launches)
+    print(f"[11 mode3-train] use_pallas: hamming_backward and "
+          f"qweighted_sum_backward launches {bwd_steps} in 2 kernel-route "
+          f"and 2 plain-route steps (want 6 each)", flush=True)
+    if bwd_steps != (6, 6):
+        fail("the use_pallas steps did not launch the surrogate and the "
+             "weighted-sum backward kernels 3 times per kernel-route step "
+             "and never on the plain route")
     leaves = {k: v.clone().requires_grad_() for k, v in base3.items()}
     loss, _ = memn2n.loss_and_metrics(
         leaves, batch0["memory"], batch0["question"], batch0["answer"],
@@ -2659,16 +2884,20 @@ def main():
         fail("mode-3 training gives A no gradient")
     ham.hamming_score_kernel.launches = 0
     hbwd.hamming_backward_kernel.launches = 0
+    wsb.qweighted_sum_backward_kernel.launches = 0
     sgd_steps_agree((cfg11_plain, cfg11_ham), base3, batches_np, dev,
                     "11 mode3-train use_pallas_hamming")
     ham_launches = ham.hamming_score_kernel.launches
     bwd_ham_launches = hbwd.hamming_backward_kernel.launches
+    wsum_ham_launches = wsb.qweighted_sum_backward_kernel.launches
     print(f"[11 mode3-train] use_pallas_hamming: Hamming kernel launches "
-          f"{ham_launches}, hamming_backward launches {bwd_ham_launches} in "
-          f"2 steps (want 6 and 6)", flush=True)
-    if ham_launches != 6 or bwd_ham_launches != 6:
-        fail("the use_pallas_hamming step did not launch the Hamming kernel "
-             "and its surrogate backward 3 times per step")
+          f"{ham_launches}, hamming_backward launches {bwd_ham_launches}, "
+          f"qweighted_sum_backward launches {wsum_ham_launches} in 2 steps "
+          f"(want 6 each)", flush=True)
+    if ham_launches != 6 or bwd_ham_launches != 6 or wsum_ham_launches != 6:
+        fail("the use_pallas_hamming step did not launch the Hamming kernel, "
+             "its surrogate backward and the weighted-sum backward 3 times "
+             "per step")
 
     # 12. mode-3 times
     prep_c3 = memn2n.prepare_inference(
@@ -2686,17 +2915,19 @@ def main():
     print(f"[12 mode3-times] train step B={TRAIN_BATCH}, mode 3 iwl 1",
           flush=True)
     steps12 = step_fns(cfg11, cfg11_plain, base3)
-    hbwd.hamming_backward_kernel.launches = 0
-    steps12["kernel route"]()
-    bwd12 = [hbwd.hamming_backward_kernel.launches]
-    steps12["plain route"]()
-    bwd12.append(hbwd.hamming_backward_kernel.launches - bwd12[0])
-    print(f"[12 mode3-times] hamming_backward launches in one step: kernel "
-          f"route {bwd12[0]} (want 3), plain route {bwd12[1]} (want 0)",
-          flush=True)
-    if bwd12 != [3, 0]:
-        fail("a mode-3 step did not launch the surrogate backward kernel "
-             "once per hop on the kernel route only")
+    bwd12 = {}
+    for route in ("kernel route", "plain route"):
+        hbwd.hamming_backward_kernel.launches = 0
+        wsb.qweighted_sum_backward_kernel.launches = 0
+        steps12[route]()
+        bwd12[route] = (hbwd.hamming_backward_kernel.launches,
+                        wsb.qweighted_sum_backward_kernel.launches)
+    print(f"[12 mode3-times] (hamming_backward, qweighted_sum_backward) "
+          f"launches in one step: {bwd12} (want (3, 3) on the kernel route, "
+          f"(0, 0) on the plain route)", flush=True)
+    if bwd12 != {"kernel route": (3, 3), "plain route": (0, 0)}:
+        fail("a mode-3 step did not launch the two backward kernels once "
+             "per hop on the kernel route only")
     t3_steps = time_steps(steps12, "12 mode3-times train step")
     k3 = time_kernels(
         {**{("hamming", shape): (
@@ -2939,14 +3170,17 @@ def main():
         fail("a joint-block cost is not finite")
 
     # attention mode 3 at iwl 1, the score and its surrogate backward
-    # through the Hamming kernels
+    # through the Hamming kernels, the weighted sum's backward through its
+    # kernel
     ham.hamming_score_kernel.launches = 0
     hbwd.hamming_backward_kernel.launches = 0
+    wsb.qweighted_sum_backward_kernel.launches = 0
     rc, lines = run_quiet(cli.main, [
         "1", "1", "1", "1", "--attention-mode", "3", "--use-pallas-hamming",
         "--epochs", "1", "--out-dir", str(out / "mode3"), *files])
     ham_cli = ham.hamming_score_kernel.launches
     bwd_cli = hbwd.hamming_backward_kernel.launches
+    wsum_cli = wsb.qweighted_sum_backward_kernel.launches
     n_m3 = forwards(1, n_file, n_test)
     steps_m3 = math.ceil((n_file - int(n_file * 0.1))
                          / QmannConfig().size_batch)
@@ -2954,11 +3188,13 @@ def main():
     m3_finite &= m3_epochs == 1
     print(f"[14 cli] mode 3, iwl 1, --use-pallas-hamming, 1 epoch: rc {rc}; "
           f"Hamming kernel launches {ham_cli} (want {3 * n_m3}), "
-          f"hamming_backward launches {bwd_cli} (want {3 * steps_m3}); "
-          f"costs finite: {m3_finite}", flush=True)
-    if rc != 0 or ham_cli != 3 * n_m3 or bwd_cli != 3 * steps_m3:
-        fail("the mode-3 CLI run did not launch the Hamming kernels per "
-             "hop")
+          f"hamming_backward launches {bwd_cli} and qweighted_sum_backward "
+          f"launches {wsum_cli} (want {3 * steps_m3} each); costs finite: "
+          f"{m3_finite}", flush=True)
+    if (rc != 0 or ham_cli != 3 * n_m3 or bwd_cli != 3 * steps_m3
+            or wsum_cli != 3 * steps_m3):
+        fail("the mode-3 CLI run did not launch the Hamming kernels and the "
+             "weighted-sum backward per hop")
     if not m3_finite:
         fail("a mode-3 CLI cost is not finite")
 
@@ -2994,7 +3230,8 @@ def main():
     counters = {"qmatvec": qmv.quantized_matvec, "attention_read":
                 ar.fused_read, "hamming_score": ham.hamming_score_kernel,
                 "hop_chain": hop_chain.fused_hop_chain,
-                "hamming_backward": hbwd.hamming_backward_kernel}
+                "hamming_backward": hbwd.hamming_backward_kernel,
+                "qweighted_sum_backward": wsb.qweighted_sum_backward_kernel}
 
     def zero_counts():
         for fn in counters.values():
@@ -3004,10 +3241,12 @@ def main():
         return {k: fn.launches for k, fn in counters.items()}
 
     def want_counts(qmatvec=0, attention_read=0, hamming_score=0,
-                    hamming_backward=0):
+                    backward=0):
+        """backward: the launches of each of the two backward kernels."""
         return {"qmatvec": qmatvec, "attention_read": attention_read,
                 "hamming_score": hamming_score, "hop_chain": 0,
-                "hamming_backward": hamming_backward}
+                "hamming_backward": backward,
+                "qweighted_sum_backward": backward}
 
     def feature_base(cfg_f):
         return {k: 4.0 * v for k, v in memn2n.init_params(
@@ -3108,7 +3347,7 @@ def main():
     got = counts()
     feature_launches["mode3_sc_att"] = got
     want = want_counts(qmatvec=10 * n_m3, hamming_score=3 * n_m3,
-                       hamming_backward=3 * m3_steps)
+                       backward=3 * m3_steps)
     print(f"[15 features] mode 3 sc_att iwl 1: {n_m3} forwards ({m3_steps} "
           f"steps), launches {got} (want {want})", flush=True)
     if got != want or not finite:
@@ -3118,11 +3357,11 @@ def main():
     zero_counts()
     sgd_steps_agree((cfg_m3.replace(use_pallas=False), cfg_m3), base_m3,
                     batches_np, dev, "15 features mode 3 sc_att")
-    if counts() != want_counts(qmatvec=20, hamming_score=6,
-                               hamming_backward=6):
+    if counts() != want_counts(qmatvec=20, hamming_score=6, backward=6):
         fail(f"the mode-3 EN_SC_ATT steps launched {counts()}, want 10 "
-             "lattice, 3 Hamming and 3 surrogate backward launches per "
-             "kernel-route step and none on the plain route")
+             "lattice, 3 Hamming, 3 surrogate backward and 3 weighted-sum "
+             "backward launches per kernel-route step and none on the plain "
+             "route")
     step_cfgs["mode 3 sc_att"] = (cfg_m3, base_m3, False)
 
     # (d) serving with EN_SC_ATT: the chain's envelope excludes it, the
@@ -3406,9 +3645,9 @@ def main():
     fam3_launches = {}
     for label, kw, step_want in (
             ("use_pallas", dict(use_pallas=True),
-             want_counts(qmatvec=10, attention_read=3, hamming_backward=3)),
+             want_counts(qmatvec=10, attention_read=3, backward=3)),
             ("use_pallas_hamming", dict(use_pallas_hamming=True),
-             want_counts(hamming_score=3, hamming_backward=3))):
+             want_counts(hamming_score=3, backward=3))):
         cfg_f3 = QmannConfig(iwl=1, attention_mode=3, num_itr=1,
                              verbose=False, **kw)
         zero_counts()
@@ -3421,7 +3660,9 @@ def main():
         n_fwd3 = nb16 + math.ceil(FAMILY_VALID / 128) + math.ceil(
             FAMILY_TEST / 128)
         # the forward kernels per step and eval chunk, the backward per step
-        want3 = {k: v * (nb16 if k == "hamming_backward" else n_fwd3)
+        want3 = {k: v * (nb16 if k in ("hamming_backward",
+                                       "qweighted_sum_backward")
+                         else n_fwd3)
                  for k, v in step_want.items()}
         odd3 = [i for i, c in enumerate(steps3) if c != step_want]
         fam3_launches[label] = total3
@@ -3573,6 +3814,19 @@ def main():
         label: (h_args[0].reshape(R3, -1, *h_args[0].shape[1:]),
                 h_args[1].reshape(R3, -1, h_args[1].shape[-1]))
         for label, (_, h_args) in fam3_args.items()})
+
+    # 21. the weighted sum's backward kernel against its plain version, at
+    # the training path's shapes and the mode-3 family's [R, B, M, D] (c
+    # and the mask of phase 16's read, p from its plain version)
+    def family_wsum(r_args):
+        c, mask, fmt = r_args[1], r_args[3], r_args[6]
+        p = ar.fused_read_reference(*r_args)[1]
+        return tuple(t.reshape(R3, -1, *t.shape[1:]) for t in (c, p, mask)) \
+            + (fmt,)
+
+    wsum21 = phase_wsum_backward(card, dev, cfg11.fmt_act[0], {
+        label: family_wsum(r_args) for label, (r_args, _) in
+        fam3_args.items()})
 
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
@@ -3749,6 +4003,25 @@ def main():
                     **{label: bwd20["times"][f"family {label}"]
                        for label in fam3_args}},
          **{shape: bwd20["times"][shape] for shape in ("eval", "wide")}},
+        {"name": "qweighted_sum_backward", "route": "cuda",
+         "source": "qmann_tpu_torch/csrc/qweighted_sum_bwd.cu",
+         "replaces": "qmann_tpu/ops/qlinear.py:602",
+         # XLA's fusion of _qweighted_sum_bwd's quantized branch
+         "pallas_counterpart": None,
+         "launches": wsum3_launches, "max_abs_err": wsum21["max_abs_err"],
+         "dp_flips": wsum21["dp_flips"], "cases": wsum21["cases"],
+         **{k: wsum21["times"]["train"][k] for k in (
+             "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "use_pallas_hamming": {"launches": wsum_ham_launches},
+         "cli_launches": wsum_cli,
+         "features": {"mode3_sc_att": feature_launches["mode3_sc_att"][
+             "qweighted_sum_backward"]},
+         "family": {"launches": {k: v["qweighted_sum_backward"]
+                                 for k, v in fam3_launches.items()},
+                    **{label: wsum21["times"][f"family {label}"]
+                       for label in fam3_args}},
+         **{shape: wsum21["times"][shape] for shape in ("eval", "wide")}},
     ]
     for entry in kernels_line:
         entry["mesh"] = {"added_in": 10, **mesh18[entry["name"]]}

@@ -61,7 +61,9 @@ COUNTED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec"),
            ("qmann_tpu_torch.ops.cuda.hamming", "hamming_score_kernel"),
            ("qmann_tpu_torch.ops.cuda.hop_chain", "fused_hop_chain"),
            ("qmann_tpu_torch.ops.cuda.hamming_bwd",
-            "hamming_backward_kernel"))
+            "hamming_backward_kernel"),
+           ("qmann_tpu_torch.ops.cuda.qweighted_sum_bwd",
+            "qweighted_sum_backward_kernel"))
 
 
 def without_fast_path(cfg: QmannConfig) -> QmannConfig:
@@ -75,12 +77,12 @@ def without_fast_path(cfg: QmannConfig) -> QmannConfig:
 
 def _counters() -> List[Callable]:
     """The objects whose ``.launches`` the wrappers count on now."""
-    import qmann_tpu_torch.ops.cuda  # noqa: F401  (loads the five modules)
+    import qmann_tpu_torch.ops.cuda  # noqa: F401  (loads the six modules)
     return [getattr(sys.modules[m], n) for m, n in COUNTED]
 
 
 def launch_counts() -> Tuple[int, ...]:
-    """The five wrappers' launch counts, in ``COUNTED``'s order."""
+    """The six wrappers' launch counts, in ``COUNTED``'s order."""
     return tuple(fn.launches for fn in _counters())
 
 

@@ -280,8 +280,9 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
                  and not (cfg.en_sc_att or cfg.test_maxout
                           or cfg.en_cosine_sim or cfg.en_shift_based_sm
                           or cfg.en_exp_table_based))
-    # the unfused chain's score route: use_pallas_hamming sends the mode-3
-    # score alone through the Hamming kernel
+    # the unfused chain's score and weighted-sum route: use_pallas_hamming
+    # sends the mode-3 score through the Hamming kernel and the weighted
+    # sum's quantized backward through its kernel
     att_backend = "kernel" if (cfg.attention_mode == 3
                                and cfg.use_pallas_hamming) else backend
     ham = dict(ham_num_bit=cfg.num_bits_attention,
@@ -324,7 +325,7 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: torch.Tensor, embeds,
                                   use_exp_plan=cfg.en_exp_table_based,
                                   remove=remove_softmax)
             o = qweighted_sum(c, p, mask_f, fmt_act[h], quantized=wsum_q,
-                              grad_quantized=wsum_gq)
+                              grad_quantized=wsum_gq, backend=att_backend)
         if cfg.en_linear_mapping:
             u_mapped = qmatvec(h_w, u, fmt_w[h], cfg.fmt_bin, quantized=q,
                                backend=backend)

@@ -6,16 +6,18 @@ the whole hop read (score -> masked softmax -> weighted sum) on CUDA
 tensors, its plain PyTorch version on CPU tensors.
 
 Backward: the raw-float composition of the three ops' reference backwards,
-as in JAX: the weighted-sum backward (float, or the quantized contractions
-under ``sum_grad_quantized``) and the softmax backward p*(dp - sum(p*dp))
-in plain PyTorch, as plain jnp in JAX (the TPU package has no kernel for
-them); then the score backward on the raw m and u: the float qscore
-backward in modes 1 and 2, and in mode 3 the reference's Hamming
+as in JAX: the weighted-sum backward, float in plain PyTorch as an einsum
+in JAX, or under ``sum_grad_quantized`` the quantized contractions, which
+XLA fuses in JAX and the port runs as one hand-written CUDA kernel
+(``ops/cuda/qweighted_sum_bwd.py``); the softmax backward p*(dp -
+sum(p*dp)) in plain PyTorch, as plain jnp in JAX (the TPU package has no
+kernel for it); then the score backward on the raw m and u: the float
+qscore backward in modes 1 and 2, and in mode 3 the reference's Hamming
 surrogate, which XLA fuses in JAX and the port runs as one hand-written
-CUDA kernel (``ops/cuda/hamming_bwd.py``; its plain version,
-``ops.attention.hamming_backward``, for CPU tensors).  So training through
-the kernel is gradient-identical to the unfused op chain (the query
-gradient's sum over the memory rows aside).
+CUDA kernel (``ops/cuda/hamming_bwd.py``).  On CPU tensors both kernels'
+wrappers take their plain versions.  So training through the kernel is
+gradient-identical to the unfused op chain (the query gradient's sum over
+the memory rows aside).
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ import torch
 from qmann_tpu_torch.numerics import QFormat
 from qmann_tpu_torch.ops.cuda.attention_read import fused_read
 from qmann_tpu_torch.ops.cuda.hamming_bwd import hamming_backward_kernel
+from qmann_tpu_torch.ops.cuda.qweighted_sum_bwd import (
+    qweighted_sum_backward_kernel,
+)
 from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
 from qmann_tpu_torch.ops.softmax import softmax_backward
 
@@ -60,8 +65,12 @@ class _FusedAttentionRead(torch.autograd.Function):
         dm = dc = du = None
         dp = dp_in
         if do is not None:
-            dc, dp_o = qweighted_sum_backward(c, p, mask_f, do, ctx.fmt_act,
-                                              ctx.sum_grad_quantized)
+            if ctx.sum_grad_quantized:
+                dc, dp_o = qweighted_sum_backward_kernel(c, p, mask_f, do,
+                                                         ctx.fmt_act)
+            else:
+                dc, dp_o = qweighted_sum_backward(c, p, mask_f, do,
+                                                  ctx.fmt_act)
             dp = dp_o if dp is None else dp_o + dp
         ds = ds_in
         if dp is not None:

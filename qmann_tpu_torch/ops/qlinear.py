@@ -20,8 +20,10 @@ as JAX runs them at HIGHEST precision outside any kernel.
 
 ``backend="kernel"`` (``QmannConfig.use_pallas``) routes the quantized
 forwards of ``qmatvec``, ``qembed_mat`` and ``qembed_mat_multi`` through
-the lattice kernel (``ops/cuda/qmatvec.py``); ``"plain"`` is the PyTorch
-lattice.  Both give the same result and the same backward.
+the lattice kernel (``ops/cuda/qmatvec.py``), and the quantized backward
+of ``qweighted_sum`` and ``qweighted_partial_sum`` through its kernel
+(``ops/cuda/qweighted_sum_bwd.py``, XLA's fusion of that backward in
+JAX); ``"plain"`` is plain PyTorch.  Both give the same results.
 
 The family axis.  A weight with one more leading axis, w [R, O, I] (and
 x [R, ..., I]), is a stack of R independent runs (the family trainer,
@@ -460,9 +462,11 @@ def qweighted_sum_backward(c: torch.Tensor, p: torch.Tensor,
 class _QWeightedSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, c, p, row_mask, fmt, quantized, grad_quantized,
-                partial):
+                partial, backend):
+        _check_backend(backend)
         ctx.save_for_backward(c, p, row_mask)
         ctx.fmt, ctx.grad_quantized = fmt, grad_quantized
+        ctx.kernel = backend == "kernel" and grad_quantized
         if partial:
             return qweighted_partial_forward(c, p, row_mask, fmt, quantized)
         return qweighted_sum_forward(c, p, row_mask, fmt, quantized)
@@ -470,30 +474,41 @@ class _QWeightedSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         c, p, row_mask = ctx.saved_tensors
-        dc, dp = qweighted_sum_backward(c, p, row_mask, g, ctx.fmt,
-                                        ctx.grad_quantized)
-        return dc, dp, None, None, None, None, None
+        if ctx.kernel:   # the quantized backward on the kernel route
+            from qmann_tpu_torch.ops.cuda.qweighted_sum_bwd import (
+                qweighted_sum_backward_kernel)
+            dc, dp = qweighted_sum_backward_kernel(
+                c, p, row_mask.expand_as(p), g, ctx.fmt)
+        else:
+            dc, dp = qweighted_sum_backward(c, p, row_mask, g, ctx.fmt,
+                                            ctx.grad_quantized)
+        return dc, dp, None, None, None, None, None, None
 
 
 def qweighted_sum(c: torch.Tensor, p: torch.Tensor, row_mask: torch.Tensor,
                   fmt: QFormat, quantized: bool = True,
-                  grad_quantized: bool = False) -> torch.Tensor:
+                  grad_quantized: bool = False,
+                  backend: str = "plain") -> torch.Tensor:
     """Weighted memory sum c [..., M, D] x p [..., M] -> [..., D].  row_mask
     [..., M] float (1 live / 0 padded) zeroes padded rows after the
     per-product quantization (the binary format maps 0 to +1).
     grad_quantized selects the quantized backward contractions (the
-    EN_GRAD_QUANT placement, and always in fixed-point mode 3)."""
+    EN_GRAD_QUANT placement, and always in fixed-point mode 3);
+    backend="kernel" runs them as one CUDA kernel (bit-identical at word
+    lengths up to 16 bits; see ``ops/cuda/qweighted_sum_bwd.py``)."""
     return _QWeightedSum.apply(c, p, row_mask, fmt, quantized, grad_quantized,
-                               False)
+                               False, backend)
 
 
 def qweighted_partial_sum(c: torch.Tensor, p: torch.Tensor,
                           row_mask: torch.Tensor, fmt: QFormat,
                           quantized: bool = True,
-                          grad_quantized: bool = False) -> torch.Tensor:
+                          grad_quantized: bool = False,
+                          backend: str = "plain") -> torch.Tensor:
     """qweighted_sum without the output requant: each memory shard's sum
     of masked quantized products, for one requant after the shards are
-    added.  The backward of qweighted_sum: dc is per memory row and dp
-    reduces over the unsharded D axis, so it is shard-local."""
+    added.  The backward of qweighted_sum (backend as there): dc is per
+    memory row and dp reduces over the unsharded D axis, so it is
+    shard-local."""
     return _QWeightedSum.apply(c, p, row_mask, fmt, quantized, grad_quantized,
-                               True)
+                               True, backend)

@@ -99,11 +99,14 @@ def _attention_read_local(m_l, c_l, u, mask_l, cfg: QmannConfig, hop: int,
 
     Under ``use_pallas`` (and ``use_pallas_hamming`` in mode 3) the mode-3
     score runs on the Hamming kernel, and its surrogate backward on the
-    backward kernel (``ops.attention._HammingScore``); the read kernel
-    fuses the softmax, which needs global statistics here, so the rest is
-    the plain ops."""
+    backward kernel (``ops.attention._HammingScore``); the weighted sum's
+    quantized backward runs on its kernel (``ops.qlinear._QWeightedSum``);
+    the read kernel fuses the softmax, which needs global statistics here,
+    so the rest is the plain ops."""
     fmt_att, fmt_act = cfg.fmt_att[hop], cfg.fmt_act[hop]
     mask_l = mask_l.to(torch.bool)
+    backend = "kernel" if (cfg.use_pallas or (
+        cfg.attention_mode == 3 and cfg.use_pallas_hamming)) else "plain"
     if cfg.att_score_mod != "none" and cfg.attention_mode == 2:
         # the shift needs the GLOBAL row max of the raw product sums: each
         # shard's sum of quantized products without the output requant
@@ -122,8 +125,6 @@ def _attention_read_local(m_l, c_l, u, mask_l, cfg: QmannConfig, hop: int,
             raw_l = torch.minimum(torch.maximum(raw_l, -bound), bound)
         scores_l = quantize_ste(raw_l, fmt_att)
     else:
-        backend = "kernel" if (cfg.use_pallas or (
-            cfg.attention_mode == 3 and cfg.use_pallas_hamming)) else "plain"
         scores_l = attention_score(
             m_l, u, cfg.attention_mode, fmt_att, cfg.fmt_bin,
             num_bit=cfg.num_bits_attention,
@@ -145,7 +146,7 @@ def _attention_read_local(m_l, c_l, u, mask_l, cfg: QmannConfig, hop: int,
     # output requant; the quantized backward is shard-local
     partial = qweighted_partial_sum(c_l, p_l, mask_l.to(torch.float32),
                                     fmt_act, cfg.wsum_quantized,
-                                    cfg.wsum_grad_quantized)
+                                    cfg.wsum_grad_quantized, backend)
     o = psum(partial, group)
     if cfg.wsum_quantized:
         o = quantize_ste(o, fmt_act)

@@ -25,6 +25,7 @@ from qmann_tpu_torch.config import QmannConfig
 from qmann_tpu_torch.device import resolve_device, to_numpy
 from qmann_tpu_torch.numerics import QFormat, fixed_max_float, float_quant
 from qmann_tpu_torch.ops.attention import surrogate_terms
+from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
 
 TH_ERROR_FLOAT = 1e-6  # lib/common.h:178
 
@@ -95,19 +96,21 @@ def _flips(name: str, keep: torch.Tensor) -> VerificationResult:
 
 def verify_kernels(rng: Optional[np.random.Generator] = None,
                    device="cuda") -> List[VerificationResult]:
-    """The five hand-written kernels against their plain versions on
+    """The six hand-written kernels against their plain versions on
     ``device``, on small seeded inputs: the lattice (whole-row and tiled
     over I) and the Hamming score bit for bit; the Hamming surrogate
     backward's dm bit for bit and du within the rounding of a sum over the
     memory rows in another order; the attention read (mode 2)
     and the hop chain with their scores bit for bit, p within
     TH_ERROR_FLOAT, and the output bit for bit in every query whose
-    Q(p, act) did not flip (at most one may)."""
+    Q(p, act) did not flip (at most one may); the weighted sum's
+    quantized backward bit for bit (8-bit words: every sum exact)."""
     from qmann_tpu_torch.ops.cuda import attention_read as ar
     from qmann_tpu_torch.ops.cuda import hamming as ham
     from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
+    from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
     dev = resolve_device(device)
     rng = rng or np.random.default_rng(0)
     cfg = QmannConfig()
@@ -163,6 +166,14 @@ def verify_kernels(rng: Optional[np.random.Generator] = None,
                         "a flipped Q(p))", o_g[keep], o_w[keep],
                         threshold=0.0),
                 _flips("attention_read", keep)]
+    wsum_args = (read_args[1], p_w, mask_f, t(B, D), cfg.fmt_act[0])
+    (dc_g, dp_g), (dc_w, dp_w) = (
+        wsb.qweighted_sum_backward_kernel(*wsum_args),
+        qweighted_sum_backward(*wsum_args, grad_quantized=True))
+    results += [compare("qweighted_sum_backward dc kernel-vs-plain", dc_g,
+                        dc_w, threshold=0.0),
+                compare("qweighted_sum_backward dp kernel-vs-plain", dp_g,
+                        dp_w, threshold=0.0)]
 
     K = cfg.num_hops
     chain_args = (t(B, M, 2 * K * D), float_quant(t(B, D), cfg.fmt_w[0]),

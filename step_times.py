@@ -11,7 +11,9 @@ each on the first 10 batches of a seeded qa1-shaped `synthetic_task` with
 weights x4: the eager `train_step` loop against `train_epoch` through
 `graphs.Graphs` (event ms per step, median of 5 strictly alternating
 pairs of 10 steps), the profiler's busy ms and kernel records per step of
-each, and the eager step's records by kernel name (the 12 most frequent).
+each, the eager step's records by kernel name (the 12 most frequent) and
+the launches per eager step that each kernel wrapper of the port counts
+(null for a wrapper the package at --root does not have).
 
 `--root DIR` takes `qmann_tpu_torch` from DIR, such as an older commit
 unpacked into the gitignored `chip_parent/`; the inputs and timers come
@@ -40,6 +42,12 @@ CONFIGS = (("mode 2 iwl 5, use_pallas", dict(use_pallas=True)),
            ("mode 3 iwl 1, use_pallas_hamming",
             dict(attention_mode=3, iwl=1, use_pallas_hamming=True)))
 STEPS, TOP = 10, 12
+# each kernel module of the port and the wrapper that counts its launches
+WRAPPERS = (("hop_chain", "fused_hop_chain"), ("qmatvec", "quantized_matvec"),
+            ("attention_read", "fused_read"),
+            ("hamming", "hamming_score_kernel"),
+            ("hamming_bwd", "hamming_backward_kernel"),
+            ("qweighted_sum_bwd", "qweighted_sum_backward_kernel"))
 
 
 def main(argv=None):
@@ -63,16 +71,19 @@ def main(argv=None):
         cs.fail(f"imported {qmann_tpu_torch.__file__}, not the package at "
                 f"{root}")
     # every kernel module the package has, built in parallel
-    mods = []
-    for name in ("hop_chain", "qmatvec", "attention_read", "hamming",
-                 "hamming_bwd"):
+    mods = {}
+    for name, wrapper in WRAPPERS:
         try:
-            mods.append(importlib.import_module(
-                f"qmann_tpu_torch.ops.cuda.{name}"))
+            mods[wrapper] = importlib.import_module(
+                f"qmann_tpu_torch.ops.cuda.{name}")
         except ModuleNotFoundError:   # an older commit without it
             pass
     with ThreadPoolExecutor(len(mods)) as pool:
-        list(pool.map(lambda m: m.build(), mods))
+        list(pool.map(lambda m: m.build(), mods.values()))
+
+    def launches():
+        return {w: getattr(m, w).launches for w, m in mods.items()}
+
     from qmann_tpu_torch import graphs
     from qmann_tpu_torch.config import QmannConfig
     from qmann_tpu_torch.data import synthetic_task
@@ -106,10 +117,14 @@ def main(argv=None):
         def graphed():
             train_epoch(p_g, batches, lr, cfg, graphs=g)
 
+        before = launches()
         eager()
+        after = launches()
+        row = {"tag": args.tag, "config": name, "launches_per_step": {
+            w: (after[w] - before[w]) / STEPS if w in mods else None
+            for _, w in WRAPPERS}}
         graphed()   # warm-up and capture
         t = cs.paired_ms(eager, graphed, STEPS)
-        row = {"tag": args.tag, "config": name}
         for side, fn in (("eager", eager), ("graphed", graphed)):
             kernels = cs.device_ms(fn, n_iter=2)
             row[side] = {"event_ms": statistics.median(t[side]),

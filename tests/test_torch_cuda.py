@@ -16,8 +16,12 @@ another order).  Hamming score kernel: bit-identical (integer work and
 exact sums), on random inputs and on the encode's edge list.  Mode-3 read
 and chain: as mode 2.  Hamming surrogate backward: dm bit-identical (int32
 views), du within 2*M*2^-24*sum_r|grad_appx*g| (an M-term float32 sum in
-another order), two launches bitwise equal.  One SGD step, kernel route
-against plain route: rtol 1e-5, atol 1e-6.
+another order), two launches bitwise equal.  Weighted sum's quantized
+backward: dc bit-identical; dp bit-identical where every sum is exact
+(``sums_exact``: words of up to 16 bits), else within ``dp_interval``
+(a D-term float32 sum in another order, then the requant); two launches
+bitwise equal.  One SGD step, kernel route against plain route: rtol
+1e-5, atol 1e-6.
 """
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ torch = pytest.importorskip("torch")
 from qmann_tpu_torch.config import QmannConfig  # noqa: E402
 from qmann_tpu_torch.data import synthetic_batch  # noqa: E402
 from qmann_tpu_torch.models import memn2n  # noqa: E402
+from qmann_tpu_torch.numerics import fixed_max_float  # noqa: E402
 from qmann_tpu_torch.numerics import float_quant  # noqa: E402
 from qmann_tpu_torch.ops import exact_matmul  # noqa: E402
 from qmann_tpu_torch.numerics import QFormat  # noqa: E402
@@ -36,8 +41,9 @@ from qmann_tpu_torch.ops.cuda import hamming as ham  # noqa: E402
 from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd  # noqa: E402
 from qmann_tpu_torch.ops.cuda import hop_chain  # noqa: E402
 from qmann_tpu_torch.ops.cuda import qmatvec as qmv  # noqa: E402
+from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb  # noqa: E402
 from qmann_tpu_torch.ops.qlinear import (  # noqa: E402
-    qembed_mat_forward, qmatvec_forward,
+    qembed_mat_forward, qmatvec_forward, qweighted_sum_backward,
 )
 
 
@@ -371,6 +377,103 @@ def test_hamming_backward_kernel_rejects_what_it_cannot_take(cuda):
     assert hbwd.hamming_backward_kernel.launches == before
 
 
+def wsum_inputs(fmt, B, M, D, seed=0):
+    """c, p, mask, g for the weighted sum's backward: Gaussian c and g at
+    the format's range, p in [0, 1); sample 0 holds an edge list in c;
+    sample 1's upstream row is zero; padded rows in every sample, p
+    non-zero on them (a negative value meets the mask's 0)."""
+    rng = np.random.default_rng(seed)
+    top = 1.0 if fmt.is_binary else fixed_max_float(fmt.iwl, fmt.frac)
+    c = rng.normal(0.0, 0.6 * top, (B, M, D)).astype(np.float32)
+    edge = np.array([0.0, -0.0, top, -top, 1.5 * top, -1.5 * top, 1e-7,
+                     -1e-7, 3e38, -3e38], np.float32)[:D]
+    c[0, 0, :len(edge)] = edge
+    p = rng.uniform(0.0, 1.0, (B, M)).astype(np.float32)
+    g = rng.normal(0.0, 0.6 * top, (B, D)).astype(np.float32)
+    g[min(1, B - 1)] = 0.0
+    mask = (np.arange(M) < rng.integers(1, M + 1, (B, 1))).astype(np.float32)
+    return c, p, mask, g
+
+
+def _assert_wsum_backward_matches(c, p, mask, g, fmt):
+    """The weighted sum's backward kernel against its plain version on the
+    card: two launches counted, dc bit for bit, dp bit for bit where every
+    sum is exact and within dp_interval elsewhere, the second launch
+    bitwise equal to the first."""
+    args = (c, p, mask, g, fmt)
+    before = wsb.qweighted_sum_backward_kernel.launches
+    dc, dp = wsb.qweighted_sum_backward_kernel(*args)
+    again = wsb.qweighted_sum_backward_kernel(*args)
+    want_dc, want_dp = qweighted_sum_backward(c, p, mask, g, fmt,
+                                              grad_quantized=True)
+    torch.cuda.synchronize()
+    assert wsb.qweighted_sum_backward_kernel.launches == before + 2
+    assert dc.shape == c.shape and dp.shape == p.shape
+    assert torch.equal(dc.view(torch.int32), want_dc.view(torch.int32))
+    if wsb.sums_exact(fmt, c.shape[-1]):
+        assert torch.equal(dp.view(torch.int32), want_dp.view(torch.int32))
+    lo, hi = wsb.dp_interval(c, mask, g, fmt)
+    assert bool(((lo <= dp) & (dp <= hi)).all())
+    for a, b in zip(again, (dc, dp)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+WSUM_FORMATS = ([QFormat(iwl, 7 - iwl, mode) for iwl in (0, 1, 5)
+                 for mode in (3, 0, 1, 2)] + [QFormat(0, 0, 3)]
+                + [QFormat(1, wl - 2, mode) for wl in (16, 24, 32)
+                   for mode in (3, 2)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", WSUM_FORMATS)
+@pytest.mark.parametrize("B,M,D", [(32, 10, 60), (1024, 10, 60),
+                                   (32, 50, 60), (1, 1, 1), (7, 64, 256)])
+def test_qweighted_sum_backward_kernel_matches_plain(cuda, B, M, D, fmt):
+    """At the training, eval-chunk and wide shapes and the limits, at
+    8-bit words in every rounding mode, the binary format and 16-, 24-
+    and 32-bit words."""
+    _assert_wsum_backward_matches(
+        *(torch.from_numpy(a).to(cuda) for a in wsum_inputs(fmt, B, M, D)),
+        fmt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [32, 128])
+def test_qweighted_sum_backward_kernel_folds_a_family(cuda, B):
+    """The mode-3 family's [R, B, M, D] = [40, B, 50, 60], folded into the
+    kernel's batch by the wrapper."""
+    fmt = QFormat(1, 6)
+    c, p, mask, g = (torch.from_numpy(a).to(cuda)
+                     for a in wsum_inputs(fmt, 40 * B, 50, 60, seed=B))
+    _assert_wsum_backward_matches(c.reshape(40, B, 50, 60),
+                                  p.reshape(40, B, 50),
+                                  mask.reshape(40, B, 50),
+                                  g.reshape(40, B, 60), fmt)
+
+
+@pytest.mark.cuda
+def test_qweighted_sum_backward_kernel_rejects_what_it_cannot_take(cuda):
+    c = torch.zeros((4, 6, 8), device=cuda)
+    p = torch.zeros((4, 6), device=cuda)
+    g = torch.zeros((4, 8), device=cuda)
+    fmt = QFormat(1, 6)
+    kernel = wsb.qweighted_sum_backward_kernel
+    before = kernel.launches
+    with pytest.raises(ValueError, match="format"):
+        kernel(c, p, p, g, QFormat(1, 31))
+    with pytest.raises(ValueError, match="shapes"):
+        kernel(c, p, p, g[:, :7], fmt)
+    with pytest.raises(ValueError, match="M<=64, 1<=D<=256"):
+        kernel(torch.zeros((2, 65, 8), device=cuda),
+               torch.zeros((2, 65), device=cuda),
+               torch.zeros((2, 65), device=cuda), g[:2], fmt)
+    with pytest.raises(ValueError, match="different devices"):
+        kernel(c, p, p, g.cpu(), fmt)
+    with pytest.raises(TypeError, match="float32"):
+        kernel(c.double(), p, p, g, fmt)
+    assert kernel.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("iwl", [1, 5])
 @pytest.mark.parametrize("V,M,W,B", [(19, 10, 6, 32), (19, 10, 6, 1024),
@@ -413,15 +516,16 @@ def test_chain_kernel_mode3_matches_plain(cuda, V, M, W, kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra,launches", [
-    ({"use_pallas": True}, (10, 3, 0, 3)),
-    ({"use_pallas_hamming": True}, (0, 0, 3, 3)),
-    ({"use_pallas": True, "en_grad_quant": True}, (10, 0, 3, 3))])
+    ({"use_pallas": True}, (10, 3, 0, 3, 3)),
+    ({"use_pallas_hamming": True}, (0, 0, 3, 3, 3)),
+    ({"use_pallas": True, "en_grad_quant": True}, (10, 0, 3, 3, 3))])
 def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
                                                           launches):
     """One SGD step at iwl 1, mode 3, on a partial batch: the kernel routes
-    launch the lattice, the mode-3 read or the Hamming kernel, and the
-    surrogate backward once per hop, as many times as a step runs them,
-    and agree with plain PyTorch."""
+    launch the lattice, the mode-3 read or the Hamming kernel, the
+    surrogate backward and the weighted sum's quantized backward once per
+    hop, as many times as a step runs them, and agree with plain
+    PyTorch."""
     from qmann_tpu_torch.data import synthetic_task
     from qmann_tpu_torch.train import train_step
     from qmann_tpu_torch.train.trainer import _batched_arrays
@@ -436,11 +540,12 @@ def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
     for route in (cfg.replace(**extra), cfg):
         params = {k: v.clone() for k, v in base.items()}
         counters = (qmv.quantized_matvec, ar.fused_read,
-                    ham.hamming_score_kernel, hbwd.hamming_backward_kernel)
+                    ham.hamming_score_kernel, hbwd.hamming_backward_kernel,
+                    wsb.qweighted_sum_backward_kernel)
         before = [f.launches for f in counters]
         cost, _ = train_step(params, batch, lr, route)
         launched = tuple(f.launches - b for f, b in zip(counters, before))
-        assert launched == (launches if route is not cfg else (0, 0, 0, 0))
+        assert launched == (launches if route is not cfg else (0,) * 5)
         assert torch.isfinite(cost)
         after.append(params)
     for k in base:

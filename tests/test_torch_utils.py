@@ -214,12 +214,13 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 
 def test_verify_kernels_plumbing_on_the_cpu():
     """On the CPU each wrapper takes its plain version, so every entry
-    passes; the entries cover all five kernels."""
+    passes; the entries cover all six kernels."""
     results = verification.verify_kernels(device="cpu")
     assert all(r.ok for r in results), [str(r) for r in results]
     names = " ".join(r.name for r in results)
     for kernel in ("qmatvec whole-row", "qmatvec tiled", "hamming",
-                   "hamming_backward", "attention_read", "hop_chain"):
+                   "hamming_backward", "attention_read", "hop_chain",
+                   "qweighted_sum_backward"):
         assert kernel in names
     bad = verification.compare("x", np.zeros(3), np.ones(3), threshold=0.0)
     assert not bad.ok and bad.num_mismatch == 3 and "FAIL" in str(bad)
