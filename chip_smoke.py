@@ -320,17 +320,26 @@ once, each output written once) over 3.35 TB/s and its operations over
 67 TFLOP/s (float32 outside the tensor cores; H100 SXM data sheet at
 700 W), counting 4 operations per float_quant (scale, convert, rescale,
 saturate), 1 per multiply or add and 4 per softmax element.  The Hamming
-score's integer work is the least the function needs: one encode of 6
-operations per element of m and per element of u (once per query); per
-element pair the preprocess of 8, the match of 3 (the match word read as a
-fixed-point fraction up to num_bit 25; above that the word would round, so
-3 per compared bit), 4 for the sign, the scale and the row sum, and the
-term's requant; counted against the int32 rate, half the float32 rate (an
-SM has half as many int32 lanes as float32 lanes): 33.5 TOP/s.  The
-surrogate backward moves m, u and g once and writes dm and du once; its
-integer work is the two encodes, per element pair the preprocess of 8,
-tmp_a's signed popcount of 8 and 3 per compared bit for grad_appx's walk,
-and its float work 5 per pair (two scales, two products, the sum).  The
+score's work is the least the function needs, each operation on the pipe
+of its type: one encode of 6 integer operations per element of m and per
+element of u (once per query); per element pair the preprocess of 8
+integer operations, the match word's 2 and its conversion to float (the
+word read as a fixed-point fraction up to num_bit 25) or popcount (the
+unweighted count), 2 for the sign, and 6 float operations: the scale,
+the row sum and the term's requant; above num_bit 25 the word would
+round, so the match is a loop of 1 integer and 2 float operations per
+compared bit.  Integer operations count against the int32 rate, 64
+results per clock per SM (the CUDA C++ Programming Guide's throughput
+table for compute capability 9.0) at 132 SMs and the 1980 MHz max SM
+clock: 16.7 TOP/s.  Population counts, leading-zero counts and
+conversions issue at 16 per clock per SM (4.18 TOP/s), on a pipe of
+their own.  The surrogate backward moves m, u
+and g once and writes dm and du once; its work is counted in the kernel's
+closed form, the cheapest known (csrc/hamming_bwd.cu): the two encodes,
+per element pair the preprocess of 8 and 15 integer operations (the
+differing bits, their direction, whether bit 0 differs, bit 0's run, the
+two integers and their float bias), a popcount and a leading-zero count,
+and 5 float operations (two scalings, two products, the sum).  The
 weighted-sum backward moves c, p, the mask and g once and writes dc and dp
 once; per element it does two products, four requants (Q(c), the two
 products', dc's Q_fo), the mask multiply and the add, per query the
@@ -351,7 +360,13 @@ BATCH = 1000
 TRAIN_BATCH, EVAL_CHUNK = 32, 1024
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
-INT32_OPS_PER_S = F32_OPS_PER_S / 2
+# integer pipes of an H100 SXM: results per clock per SM from the CUDA C++
+# Programming Guide's arithmetic-throughput table for compute capability
+# 9.0 (32-bit add, logic, shift, compare, multiply: 64; population count,
+# leading-zero count: 16), at 132 SMs and the 1980 MHz max SM clock
+SMS, SM_CLOCK_HZ = 132, 1.98e9
+INT32_OPS_PER_S = 64 * SMS * SM_CLOCK_HZ      # 16.7 TOP/s
+POPC_OPS_PER_S = 16 * SMS * SM_CLOCK_HZ       # 4.18 TOP/s
 Q_OPS = 4     # operations counted per float_quant
 HAM_IWLS = (0, 1, 5, 31)
 HAM_VARIANTS = ((0, True), (-1, True), (0, False))   # weight_para, weighted
@@ -413,11 +428,13 @@ def compare_chain(cfg, got, want):
     return diffs, int(flipped.sum()), good
 
 
-def _bound(nbytes, nops, int_ops=0):
+def _bound(nbytes, nops, int_ops=0, popc_ops=0):
     """(least ms, what bounds it) for a call moving nbytes and doing nops
-    float and int_ops integer operations (the two pipes may overlap)."""
+    float, int_ops integer and popc_ops population-count, leading-zero or
+    conversion operations (the three pipes may overlap)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max(nops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
+    t_ops = max(nops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S,
+                popc_ops / POPC_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -436,28 +453,34 @@ def qmatvec_bound(w, x):
 
 
 def ham_score_ops(B, M, D, num_bit):
-    """Integer operations of one Hamming score (module docstring): the
-    encodes of m and u; per element pair the preprocess, the match, the
-    sign, the scale, the sum and the term's requant; the row sums'
-    requant."""
-    match = 3 if num_bit <= HAM_WORD_MAX_BIT else 3 * (num_bit - 1)
-    pair = 8 + match + 4 + Q_OPS
-    return 6 * B * D * (M + 1) + B * M * (D * pair + Q_OPS)
+    """(float, integer, popcount-pipe) operations of one Hamming score
+    (module docstring): the encodes of m and u; per element pair the
+    preprocess, the match and its conversion or popcount, the sign, the
+    scale, the sum and the term's requant; the row sums' requant."""
+    pairs = B * M * D
+    if num_bit <= HAM_WORD_MAX_BIT:
+        match_f, match_i, popc = 0, 2, pairs
+    else:
+        match_f, match_i, popc = 2 * (num_bit - 1), 2 + (num_bit - 1), 0
+    return (pairs * (2 + Q_OPS + match_f) + B * M * Q_OPS,
+            6 * B * D * (M + 1) + pairs * (8 + match_i + 2), popc)
 
 
 def hamming_bound(m, u, num_bit):
     B, M, D = m.shape
-    return _bound(_nbytes(m, u) + 4 * B * M, 0,
-                  ham_score_ops(B, M, D, num_bit))
+    return _bound(_nbytes(m, u) + 4 * B * M,
+                  *ham_score_ops(B, M, D, num_bit))
 
 
 def ham_backward_ops(B, M, D, num_bit):
-    """(float, integer) operations of one surrogate backward (module
-    docstring): the encodes of m and u; per element pair the preprocess,
-    tmp_a's signed popcount and grad_appx's walk over the compared bits;
-    the two scales and products and the sum over the memory rows."""
-    return (B * M * D * 5,
-            6 * B * D * (M + 1) + B * M * D * (8 + 8 + 3 * num_bit))
+    """(float, integer, popcount-pipe) operations of one surrogate backward
+    in the kernel's closed form (module docstring), the same whatever
+    num_bit: the encodes of m and u; per element pair the preprocess of 8
+    and 15 for the differing bits, dir, e, bit 0's run, the two integers
+    and their float bias; a popcount and a leading-zero count; 5 float
+    operations (two scalings, two products, the sum)."""
+    pairs = B * M * D
+    return (pairs * 5, 6 * B * D * (M + 1) + pairs * (8 + 15), pairs * 2)
 
 
 def hamming_backward_bound(m, u, g, num_bit):
@@ -485,16 +508,17 @@ def wsum_backward_bound(c, p, mask, g):
 
 
 def _read_ops(B, M, D, num_bit=None):
-    """(float, integer) operations of one attention read: the score (mode
-    2, num_bit None: quantize m and u, the lattice and its requant; mode 3:
-    the Hamming score on the raw m and u); the softmax and Q(p); Q(c), the
-    weighted-sum lattice and the output requant."""
+    """(float, integer, popcount-pipe) operations of one attention read:
+    the score (mode 2, num_bit None: quantize m and u, the lattice and its
+    requant; mode 3: the Hamming score on the raw m and u); the softmax and
+    Q(p); Q(c), the weighted-sum lattice and the output requant."""
     wsum = (Q_OPS * B * M * D + B * M * (Q_OPS + 4)
             + B * M * D * (2 + Q_OPS) + B * D * Q_OPS)
     if num_bit is None:
         return (Q_OPS * (B * M * D + B * D) + B * M * D * (2 + Q_OPS)
-                + B * M * Q_OPS + wsum, 0)
-    return wsum, ham_score_ops(B, M, D, num_bit)
+                + B * M * Q_OPS + wsum, 0, 0)
+    score_f, score_i, popc = ham_score_ops(B, M, D, num_bit)
+    return wsum + score_f, score_i, popc
 
 
 def attention_read_bound(m, c, u, mask, num_bit=None):
@@ -508,11 +532,11 @@ def chain_bound(flat, u, hmats, mask, num_bit=None):
     map lattice (Q(H) once) and the residual (3 requants per element)."""
     B, M, _ = flat.shape
     K, D = hmats.shape[0], u.shape[1]
-    read_f, read_i = _read_ops(B, M, D, num_bit)
+    read_f, read_i, read_p = _read_ops(B, M, D, num_bit)
     per_hop = (Q_OPS * 2 * B * M * D + read_f
                + Q_OPS * D * D + B * D * D * (2 + Q_OPS) + 3 * Q_OPS * B * D)
     return _bound(_nbytes(flat, u, hmats, mask) + 4 * (B * D + 2 * K * B * M),
-                  K * per_hop, K * read_i)
+                  K * per_hop, K * read_i, K * read_p)
 
 
 def cuda_ms(fn, n_iter=20, samples=7):

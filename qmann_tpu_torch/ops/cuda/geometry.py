@@ -1,11 +1,11 @@
 """The launch rule and shape limits shared by the read kernel
-(``csrc/attention_read.cu``), the Hamming kernel (``csrc/hamming.cu``) and
-its surrogate backward (``csrc/hamming_bwd.cu``): each takes up to
-``MAX_QUERIES_PER_BLOCK`` queries per block and stages the block's rows in
-dynamic shared memory; the two scores give each score row G lanes.
-Their wrappers (``attention_read.read_geometry``,
-``hamming.hamming_geometry``, ``hamming_bwd.backward_geometry``) pass in
-their kernel's shared-memory size.
+(``csrc/attention_read.cu``) and the Hamming kernel (``csrc/hamming.cu``):
+each takes up to ``MAX_QUERIES_PER_BLOCK`` queries per block and stages the
+block's rows in dynamic shared memory; the two scores give each score row G
+lanes.  Their wrappers (``attention_read.read_geometry``,
+``hamming.hamming_geometry``) pass in their kernel's shared-memory size.
+The surrogate backward (``csrc/hamming_bwd.cu``) shares the shape limits
+and ``SMS`` only: it takes one thread per column and no shared memory.
 """
 from __future__ import annotations
 

@@ -18,8 +18,8 @@ and preprocess from ``csrc/hamming.cuh``).  Built with nvcc at first use
 ``hamming_backward_kernel`` dispatches on the device of ``m``: a CPU tensor
 takes ``ops.attention.hamming_backward``; a CUDA tensor launches the kernel
 or raises.  Leading dims before [B, M, D] (a family's runs) fold into B.
-``backward_geometry`` gives the launch's queries per block and threads by
-the rule of ``geometry.block_geometry``.
+The kernel runs one thread per (query, d) column; ``backward_launch`` gives
+the launch's blocks and threads.
 ``hamming_backward_kernel.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -33,26 +33,24 @@ import torch
 
 from qmann_tpu_torch.ops.attention import hamming_backward
 from qmann_tpu_torch.ops.cuda import _build
-from qmann_tpu_torch.ops.cuda.geometry import (
-    BlockGeometry, block_geometry, check_shape,
-)
+from qmann_tpu_torch.ops.cuda.geometry import SMS, check_shape
 from qmann_tpu_torch.ops.cuda.hamming import check_knobs
 
 SOURCE = _build.CSRC / "hamming_bwd.cu"
-
-
-def backward_smem_bytes(qpb: int, M: int, D: int) -> int:
-    """Dynamic shared memory of one block (csrc/hamming_bwd.cu's
-    smem_floats): the block's rows of m (then the products), each query's
-    encoded u and its row of g."""
-    return 4 * (qpb * M * D + qpb * D + qpb * M)
+MAX_THREADS = 128      # kMaxThreads in the source
 
 
 @functools.lru_cache(maxsize=None)
-def backward_geometry(B: int, M: int, D: int) -> BlockGeometry:
-    """The launch geometry of the kernel for an [B, M, D] backward."""
-    return block_geometry(B, M, D,
-                          lambda qpb, _: backward_smem_bytes(qpb, M, D))
+def backward_launch(B: int, D: int) -> Tuple[int, int]:
+    """(blocks, threads per block) of the kernel for B queries of width D:
+    one thread per (query, d) column, MAX_THREADS a block, halved (down to
+    one warp) while the grid would have fewer blocks than the card has
+    SMs.  Each thread walks all of its column's memory rows."""
+    cols = B * D
+    threads = MAX_THREADS
+    while threads > 32 and -(-cols // threads) < SMS:
+        threads //= 2
+    return -(-cols // threads), threads
 
 
 def build() -> Tuple[Path, str]:
@@ -63,16 +61,8 @@ def build() -> Tuple[Path, str]:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     return _build.load(SOURCE, "qmann_hamming_backward",
-                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p] * 2)
-
-
-@functools.lru_cache(maxsize=None)
-def _geometry_array(B: int, M: int, D: int):
-    """The launch's geometry as the C entry reads it (only on the host),
-    built once per shape."""
-    geo = backward_geometry(B, M, D)
-    return (ctypes.c_int * 2)(geo.queries_per_block, geo.threads)
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
 
 
 def hamming_backward_kernel(m: torch.Tensor, u: torch.Tensor,
@@ -107,14 +97,14 @@ def hamming_backward_kernel(m: torch.Tensor, u: torch.Tensor,
     m, u, g = m.contiguous(), u.contiguous(), g.contiguous()
     dm = torch.empty_like(m)
     du = torch.empty_like(u)
-    geometry = _geometry_array(B, M, D)
+    _, threads = backward_launch(B, D)
     lib = load_library()
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream(m.device).cuda_stream
         rc = lib.qmann_hamming_backward(
             m.data_ptr(), u.data_ptr(), g.data_ptr(), dm.data_ptr(),
             du.data_ptr(), B, M, D, iwl, round_mode, num_bit, const_scale,
-            geometry, stream)
+            threads, stream)
     if rc != 0:
         raise RuntimeError(f"hamming backward kernel launch failed: CUDA "
                            f"error {rc}")

@@ -37,6 +37,14 @@ Groups (--only takes a comma-separated subset; default all):
   hamming  the Hamming score at iwl 1 and 5 (num_bit 8, weighted), at
            B=32 and B=1024 (M=10) and the wide layout (B=32, M=50), D=60,
            on chip_smoke.ham_inputs (the encode's edge list in sample 0);
+  hamming_bwd the surrogate backward at iwl 1, num_bit 8, truncation, at
+           B=32 (M=10), the wide layout (B=32, M=50) and the mode-3
+           family's folded 1280 and 5120 queries (M=50), D=60, on
+           chip_smoke.ham_inputs and a Gaussian g from one seed per case;
+           held against its plain version (chip_smoke.check_backward);
+           device ms per recorded launch, event ms, the bound and the
+           sha256 of dm's then du's bytes (equal digests: bit-identical
+           outputs across checkouts);
   steps    one training step at B=32 (forward, backward, SGD): mode 2 at
            iwl 5 and mode 3 at iwl 1 with use_pallas, mode 3 at iwl 1 with
            use_pallas_hamming; event time, busy time, launches, idle share;
@@ -57,7 +65,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 BATCH = 1000
-GROUPS = ("chain", "qmatvec", "read", "hamming", "steps", "state")
+GROUPS = ("chain", "qmatvec", "read", "hamming", "hamming_bwd", "steps",
+          "state")
 STATES = ("idle", "busy", "idle", "busy")
 CHAIN_SHAPES = {"flagship": (19, 10, 6), "wide": (64, 50, 7)}
 QMV_SHAPES = {"320": (32, 19, 10, 6), "1600": (32, 64, 50, 7),
@@ -71,6 +80,38 @@ READ_SHAPES = {"B32": (32, 19, 10, 6), "B1024": (1024, 19, 10, 6),
                "wide": (32, 64, 50, 7)}
 HAM_SHAPES = {"B32": (32, 10, 60), "B1024": (1024, 10, 60),
               "wide": (32, 50, 60)}
+BWD_SHAPES = {"B32": (32, 10, 60), "wide": (32, 50, 60),
+              "family 1280": (1280, 50, 60), "family 5120": (5120, 50, 60)}
+
+
+def time_hamming_bwd(cs, hbwd, dev, times):
+    """The hamming_bwd group (module docstring): {case: entry}."""
+    import hashlib
+    import numpy as np
+    import torch
+    out = {}
+    for i, (name, (B, M, D)) in enumerate(BWD_SHAPES.items()):
+        rng = np.random.default_rng(cs.SEED + 140 + i)
+        m, u = (torch.from_numpy(a).to(dev)
+                for a in cs.ham_inputs(rng, 1, B, M, D))
+        g = torch.from_numpy(rng.normal(0.0, 1.0, (B, M)).astype(
+            np.float32)).to(dev)
+        args = (m, u, g, 1, 8, -3, 3)
+        got = hbwd.hamming_backward_kernel(*args)
+        err, _, good = cs.check_backward(got, hbwd.hamming_backward(*args),
+                                         *args)
+        if not good:
+            cs.fail(f"the surrogate backward differs from its plain version "
+                    f"({name})")
+        digest = hashlib.sha256()
+        for t in got:
+            digest.update(t.cpu().numpy().tobytes())
+        bound_ms, bound_by = cs.hamming_backward_bound(m, u, g, 8)
+        out[name] = {**times(lambda: hbwd.hamming_backward_kernel(*args)),
+                     "shape": [B, M, D], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err_du": err,
+                     "sha256": digest.hexdigest()}
+    return out
 
 
 def load_chip_smoke():
@@ -118,7 +159,7 @@ def main():
     rng = np.random.default_rng(cs.SEED)
     out = {"tag": args.tag, "root": str(root), "card": card,
            "chain": {}, "qmatvec": {}, "forward_prepared": {}, "read": {},
-           "hamming": {}, "steps": {}, "state": {}}
+           "hamming": {}, "hamming_bwd": {}, "steps": {}, "state": {}}
 
     def times(fn):
         with torch.inference_mode():
@@ -245,6 +286,12 @@ def main():
                 **times(lambda: ham.hamming_score_kernel(*hargs)),
                 "host_us": host_us(lambda: ham.hamming_score_kernel(*hargs))}
             report("hamming", key)
+
+    if "hamming_bwd" in groups:
+        from qmann_tpu_torch.ops.cuda import hamming_bwd
+        out["hamming_bwd"] = time_hamming_bwd(cs, hamming_bwd, dev, times)
+        for key in out["hamming_bwd"]:
+            report("hamming_bwd", key)
 
     if "steps" in groups:
         from qmann_tpu_torch.train import train_step

@@ -15,6 +15,13 @@ each, the eager step's records by kernel name (the 12 most frequent) and
 the launches per eager step that each kernel wrapper of the port counts
 (null for a wrapper the package at --root does not have).
 
+A fourth, the sweep_fixed.sh family's step: mode 3 iwl 1 on `use_pallas`,
+20 tasks x 2 seeds (R = 40 runs, 1280 folded queries a step) on
+chip_smoke.py's family layout (V=64, M=50, its seeded tasks of 905..1000
+stories) from the runs' own initial weights: the eager family step
+(`multi._family_epoch_step`) against the replays of the graph that
+`multi_epoch` captured of it, 10 steps a sample, with the same readings.
+
 `--root DIR` takes `qmann_tpu_torch` from DIR, such as an older commit
 unpacked into the gitignored `chip_parent/`; the inputs and timers come
 from this checkout (`chip_smoke.py`), so two commits are timed by the same
@@ -48,6 +55,101 @@ WRAPPERS = (("hop_chain", "fused_hop_chain"), ("qmatvec", "quantized_matvec"),
             ("hamming", "hamming_score_kernel"),
             ("hamming_bwd", "hamming_backward_kernel"),
             ("qweighted_sum_bwd", "qweighted_sum_backward_kernel"))
+
+
+FAMILY = "sweep_fixed family: mode 3 iwl 1, use_pallas, R = 40"
+
+
+def timed_row(cs, tag, config, eager, graphed, launches, mods):
+    """One configuration's row: launches per eager step, event ms of the
+    eager and graphed sides in alternating pairs, busy ms and kernel
+    records per step, the eager step's records by kernel name.  graphed
+    has run (warm-up and capture) before."""
+    before = launches()
+    eager()
+    after = launches()
+    row = {"tag": tag, "config": config, "launches_per_step": {
+        w: (after[w] - before[w]) / STEPS if w in mods else None
+        for _, w in WRAPPERS}}
+    t = cs.paired_ms(eager, graphed, STEPS)
+    for side, fn in (("eager", eager), ("graphed", graphed)):
+        kernels = cs.device_ms(fn, n_iter=2)
+        row[side] = {"event_ms": statistics.median(t[side]),
+                     "samples_ms": t[side],
+                     "busy_ms": sum(ms for ms, _ in kernels.values())
+                     / STEPS,
+                     "records": sum(n for _, n in kernels.values())
+                     / STEPS}
+        if side == "eager":
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+            row["eager_records_by_kernel"] = {
+                key: n / STEPS for key, (_, n) in top[:TOP]}
+    return row
+
+
+def family_row(cs, dev, launches, mods, tag):
+    """The sweep_fixed family's step (module docstring): STEPS batches of
+    TRAIN_BATCH per run, every run's first samples in order."""
+    import numpy as np
+    import torch
+    from qmann_tpu_torch import graphs
+    from qmann_tpu_torch.config import QmannConfig
+    from qmann_tpu_torch.data import synthetic_task
+    from qmann_tpu_torch.train import multi
+
+    cfg = QmannConfig(verbose=False, attention_mode=3, iwl=1,
+                      use_pallas=True, en_integer_fast_path=True)
+    rng = np.random.default_rng(cs.SEED + 16)
+    pool = synthetic_task(rng, 2000, 4 * cs.FAMILY_VALID,
+                          4 * cs.FAMILY_TEST, *cs.FAMILY_LAYOUT)
+    sizes = [1000 - 5 * ((7 * t) % cs.FAMILY_TASKS)
+             for t in range(cs.FAMILY_TASKS)]
+    tasks = cs.family_tasks(rng, pool, sizes)
+    datas = [tasks[t] for t in sorted(tasks)]
+    seeds = (0, 1)
+    run_task = [t for t in range(len(datas)) for _ in seeds]
+    R, B = len(run_task), cs.TRAIN_BATCH
+    train, valid = ({k: torch.from_numpy(v).to(dev) for k, v in
+                     multi._stack_split([getattr(d, split)
+                                         for d in datas]).items()}
+                    for split in ("train", "valid"))
+    task_id = torch.tensor(run_task, device=dev)
+    params = multi._initial_params(
+        cfg, pool.dims, [s for _ in datas for s in seeds], None, dev)
+    # every task has more than STEPS * B samples: no padding in the grid
+    perm = torch.arange(STEPS * B, device=dev).repeat(R, 1)
+    smask = torch.ones((STEPS, R, B), device=dev)
+    size_b = torch.full((STEPS, R), float(B), device=dev)
+    g = graphs.Graphs(dev)
+    lr = g.static("lr", ())
+    lr.fill_(cfg.learning_rate)
+    best = {k: v.clone() for k, v in params.items()}
+    best_err, best_cost = (torch.full((R,), float("inf"), device=dev)
+                           for _ in range(2))
+    ind_best = torch.zeros((R,), dtype=torch.int32, device=dev)
+    for itr in (1, 2):   # the warm-up, then the capture
+        multi.multi_epoch(params, best, best_err, best_cost, ind_best, itr,
+                          train, valid, task_id, perm, smask, size_b, lr,
+                          cfg, False, B, 128, g)
+    step = next(gr for gr in g.graphs.values()
+                if gr.key[0] == "family_step")
+    counter = g.static("epoch_step", (1,), torch.int64)
+    costs = g.static("epoch_costs", (STEPS, R))
+    matches = g.static("epoch_matches", (STEPS, R), torch.int32)
+
+    def eager():
+        counter.zero_()
+        for _ in range(STEPS):
+            multi._family_epoch_step(params, train, task_id, perm, smask,
+                                     size_b, lr, counter, costs, matches,
+                                     cfg, False)
+
+    def graphed():
+        counter.zero_()
+        for _ in range(STEPS):
+            step.replay()
+
+    return timed_row(cs, tag, FAMILY, eager, graphed, launches, mods)
 
 
 def main(argv=None):
@@ -117,28 +219,13 @@ def main(argv=None):
         def graphed():
             train_epoch(p_g, batches, lr, cfg, graphs=g)
 
-        before = launches()
-        eager()
-        after = launches()
-        row = {"tag": args.tag, "config": name, "launches_per_step": {
-            w: (after[w] - before[w]) / STEPS if w in mods else None
-            for _, w in WRAPPERS}}
         graphed()   # warm-up and capture
-        t = cs.paired_ms(eager, graphed, STEPS)
-        for side, fn in (("eager", eager), ("graphed", graphed)):
-            kernels = cs.device_ms(fn, n_iter=2)
-            row[side] = {"event_ms": statistics.median(t[side]),
-                         "samples_ms": t[side],
-                         "busy_ms": sum(ms for ms, _ in kernels.values())
-                         / STEPS,
-                         "records": sum(n for _, n in kernels.values())
-                         / STEPS}
-            if side == "eager":
-                top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
-                row["eager_records_by_kernel"] = {
-                    key: n / STEPS for key, (_, n) in top[:TOP]}
+        row = timed_row(cs, args.tag, name, eager, graphed, launches, mods)
         run[name] = row
         print(json.dumps(row), flush=True)
+    row = family_row(cs, dev, launches, mods, args.tag)
+    run[FAMILY] = row
+    print(json.dumps(row), flush=True)
     print(json.dumps(run), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

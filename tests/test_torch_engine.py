@@ -198,3 +198,12 @@ def test_kernel_times_never_imports_jax():
     roots = _imported_roots(REPO / "scripts/kernel_times.py")
     assert not roots & {"jax", "jaxlib", "qmann_tpu"}
     assert "qmann_tpu_torch" in roots
+
+
+@pytest.mark.parametrize("script", ["step_times.py", "scripts/sass_loops.py"])
+def test_timing_scripts_never_import_jax(script):
+    """The other scripts that run on the card's machine import neither jax
+    nor the JAX package, only the port."""
+    roots = _imported_roots(REPO / script)
+    assert not roots & {"jax", "jaxlib", "qmann_tpu"}
+    assert "qmann_tpu_torch" in roots

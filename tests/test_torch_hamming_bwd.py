@@ -1,13 +1,21 @@
 """The mode-3 surrogate backward kernel (csrc/hamming_bwd.cu) on the CPU:
 
 (a) its integer form, emulated in int64 torch (the preprocess in 32-bit
-    words, tmp_a as a signed popcount, grad_appx as the value of each
-    differing bit times its run to the next differing bit, both scaled by
-    2^const_scale at the end), against the plain loop of
-    ops/attention.py (surrogate_terms, hamming_backward) for num_bit
-    1..32, iwl 0/1/5/31 and every rounding mode, on an edge list;
+    words; the closed form: the preprocess leaves magnitude bits in one
+    word only, so the differing bits 1 .. num_bit-1 share one diff and
+    tmp_a is a signed popcount of them, grad_appx bit 0's run (a
+    leading-zero count) and the rest of the compared bits, each with its
+    sign; both scaled by 2^const_scale at the end), against the plain
+    loop of ops/attention.py (surrogate_terms, hamming_backward) for
+    num_bit 1..32, iwl 0/1/5/31 and every rounding mode, on an edge list;
+    the closed form against the walk over the differing bits (the
+    kernel's earlier form, each value held to the next differing bit) on
+    every pair of encoded words within windows of 1..8 bits (the four
+    sign pairs among them), preprocessed, and on seeded random 32-bit
+    pairs at every num_bit; the scaled float of the integers by the
+    1.5 * 2^23 bias and one FMA;
 (b) the wrapper on CPU tensors: the plain version, no build, no launch
-    counted, leading dims folded;
+    counted, leading dims folded; the launch rule (backward_launch);
 (c) knobs and shapes out of the kernel's range raise on every device;
 (d) the routing: the kernel route's backwards (the unfused score with
     backend="kernel", the mode-3 fused read) reach the wrapper and the
@@ -18,12 +26,12 @@ The kernel against its plain version on the card is in
 tests/test_torch_cuda.py.
 
 Tolerances.  (a), (b): bit for bit, compared as int32 views so that the
-sign of a zero counts.  (d): dm of the unfused score bit for bit (one
-product of the same two floats); du within rtol 1e-5, atol 1e-6 (a
-float32 sum over the memory rows in another order than XLA's, as
-tests/test_torch_hamming.py); the fused read's gradients within rtol
-1e-5, atol 1e-6 (its softmax backward sums in another order, as
-tests/test_torch_attention_read.py).
+sign of a zero counts; the closed form and the walk as equal integers.
+(d): dm of the unfused score bit for bit (one product of the same two
+floats); du within rtol 1e-5, atol 1e-6 (a float32 sum over the memory
+rows in another order than XLA's, as tests/test_torch_hamming.py); the
+fused read's gradients within rtol 1e-5, atol 1e-6 (its softmax backward
+sums in another order, as tests/test_torch_attention_read.py).
 """
 import numpy as np
 import pytest
@@ -71,19 +79,20 @@ def _popc(x):
 
 
 def _clz(x):
-    """Leading zeros of non-zero 32-bit values in int64 (frexp's exponent
-    is exact): the index, from the MSB, of the highest set bit."""
+    """Leading zeros of 32-bit values in int64 (frexp's exponent is
+    exact): the index, from the MSB, of the highest set bit; 32 at 0, as
+    CUDA's __clz."""
     return 32 - torch.frexp(x.to(torch.float64)).exponent.to(torch.int64)
 
 
-def _kernel_form(m, u, iwl, num_bit, const_scale, mode):
-    """csrc/hamming_bwd.cu's ham_surrogate, in int64: (tmp_a, grad_appx)
-    as float32, each [..., M, D]."""
-    wm = _words(m, iwl, mode)
-    wu = _words(u, iwl, mode)[..., None, :].expand_as(wm)
-    sign_m = torch.where(wm & SIGN != 0, -1, 1)
-    sign_u = torch.where(wu & SIGN != 0, -1, 1)
-    # ham_preprocess, in 32-bit words: mm + mn < 2^32 may set bit 31
+def _mask(num_bit):
+    """The compared bits 1 .. num_bit-1 (HamFmt.mask)."""
+    return 0x7FFFFFFF & ~((1 << (32 - num_bit)) - 1)
+
+
+def _preprocess(wm, wu):
+    """ham_preprocess of encoded words (unsigned 32-bit values in int64):
+    (pm, pu); mm + mn < 2^32 may set bit 31."""
     sm, su = wm & SIGN, wu & SIGN
     mm, mu = wm & 0x7FFFFFFF, wu & 0x7FFFFFFF
     mn = torch.minimum(mm, mu)
@@ -91,13 +100,43 @@ def _kernel_form(m, u, iwl, num_bit, const_scale, mode):
     zero = torch.zeros_like(mm)
     pm = sm | torch.where(same, mm - mn, torch.where(ge, mm + mn, zero))
     pu = su | torch.where(same, mu - mn, torch.where(ge, zero, mu + mn))
-    mask = 0x7FFFFFFF & ~((1 << (32 - num_bit)) - 1)
+    return pm, pu
+
+
+def _sign(w):
+    """+1 for a word with the sign bit clear, else -1."""
+    return torch.where(w & SIGN != 0, -1, 1)
+
+
+def _closed_form(wm, wu, num_bit):
+    """csrc/hamming_bwd.cu's ham_surrogate on encoded words, in int64:
+    (ka, kv).  Every differing bit i >= 1 has one diff (dir); bit 0
+    differs only where the signs differ."""
+    pm, pu = _preprocess(wm, wu)
+    x = pm ^ pu
+    x1 = x & _mask(num_bit)
+    direction = torch.where(pm & x1 != 0, 1, -1)
+    e = x >> 31
+    c = torch.clamp_max(_clz(x1), num_bit)
+    ka = -e - _sign(wu) * direction * _popc(x1)
+    kv = -e * c + _sign(wm) * direction * (num_bit - c)
+    return ka, kv
+
+
+def _walk_form(wm, wu, num_bit):
+    """The walk over the preprocessed words' differing bits, in int64, as
+    the plain loop states it: (ka, kv); tmp_a a signed popcount, each
+    value of grad_appx held from its bit to the next differing bit (or
+    num_bit)."""
+    pm, pu = _preprocess(wm, wu)
+    sign_m, sign_u = _sign(wm), _sign(wu)
+    mask = _mask(num_bit)
     differ = (pm ^ pu) & (mask | SIGN)
     d0 = torch.where(differ & SIGN != 0,
                      torch.where(pm & SIGN != 0, 1, -1), 0)
     ka = d0 * sign_m - sign_u * (_popc(pm & ~pu & mask)
                                  - _popc(~pm & pu & mask))
-    # the walk over the differing bits: each value held to the next one
+    zero = torch.zeros_like(pm)
     acc, held, start = zero.clone(), zero.clone(), zero.clone()
     rest = differ.clone()
     for _ in range(num_bit):
@@ -112,7 +151,15 @@ def _kernel_form(m, u, iwl, num_bit, const_scale, mode):
         start = torch.where(live, i, start)
         rest = torch.where(live, rest & ~(torch.full_like(i, SIGN) >> i),
                            rest)
-    kv = acc + held * (num_bit - start)
+    return ka, acc + held * (num_bit - start)
+
+
+def _kernel_form(m, u, iwl, num_bit, const_scale, mode):
+    """csrc/hamming_bwd.cu's integers, scaled: (tmp_a, grad_appx) as
+    float32, each [..., M, D]."""
+    wm = _words(m, iwl, mode)
+    wu = _words(u, iwl, mode)[..., None, :].expand_as(wm)
+    ka, kv = _closed_form(wm, wu, num_bit)
     assert int(ka.abs().max()) <= 32 and int(kv.abs().max()) <= 32
     scale = float(2.0 ** const_scale)
     return (ka.to(torch.float32) * scale, kv.to(torch.float32) * scale)
@@ -188,6 +235,83 @@ def test_wrapping_pair_in_the_integer_form():
         got = _kernel_form(m, u, 5, num_bit, -3, 3)
         for a, b in zip(got, want):
             assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("num_bit", range(1, 9))
+def test_closed_form_equals_the_walk_on_every_window(num_bit):
+    """(a) Every pair of encoded words whose top num_bit bits (the sign
+    and the compared magnitude bits: the four sign pairs included) take
+    all 2^num_bit x 2^num_bit values, once with the bits below zero and
+    once seeded (the preprocess's borrows and carries reach the window):
+    on the preprocessed pairs the closed form's integers equal the
+    walk's."""
+    gen = torch.Generator().manual_seed(num_bit)
+    v = torch.arange(1 << num_bit, dtype=torch.int64) << (32 - num_bit)
+    wm, wu = (a.reshape(-1) for a in torch.meshgrid(v, v, indexing="ij"))
+    low = (1 << (32 - num_bit)) - 1
+    noise = [torch.randint(0, 1 << 31, wm.shape, generator=gen) & low
+             for _ in range(2)]
+    wm = torch.cat([wm, wm | noise[0]])
+    wu = torch.cat([wu, wu | noise[1]])
+    want = _walk_form(wm, wu, num_bit)
+    got = _closed_form(wm, wu, num_bit)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool((want[1] != 0).any()) or num_bit == 1
+
+
+@pytest.mark.parametrize("num_bit", range(1, 33))
+def test_closed_form_equals_the_walk_on_random_words(num_bit):
+    """(a) Seeded random encoded 32-bit pairs, half of them close (the
+    xor with the and of three random words): the closed form's integers
+    equal the walk's, and the two facts it rests on hold after the
+    preprocess (one word's magnitude bits are zero; bit 0 differs only
+    where the signs differ)."""
+    gen = torch.Generator().manual_seed(100 + num_bit)
+    n = 4096
+
+    def words():
+        return torch.randint(0, 1 << 32, (n,), generator=gen) & WORD
+
+    wm, wu = words(), words()
+    wu[: n // 2] = wm[: n // 2] ^ (words() & words() & words())[: n // 2]
+    want = _walk_form(wm, wu, num_bit)
+    got = _closed_form(wm, wu, num_bit)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    pm, pu = _preprocess(wm, wu)
+    assert not bool((pm & pu & 0x7FFFFFFF).any())
+    assert not bool(((pm ^ pu) & ~(wm ^ wu) & SIGN).any())
+    assert bool((want[1] != 0).any())
+
+
+@pytest.mark.parametrize("const_scale", [-64, -3, 0, 64])
+def test_scaled_bias_conversion_is_exact(const_scale):
+    """(a) The kernel's scaled_int: the bits of 1.5 * 2^23 plus k, times
+    2^const_scale plus the scaled bias in one FMA (emulated in float64,
+    where the product and the sum are exact), equal float32(k) *
+    2^const_scale bit for bit for |k| <= 32 (+0.0 at 0)."""
+    k = np.arange(-32, 33, dtype=np.int32)
+    scale = 2.0 ** const_scale
+    biased = (np.int32(0x4B400000) + k).view(F32).astype(np.float64)
+    got = (biased * scale + (-12582912.0 * scale)).astype(F32)
+    want = k.astype(F32) * F32(scale)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("B,D,want", [
+    (32, 60, (60, 32)), (128, 60, (240, 32)), (16, 60, (30, 32)),
+    (200, 60, (188, 64)), (64, 256, (256, 64)), (300, 60, (141, 128)),
+    (1024, 60, (480, 128)), (1280, 60, (600, 128)),
+    (5120, 60, (2400, 128)), (1, 1, (1, 32))])
+def test_launch_rule(B, D, want):
+    """(b) backward_launch: one thread per column, 128 a block, halved
+    while the grid has fewer blocks than the card's 132 SMs, down to one
+    warp.  The grid covers every column."""
+    blocks, threads = tbwd.backward_launch(B, D)
+    assert (blocks, threads) == want
+    assert blocks * threads >= B * D > (blocks - 1) * threads
+    assert threads == 32 or blocks >= tbwd.SMS
 
 
 @pytest.mark.parametrize("lead", [(), (3,)])
