@@ -267,22 +267,35 @@ The mode-3 surrogate backward (XLA's fusion of _hamming_bwd in JAX):
                two launches bitwise equal; the kernel's and the plain
                version's event ms, device ms per recorded launch, bound and
                share at those shapes
-The weighted sum's quantized backward (XLA's fusion of the quantized
-branch of _qweighted_sum_bwd in JAX):
- 21. wsum-backward — csrc/qweighted_sum_bwd.cu against
-               qweighted_sum_backward(grad_quantized=True) on the card at
-               B=32 and B=1024 (M=10, D=60) and the wide layout (M=50):
-               8-bit words at iwl 0/1/5 in each rounding mode and the
-               binary format (gates: dc and dp bit-identical, int32
-               views), 16-, 24- and 32-bit words at iwl 1 in each rounding
-               mode (dc bit-identical; dp bit-identical at 16 bits, where
-               every sum is exact, and within dp_interval at 24 and 32,
-               with the rows whose requant flipped counted and printed);
-               the mode-3 family's folded [40, 32, 50, 60] and
-               [40, 128, 50, 60] (phase 16's inputs); two launches bitwise
-               equal; the kernel's and the plain version's event ms,
-               device ms per recorded launch, bound and share at those
-               shapes
+The weighted sum's backward and the fused read's softmax backward (XLA's
+fusions of _qweighted_sum_bwd and _fused_bwd in JAX):
+ 21. wsum-backward — csrc/qweighted_sum_bwd.cu's two entries against their
+               plain versions on the card at B=32 and B=1024 (M=10, D=60)
+               and the wide layout (M=50).  The dp entry
+               (qweighted_sum_backward_kernel against
+               qweighted_sum_backward(grad_quantized=True)): 8-bit words at
+               iwl 0/1/5 in each rounding mode and the binary format
+               (gates: dc and dp bit-identical, int32 views), 16-, 24- and
+               32-bit words at iwl 1 in each rounding mode (dc
+               bit-identical; dp bit-identical at 16 bits, where every sum
+               is exact, and within dp_interval at 24 and 32, with the rows
+               whose requant flipped counted and printed); the mode-3
+               family's folded [40, 32, 50, 60] and [40, 128, 50, 60]
+               (phase 16's inputs).  The ds entry
+               (weighted_sum_softmax_backward_kernel against the plain
+               weighted-sum backward, dp + dp_in, softmax_backward and
+               + ds_in): the quantized instance at every format above and
+               each shape, the float instance at each shape, both with and
+               without the cotangents dp_in and ds_in, the mode-3 family's
+               two folded batches (quantized) and the R = 200 family's
+               folded [200, 32, 50, 60] (float, phase 16's inputs); gates:
+               dc bit-identical, ds within ds_bound (S, an M-term sum, in
+               another order; plus dp's own bound: dp_error), the
+               elements of ds that differ counted and the largest
+               difference printed.  Two launches bitwise equal everywhere;
+               each entry's event ms, device ms per recorded launch, bound
+               and share, and the plain version's event ms, at the
+               training path's shapes
 Then one JSON line of kernels (the read's and the Hamming kernel's with
 their eval-chunk and wide entries, qmatvec's with its tiled shapes, each
 with its launches on phase 15's paths, each one's family entry, the
@@ -313,7 +326,12 @@ Weighted-sum backward: dc bit-identical (the same chain of roundings); dp
 bit-identical where every partial sum is exact (words of up to 16 bits at
 D <= 256, the binary format), elsewhere within dp_interval: the exact sum
 moved by D*2^-24*sum_d|product| (a D-term float32 sum in another order),
-then requantized.
+then requantized.  Its ds entry: dc bit-identical; ds within
+ds_bound: S = sum_r p*dp an M-term float32 sum in another order, within
+2*M*2^-24*sum_r|p*dp|, carried through p*(dp - S) and the adds, plus dp's
+own difference (dp_error: none where the quantized sums are exact, the
+width of dp_interval elsewhere, 2*D*2^-24*sum_d|c*g| in the float
+instance).
 
 bound_ms is the larger of the bytes the call must move (each input read
 once, each output written once) over 3.35 TB/s and its operations over
@@ -341,9 +359,14 @@ differing bits, their direction, whether bit 0 differs, bit 0's run, the
 two integers and their float bias), a popcount and a leading-zero count,
 and 5 float operations (two scalings, two products, the sum).  The
 weighted-sum backward moves c, p, the mask and g once and writes dc and dp
-once; per element it does two products, four requants (Q(c), the two
-products', dc's Q_fo), the mask multiply and the add, per query the
-requants of g's row and p's row, per row dp's Q_fo and mask.
+once (and the cotangents of p and the scores once each, when given); in
+its quantized instance, per element it does two products, four requants
+(Q(c), the two products', dc's Q_fo), the mask multiply and the add, per
+query the requants of g's row and p's row, per row dp's Q_fo and mask;
+each requant is 3 float operations and one rounding, on the conversion
+pipe; in its float instance, per element a product and a multiply-add,
+per row p*mask and dp's mask; the softmax epilogue adds per row p*dp, the
+add into S, the subtraction, the product and an add per cotangent.
 """
 import json
 import math
@@ -490,21 +513,37 @@ def hamming_backward_bound(m, u, g, num_bit):
                   *ham_backward_ops(B, M, D, num_bit))
 
 
-def wsum_backward_ops(B, M, D):
-    """Float operations of one weighted-sum backward (module docstring):
-    per element two products, four requants, the mask and the add; per
-    query the requants of g and p; per row dp's requant and mask."""
-    return (B * M * D * (4 + 4 * Q_OPS) + B * (D + M) * Q_OPS
-            + B * M * (Q_OPS + 1))
+def wsum_backward_ops(B, M, D, quantized=True, softmax=False,
+                      cotangents=0):
+    """(float, integer, conversion-pipe) operations of one weighted-sum
+    backward (module docstring).  Quantized: per element two products,
+    four requants (3 float operations and a rounding each), the mask and
+    the add; per query the requants of g and p; per row dp's requant and
+    mask.  Float: per element a product and a multiply-add, per row
+    p*mask and dp's mask.  The softmax epilogue: per row p*dp, the add
+    into S, the subtraction, the product, one add per cotangent."""
+    q_f = Q_OPS - 1
+    if quantized:
+        flops = (B * M * D * (4 + 4 * q_f) + B * (D + M) * q_f
+                 + B * M * (q_f + 1))
+        conv = B * M * D * 4 + B * (D + M) + B * M
+    else:
+        flops, conv = B * M * D * 3 + B * M * 2, 0
+    if softmax:
+        flops += B * M * (4 + cotangents)
+    return flops, 0, conv
 
 
-def wsum_backward_bound(c, p, mask, g):
-    """Bytes: c, p, mask and g read once, dc and dp written once (leading
-    dims folded)."""
+def wsum_backward_bound(c, p, mask, g, dp_in=None, ds_in=None,
+                        quantized=True, softmax=False):
+    """Bytes: c, p, mask, g and the given cotangents read once, dc and dp
+    (or ds) written once (leading dims folded)."""
     M, D = c.shape[-2:]
     B = c.numel() // (M * D)
-    return _bound(_nbytes(c, p, mask, g) + 4 * (B * M * D + B * M),
-                  wsum_backward_ops(B, M, D))
+    extra = [t for t in (dp_in, ds_in) if t is not None]
+    return _bound(_nbytes(c, p, mask, g, *extra) + 4 * (B * M * D + B * M),
+                  *wsum_backward_ops(B, M, D, quantized, softmax,
+                                     len(extra)))
 
 
 def _read_ops(B, M, D, num_bit=None):
@@ -712,6 +751,30 @@ def wsum_plain(c, p, mask, g, fmt):
     """The weighted-sum backward kernel's plain version."""
     from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
     return qweighted_sum_backward(c, p, mask, g, fmt, grad_quantized=True)
+
+
+def check_wsum_softmax(got, want, c, p, mask, g, dp_in, ds_in, fmt,
+                       quantized, wsb=None):
+    """The ds entry's (dc, ds) against its plain version's on the same
+    inputs: dc bit for bit (int32 views), ds within ds_bound of the plain
+    ds (dp_error: dp's own difference), both taken from `wsb` (default:
+    the imported ops/cuda/qweighted_sum_bwd.py).  Returns (max |ds
+    difference|, elements of ds that differ, both hold)."""
+    import torch
+    from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
+    if wsb is None:
+        from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
+    (dc, ds), (want_dc, want_ds) = got, want
+    good = torch.equal(dc.view(torch.int32), want_dc.view(torch.int32))
+    _, dp = qweighted_sum_backward(c, p, mask, g, fmt,
+                                   grad_quantized=quantized)
+    if dp_in is not None:
+        dp = dp + dp_in
+    bound = wsb.ds_bound(p, dp, wsb.dp_error(c, mask, g, fmt, quantized,
+                                             dp_in), ds_in)
+    diff = (ds.double() - want_ds.double()).abs()
+    good &= bool((diff <= bound).all())
+    return float(diff.max()), int((ds != want_ds).sum()), good
 
 
 def serve_requests(params, cfg, cfg_plain, dims, dictionary, stories, dev,
@@ -1180,7 +1243,8 @@ def phase_serve(card, dev, counters, ckpt_dir, data_path, raw_path,
     if engine.prepared is not None or unprepared != {
             "qmatvec": 10 * waves, "attention_read": 3 * waves,
             "hamming_score": 0, "hop_chain": 0, "hamming_backward": 0,
-            "qweighted_sum_backward": 0}:
+            "qweighted_sum_backward": 0,
+            "weighted_sum_softmax_backward": 0}:
         fail("the unprepared engine did not run the lattice and read kernels "
              "once per wave and hop")
     out["unprepared"] = {"qmatvec": unprepared["qmatvec"],
@@ -1297,7 +1361,7 @@ MESH_LR = 0.3
 
 
 def kernel_counters():
-    """The six wrappers whose .launches count their kernel's launches."""
+    """The seven wrappers whose .launches count their kernel's launches."""
     from qmann_tpu_torch.ops.cuda import attention_read as ar
     from qmann_tpu_torch.ops.cuda import hamming as ham
     from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
@@ -1308,14 +1372,17 @@ def kernel_counters():
             "hamming_score": ham.hamming_score_kernel,
             "hop_chain": hop_chain.fused_hop_chain,
             "hamming_backward": hbwd.hamming_backward_kernel,
-            "qweighted_sum_backward": wsb.qweighted_sum_backward_kernel}
+            "qweighted_sum_backward": wsb.qweighted_sum_backward_kernel,
+            "weighted_sum_softmax_backward":
+                wsb.weighted_sum_softmax_backward_kernel}
 
 
 # the wrappers whose calls phase 18 records on the ranks: (module, name in
 # it through which the mesh path calls the wrapper, kernel's key in the
 # kernels line).  The lattice, the two Hamming wrappers and the
 # weighted-sum backward (from ops/qlinear.py) are looked up on their own
-# modules at each call; the read is called through ops/fused.py
+# modules at each call; the read and the weighted-sum backward's ds entry
+# are called through ops/fused.py
 MESH_RECORDED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
                   "qmatvec"),
                  ("qmann_tpu_torch.ops.cuda.hamming", "hamming_score_kernel",
@@ -1325,7 +1392,10 @@ MESH_RECORDED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
                  ("qmann_tpu_torch.ops.cuda.qweighted_sum_bwd",
                   "qweighted_sum_backward_kernel", "qweighted_sum_backward"),
                  ("qmann_tpu_torch.ops.fused", "fused_read",
-                  "attention_read"))
+                  "attention_read"),
+                 ("qmann_tpu_torch.ops.fused",
+                  "weighted_sum_softmax_backward_kernel",
+                  "weighted_sum_softmax_backward"))
 
 
 def record_calls(module, name, key, calls):
@@ -1477,8 +1547,9 @@ def check_recorded_calls(results, dev, tag):
     signature they launched it at (record_calls), against its plain
     version on the card: the lattice and the Hamming kernel bit for bit,
     the read within its tolerances (check_read), the surrogate backward
-    as phase 20 holds it (check_backward), the weighted-sum backward as
-    phase 21 holds it (check_wsum_backward).  Returns {kernel key:
+    as phase 20 holds it (check_backward), the weighted-sum backward's
+    two entries as phase 21 holds them (check_wsum_backward,
+    check_wsum_softmax).  Returns {kernel key:
     {"max_abs_err", "shapes"}}; fails on a disagreement."""
     import numpy as np
     import torch
@@ -1495,6 +1566,9 @@ def check_recorded_calls(results, dev, tag):
                                   hbwd.hamming_backward),
              "qweighted_sum_backward": (wsb.qweighted_sum_backward_kernel,
                                         wsum_plain),
+             "weighted_sum_softmax_backward": (
+                 wsb.weighted_sum_softmax_backward_kernel,
+                 wsb.weighted_sum_softmax_backward_plain),
              "attention_read": (ar.fused_read, ar.fused_read_reference)}
     calls = {}
     for r in results:
@@ -1513,6 +1587,8 @@ def check_recorded_calls(results, dev, tag):
             err, _, good = check_backward(got, want, *args)
         elif key == "qweighted_sum_backward":
             err, _, good = check_wsum_backward(got, want, *args)
+        elif key == "weighted_sum_softmax_backward":
+            err, _, good = check_wsum_softmax(got, want, *args)
         else:
             err = float((got - want).abs().max())
             good = torch.equal(got, want)
@@ -1765,9 +1841,11 @@ def phase_mesh(card, dev, data_path, raw_path, single_err):
     if (n22["qmatvec"] < 1 or n22["hamming_score"] < 1 or n22["hop_chain"]
             or n22["hamming_backward"] < 1
             or n22["qweighted_sum_backward"] < 1
-            or n11["qmatvec"] < 1 or n11["attention_read"] < 1):
+            or n11["qmatvec"] < 1 or n11["attention_read"] < 1
+            or n11["weighted_sum_softmax_backward"] < 1):
         fail("the mesh path did not launch the lattice, the Hamming kernels, "
-             "the weighted-sum backward or the read where it routes them")
+             "the weighted-sum backward's two entries or the read where it "
+             "routes them")
     if any(n22[k] + n11[k] and k not in at_mesh for k in n22):
         fail("a kernel launched on the mesh path was not checked at its "
              "shapes there")
@@ -1865,7 +1943,8 @@ GRAPH_TIMED_STEPS = 10     # steps per timing sample
 GRAPH_ENGINE_REQUESTS, GRAPH_WAVE = 200, 64
 KERNEL_KEYS = ("qmatvec", "attention_read", "hamming_score", "hop_chain",
                "hamming_backward",
-               "qweighted_sum_backward")   # graphs.COUNTED's order
+               "qweighted_sum_backward",
+               "weighted_sum_softmax_backward")   # graphs.COUNTED's order
 
 
 def event_ms(fn):
@@ -1986,12 +2065,19 @@ def phase_graphs(card, dev, data, serve_dims, dictionary, family):
                 or captured.replays != 2 * nb - 1):
             fail(f"the graphed epochs launched other kernels than the eager "
                  f"steps ({name})")
+        # the surrogate backward once per mode-3 hop; the weighted-sum
+        # backward once per hop: its ds entry from the fused read
+        # (use_pallas, every mode), its dp entry from the unfused mode-3
+        # hop (use_pallas_hamming)
         want_bwd = 3 if cfg.attention_mode == 3 else 0
+        want_ds = 3 if cfg.use_pallas else 0
+        want_dp = want_bwd if not cfg.use_pallas else 0
         if (per_replay["hamming_backward"] != want_bwd
-                or per_replay["qweighted_sum_backward"] != want_bwd):
-            fail(f"a graphed step did not launch the surrogate and the "
-                 f"weighted-sum backward kernels once per mode-3 hop "
-                 f"({name})")
+                or per_replay["weighted_sum_softmax_backward"] != want_ds
+                or per_replay["qweighted_sum_backward"] != want_dp):
+            fail(f"a graphed step did not launch the surrogate backward "
+                 f"once per mode-3 hop and the weighted-sum backward once "
+                 f"per hop ({name})")
         same_values(name, "parameters after 2 epochs", p_g, p_e)
         same_values(name, "epoch costs", torch.stack(cost_g),
                     torch.stack(cost_e))
@@ -2290,15 +2376,19 @@ def wsum_formats():
 def wsum_inputs(rng, fmt, B, M, D):
     """c [B, M, D], p and mask [B, M], g [B, D] as numpy float32: Gaussian
     c and g at the format's range, p in [0, 1); sample 0 holds an edge list
-    in c (+-0.0, +-the bound, beyond it, tiny values, +-3e38); sample 1's
-    upstream row is zero; padded rows in every sample with p non-zero on
-    them, so that negative values meet the mask's 0."""
+    in c (+-0.0, +-the bound, beyond it, tiny values, +-3e38; fmt None: the
+    float instance's inputs at unit range, without the two values whose
+    products overflow); sample 1's upstream row is zero; padded rows in
+    every sample with p non-zero on them, so that negative values meet the
+    mask's 0."""
     import numpy as np
     from qmann_tpu_torch.numerics import fixed_max_float
-    top = 1.0 if fmt.is_binary else fixed_max_float(fmt.iwl, fmt.frac)
+    top = (1.0 if fmt is None or fmt.is_binary
+           else fixed_max_float(fmt.iwl, fmt.frac))
     c = rng.normal(0.0, 0.6 * top, (B, M, D)).astype(np.float32)
     edge = np.array([0.0, -0.0, top, -top, 1.5 * top, -1.5 * top, 1e-7,
-                     -1e-7, 3e38, -3e38], np.float32)[:D]
+                     -1e-7] + ([] if fmt is None else [3e38, -3e38]),
+                    np.float32)[:D]
     c[0, 0, :len(edge)] = edge
     p = rng.uniform(0.0, 1.0, (B, M)).astype(np.float32)
     g = rng.normal(0.0, 0.6 * top, (B, D)).astype(np.float32)
@@ -2307,17 +2397,24 @@ def wsum_inputs(rng, fmt, B, M, D):
     return c, p, mask, g
 
 
-def phase_wsum_backward(card, dev, fmt_train, fam):
-    """Phase 21: qweighted_sum_backward_kernel against its plain version on
-    the card (check_wsum_backward: dc bit for bit, dp bit for bit where
-    every sum is exact and within dp_interval elsewhere; a second launch
-    bitwise equal to the first): every wsum_formats() entry at each
-    BWD_SHAPES entry, and fmt_train (the mode-3 training config's
-    fmt_act) there too; the mode-3 family's folded [R, B, M, D] batches
-    (fam: {label: (c, p, mask, fmt)} from phase 16's read).  Then the
-    kernel's and the plain
-    version's times at the training path's shapes.  Returns
-    {"max_abs_err", "dp_flips", "cases", "times": {shape: entry}}."""
+def phase_wsum_backward(card, dev, fmt_train, fam, fam_float):
+    """Phase 21: the weighted-sum backward kernel's two entries against
+    their plain versions on the card; every case also checks that a
+    second launch is bitwise equal to the first.
+    The dp entry (check_wsum_backward: dc bit for bit, dp bit for bit where
+    every sum is exact and within dp_interval elsewhere): every
+    wsum_formats() entry at each BWD_SHAPES entry, and fmt_train (the
+    mode-3 training config's fmt_act) there too; the mode-3 family's
+    folded [R, B, M, D] batches (fam: {label: (c, p, mask, fmt)} from phase
+    16's read).
+    The ds entry (check_wsum_softmax: dc bit for bit, ds within ds_bound):
+    the quantized instance at the same formats and shapes, the float
+    instance at each shape, with and without the cotangents of p and the
+    scores; the mode-3 family's batches (quantized) and fam_float's
+    ({label: (c, p, mask)}: the R = 200 family's folded batch, float).
+    Then each entry's and its plain version's times at the training
+    path's shapes.  Returns {"max_abs_err", "dp_flips", "cases", "times",
+    "ds": {"max_abs_err", "ds_differ", "cases", "times"}}."""
     import numpy as np
     import torch
     from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
@@ -2325,8 +2422,14 @@ def phase_wsum_backward(card, dev, fmt_train, fam):
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED + 21)
     kernel = wsb.qweighted_sum_backward_kernel
+    ds_kernel = wsb.weighted_sum_softmax_backward_kernel
     worst, n_cases, bad, timed = 0.0, 0, [], {}
     flips = {}
+    ds_worst, ds_differ, ds_cases, ds_timed = 0.0, 0, 0, {}
+
+    def same(got, again):
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, again))
 
     def hold(label, c, p, mask, g, fmt):
         nonlocal worst, n_cases
@@ -2334,72 +2437,133 @@ def phase_wsum_backward(card, dev, fmt_train, fam):
         got, again = kernel(*args), kernel(*args)
         err, differ, good = check_wsum_backward(got, wsum_plain(*args),
                                                 *args)
-        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                   for a, b in zip(got, again))
         worst = max(worst, err)
         wl = 1 if fmt.is_binary else fmt.iwl + fmt.frac + 1
         flips[wl] = flips.get(wl, 0) + differ
         n_cases += 1
-        if not (good and same):
-            bad.append(f"{label} fmt {tuple(fmt)} (dc equal and dp within "
-                       f"its bound: {good}, launches equal: {same})")
+        if not (good and same(got, again)):
+            bad.append(f"dp entry {label} fmt {tuple(fmt)} (dc equal and dp "
+                       f"within its bound: {good}, launches equal: "
+                       f"{same(got, again)})")
         return args
+
+    def hold_ds(label, c, p, mask, g, fmt, quantized, cotangents=False):
+        nonlocal ds_worst, ds_differ, ds_cases
+        dp_in = ds_in = None
+        if cotangents:
+            dp_in, ds_in = (torch.from_numpy(rng.normal(
+                0.0, 1.0, tuple(p.shape)).astype(np.float32)).to(dev)
+                for _ in range(2))
+        args = (c, p, mask, g, dp_in, ds_in, fmt, quantized)
+        got, again = ds_kernel(*args), ds_kernel(*args)
+        err, differ, good = check_wsum_softmax(
+            got, wsb.weighted_sum_softmax_backward_plain(*args), *args)
+        ds_worst = max(ds_worst, err)
+        ds_differ += differ
+        ds_cases += 1
+        if not (good and same(got, again)):
+            bad.append(f"ds entry {label} "
+                       f"{tuple(fmt) if quantized else 'float'} cotangents "
+                       f"{cotangents} (dc equal and ds within its bound: "
+                       f"{good}, launches equal: {same(got, again)})")
+        return args
+
+    def tensors(fmt, shape):
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in wsum_inputs(rng, fmt, *shape))
 
     formats = wsum_formats()
     formats += [fmt_train] if fmt_train not in formats else []
     for name, shape in BWD_SHAPES.items():
         for fmt in formats:
-            args = hold(name, *(torch.from_numpy(a).to(dev) for a in
-                                wsum_inputs(rng, fmt, *shape)), fmt)
+            c, p, mask, g = tensors(fmt, shape)
+            args = hold(name, c, p, mask, g, fmt)
+            ds_args = hold_ds(name, c, p, mask, g, fmt, True)
             if fmt == fmt_train:
                 timed[name] = args
+                ds_timed[f"{name} quantized"] = ds_args
+                hold_ds(name, c, p, mask, g, fmt, True, cotangents=True)
+        c, p, mask, g = tensors(None, shape)
+        ds_timed[f"{name} float"] = hold_ds(name, c, p, mask, g, fmt_train,
+                                            False)
+        hold_ds(name, c, p, mask, g, fmt_train, False, cotangents=True)
     for label, (c, p, mask, fmt) in fam.items():
         g = torch.from_numpy(rng.normal(0.0, 1.0, c.shape[:-2] + c.shape[-1:])
                              .astype(np.float32)).to(dev)
         timed[f"family {label}"] = hold(f"family {label}", c, p, mask, g,
                                         fmt)
+        ds_timed[f"family {label} quantized"] = hold_ds(
+            f"family {label}", c, p, mask, g, fmt, True)
+    for label, (c, p, mask) in fam_float.items():
+        g = torch.from_numpy(rng.normal(0.0, 1.0, c.shape[:-2] + c.shape[-1:])
+                             .astype(np.float32)).to(dev)
+        ds_timed[f"family {label} float"] = hold_ds(
+            f"family {label}", c, p, mask, g, fmt_train, False)
     torch.cuda.synchronize()
-    print(f"[{tag}] {n_cases} cases ({list(BWD_SHAPES.values())} at "
-          f"{len(formats)} formats: 8-bit words at iwl 0/1/5 and "
+    fam_shapes = [tuple(a[0].shape) for k, a in ds_timed.items()
+                  if "family" in k]
+    print(f"[{tag}] dp entry: {n_cases} cases ({list(BWD_SHAPES.values())} "
+          f"at {len(formats)} formats: 8-bit words at iwl 0/1/5 and "
           f"rounding modes {ROUND_MODES}, the binary format, 16/24/32-bit "
-          f"words at iwl 1; the family's "
-          f"{[tuple(a[0].shape) for k, a in timed.items() if 'family' in k]}"
-          f"): dc bit-identical and dp bit-identical "
-          f"(words of up to 16 bits) or within dp_interval in "
-          f"{n_cases - len(bad)}; dp rows whose requant flipped, by word "
-          f"length: {flips}; largest |dp difference| {worst:.3g}; two "
-          f"launches bitwise equal; failing: {bad or 'none'}", flush=True)
+          f"words at iwl 1; the mode-3 family's batches): dc bit-identical "
+          f"and dp bit-identical (words of up to 16 bits) or within "
+          f"dp_interval; dp rows whose requant flipped, by word length: "
+          f"{flips}; largest |dp difference| {worst:.3g}", flush=True)
+    print(f"[{tag}] ds entry: {ds_cases} cases (the quantized instance at "
+          f"the same formats and shapes, the float instance at each shape, "
+          f"with and without dp_in and ds_in at {fmt_train} and float; the "
+          f"families' {fam_shapes}): dc bit-identical and ds within "
+          f"ds_bound; ds elements that differ from the plain version "
+          f"{ds_differ}, largest |ds difference| {ds_worst:.3g}; two "
+          f"launches bitwise equal in every case of both entries; failing: "
+          f"{bad or 'none'}", flush=True)
     if bad:
         fail("the weighted-sum backward kernel disagrees with its plain "
              "version or is not deterministic")
     if any(flips[wl] for wl in flips if wl <= 16):
         fail("dp differs from the plain version where every sum is exact")
-    times = {}
-    with torch.inference_mode():
-        for shape, args in timed.items():
-            big = args[0].numel() > 1e6
-            t_k = cuda_ms(lambda a=args: kernel(*a))
-            t_p = cuda_ms(lambda a=args: wsum_plain(*a),
-                          n_iter=2 if big else 10, samples=3 if big else 7)
-            t_dev = recorded_ms(lambda a=args: kernel(*a))
-            b = wsum_backward_bound(*args[:4])
-            dev_txt = ("not measured (the profiler kept no record)"
-                       if t_dev is None else
-                       f"{t_dev:.4f} ms per recorded launch, "
-                       f"{b[0] / t_dev:.1%} of the bound")
-            print(f"[{tag}] {card} | qweighted_sum_backward {shape} "
-                  f"{tuple(args[0].shape)}: kernel {t_k:.4f} ms (device "
-                  f"{dev_txt}), plain {t_p:.4f} ms, bound {b[0]:.5f} ms "
-                  f"({b[1]})", flush=True)
-            times[shape] = {"shape": list(args[0].shape), "ms": t_k,
-                            "plain_ms": t_p, "device_ms": t_dev,
-                            "bound_ms": b[0], "bound_by": b[1]}
-    print(f"[{tag}] library: no single PyTorch call computes the backward "
-          f"(each product is requantized before the sum): library_ms is "
-          f"null; phase time {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
+
+    def timings(cases, fn, plain, bound, name):
+        out = {}
+        with torch.inference_mode():
+            for shape, args in cases.items():
+                big = args[0].numel() > 1e6
+                t_k = cuda_ms(lambda a=args: fn(*a))
+                t_p = cuda_ms(lambda a=args: plain(*a),
+                              n_iter=2 if big else 10,
+                              samples=3 if big else 7)
+                t_dev = recorded_ms(lambda a=args: fn(*a))
+                b = bound(args)
+                dev_txt = ("not measured (the profiler kept no record)"
+                           if t_dev is None else
+                           f"{t_dev:.4f} ms per recorded launch, "
+                           f"{b[0] / t_dev:.1%} of the bound")
+                print(f"[{tag}] {card} | {name} {shape} "
+                      f"{tuple(args[0].shape)}: kernel {t_k:.4f} ms (device "
+                      f"{dev_txt}), plain {t_p:.4f} ms, bound {b[0]:.5f} ms "
+                      f"({b[1]})", flush=True)
+                out[shape] = {"shape": list(args[0].shape), "ms": t_k,
+                              "plain_ms": t_p, "device_ms": t_dev,
+                              "bound_ms": b[0], "bound_by": b[1]}
+        return out
+
+    times = timings(timed, kernel, wsum_plain,
+                    lambda a: wsum_backward_bound(*a[:4]),
+                    "qweighted_sum_backward")
+    ds_times = timings(ds_timed, ds_kernel,
+                       wsb.weighted_sum_softmax_backward_plain,
+                       lambda a: wsum_backward_bound(
+                           *a[:6], quantized=a[7], softmax=True),
+                       "weighted_sum_softmax_backward")
+    print(f"[{tag}] library: no single PyTorch call computes either entry "
+          f"(the quantized products are requantized before the sum; the "
+          f"float entry is an outer product, a batched product and a "
+          f"softmax backward): library_ms is null; phase time "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"max_abs_err": worst, "dp_flips": flips, "cases": n_cases,
-            "times": times}
+            "times": times,
+            "ds": {"max_abs_err": ds_worst, "ds_differ": ds_differ,
+                   "cases": ds_cases, "times": ds_times}}
 
 
 def main():
@@ -2642,15 +2806,19 @@ def main():
     n_calls = n_steps + n_chunks
     qmv.quantized_matvec.launches = 0
     ar.fused_read.launches = 0
+    wsb.weighted_sum_softmax_backward_kernel.launches = 0
     _, finite = train_route(cfg7, data, dev, "7 train", "kernel")
     qmv_launches = qmv.quantized_matvec.launches
     ar_launches = ar.fused_read.launches
+    ds_launches = wsb.weighted_sum_softmax_backward_kernel.launches
     _, finite_p = train_route(cfg7_plain, data, dev, "7 train", "plain")
     print(f"[7 train] {n_calls} forwards ({n_steps} steps + {n_chunks} eval "
           f"chunks): qmatvec launches {qmv_launches} (want {10 * n_calls}), "
-          f"attention_read launches {ar_launches} (want {3 * n_calls})",
-          flush=True)
-    if qmv_launches != 10 * n_calls or ar_launches != 3 * n_calls:
+          f"attention_read launches {ar_launches} (want {3 * n_calls}), "
+          f"weighted_sum_softmax_backward launches {ds_launches} (want "
+          f"{3 * n_steps}, the float instance)", flush=True)
+    if (qmv_launches != 10 * n_calls or ar_launches != 3 * n_calls
+            or ds_launches != 3 * n_steps):
         fail("the training path did not launch each kernel as expected")
     if not (finite and finite_p):
         fail("a training or evaluation cost is not finite")
@@ -2672,7 +2840,19 @@ def main():
                 "plain route": lambda: train_step(p_p, batch0, lr_t, cfg_p)}
 
     print(f"[8 train-times] {card} | train step B={TRAIN_BATCH}", flush=True)
-    time_steps(step_fns(cfg7, cfg7_plain, base), "8 train-times")
+    steps8 = step_fns(cfg7, cfg7_plain, base)
+    ds8 = {}
+    for route, fn in steps8.items():
+        wsb.weighted_sum_softmax_backward_kernel.launches = 0
+        fn()
+        ds8[route] = wsb.weighted_sum_softmax_backward_kernel.launches
+    print(f"[8 train-times] weighted_sum_softmax_backward launches in one "
+          f"step: {ds8} (want 3 on the kernel route, 0 on the plain route)",
+          flush=True)
+    if ds8 != {"kernel route": 3, "plain route": 0}:
+        fail("a mode-2 step did not launch the weighted-sum backward once "
+             "per hop on the kernel route only")
+    time_steps(steps8, "8 train-times")
     # the step's parts: forward (with the autograd graph), forward +
     # backward, and the in-place update
     for name, route_cfg in (("kernel route", cfg7), ("plain route",
@@ -2862,20 +3042,24 @@ def main():
     ar.fused_read.launches = 0
     hbwd.hamming_backward_kernel.launches = 0
     wsb.qweighted_sum_backward_kernel.launches = 0
+    wsb.weighted_sum_softmax_backward_kernel.launches = 0
     _, finite = train_route(cfg11, data, dev, "11 mode3-train", "kernel")
     qmv3_launches = qmv.quantized_matvec.launches
     ar3_launches = ar.fused_read.launches
     bwd3_launches = hbwd.hamming_backward_kernel.launches
     wsum3_launches = wsb.qweighted_sum_backward_kernel.launches
+    ds3_launches = wsb.weighted_sum_softmax_backward_kernel.launches
     print(f"[11 mode3-train] {n_calls} forwards ({n_steps11} steps): "
           f"qmatvec launches {qmv3_launches} (want {10 * n_calls}), "
           f"attention_read launches {ar3_launches} (want {3 * n_calls}), "
           f"hamming_backward launches {bwd3_launches} and "
-          f"qweighted_sum_backward launches {wsum3_launches} (want "
-          f"{3 * n_steps11} each)", flush=True)
+          f"weighted_sum_softmax_backward launches {ds3_launches} (want "
+          f"{3 * n_steps11} each), qweighted_sum_backward launches "
+          f"{wsum3_launches} (want 0: the fused read takes the ds entry)",
+          flush=True)
     if (qmv3_launches != 10 * n_calls or ar3_launches != 3 * n_calls
             or bwd3_launches != 3 * n_steps11
-            or wsum3_launches != 3 * n_steps11):
+            or ds3_launches != 3 * n_steps11 or wsum3_launches != 0):
         fail("mode-3 training did not launch each kernel as expected")
     if not finite:
         fail("a mode-3 training or evaluation cost is not finite")
@@ -2884,14 +3068,14 @@ def main():
         device=dev).items()}
     cfg11_ham = cfg11_plain.replace(use_pallas_hamming=True)
     hbwd.hamming_backward_kernel.launches = 0
-    wsb.qweighted_sum_backward_kernel.launches = 0
+    wsb.weighted_sum_softmax_backward_kernel.launches = 0
     sgd_steps_agree((cfg11_plain, cfg11), base3, batches_np, dev,
                     "11 mode3-train")
     bwd_steps = (hbwd.hamming_backward_kernel.launches,
-                 wsb.qweighted_sum_backward_kernel.launches)
+                 wsb.weighted_sum_softmax_backward_kernel.launches)
     print(f"[11 mode3-train] use_pallas: hamming_backward and "
-          f"qweighted_sum_backward launches {bwd_steps} in 2 kernel-route "
-          f"and 2 plain-route steps (want 6 each)", flush=True)
+          f"weighted_sum_softmax_backward launches {bwd_steps} in 2 "
+          f"kernel-route and 2 plain-route steps (want 6 each)", flush=True)
     if bwd_steps != (6, 6):
         fail("the use_pallas steps did not launch the surrogate and the "
              "weighted-sum backward kernels 3 times per kernel-route step "
@@ -2909,16 +3093,20 @@ def main():
     ham.hamming_score_kernel.launches = 0
     hbwd.hamming_backward_kernel.launches = 0
     wsb.qweighted_sum_backward_kernel.launches = 0
+    wsb.weighted_sum_softmax_backward_kernel.launches = 0
     sgd_steps_agree((cfg11_plain, cfg11_ham), base3, batches_np, dev,
                     "11 mode3-train use_pallas_hamming")
     ham_launches = ham.hamming_score_kernel.launches
     bwd_ham_launches = hbwd.hamming_backward_kernel.launches
     wsum_ham_launches = wsb.qweighted_sum_backward_kernel.launches
+    ds_ham_launches = wsb.weighted_sum_softmax_backward_kernel.launches
     print(f"[11 mode3-train] use_pallas_hamming: Hamming kernel launches "
           f"{ham_launches}, hamming_backward launches {bwd_ham_launches}, "
           f"qweighted_sum_backward launches {wsum_ham_launches} in 2 steps "
-          f"(want 6 each)", flush=True)
-    if ham_launches != 6 or bwd_ham_launches != 6 or wsum_ham_launches != 6:
+          f"(want 6 each; the ds entry {ds_ham_launches}, want 0)",
+          flush=True)
+    if (ham_launches != 6 or bwd_ham_launches != 6
+            or wsum_ham_launches != 6 or ds_ham_launches != 0):
         fail("the use_pallas_hamming step did not launch the Hamming kernel, "
              "its surrogate backward and the weighted-sum backward 3 times "
              "per step")
@@ -2942,13 +3130,14 @@ def main():
     bwd12 = {}
     for route in ("kernel route", "plain route"):
         hbwd.hamming_backward_kernel.launches = 0
-        wsb.qweighted_sum_backward_kernel.launches = 0
+        wsb.weighted_sum_softmax_backward_kernel.launches = 0
         steps12[route]()
         bwd12[route] = (hbwd.hamming_backward_kernel.launches,
-                        wsb.qweighted_sum_backward_kernel.launches)
-    print(f"[12 mode3-times] (hamming_backward, qweighted_sum_backward) "
-          f"launches in one step: {bwd12} (want (3, 3) on the kernel route, "
-          f"(0, 0) on the plain route)", flush=True)
+                        wsb.weighted_sum_softmax_backward_kernel.launches)
+    print(f"[12 mode3-times] (hamming_backward, "
+          f"weighted_sum_softmax_backward) launches in one step: {bwd12} "
+          f"(want (3, 3) on the kernel route, (0, 0) on the plain route)",
+          flush=True)
     if bwd12 != {"kernel route": (3, 3), "plain route": (0, 0)}:
         fail("a mode-3 step did not launch the two backward kernels once "
              "per hop on the kernel route only")
@@ -3077,7 +3266,8 @@ def main():
     files = ["--data-path", data_path, "--raw-data-path", raw_path,
              "--device", str(dev)]
     out = root / "run"
-    for fn in (qmv.quantized_matvec, ar.fused_read):
+    for fn in (qmv.quantized_matvec, ar.fused_read,
+               wsb.weighted_sum_softmax_backward_kernel):
         fn.launches = 0
     t0 = time.perf_counter()
     rc, lines = run_quiet(cli.main, [
@@ -3086,7 +3276,11 @@ def main():
         *files])
     t_cli = time.perf_counter() - t0
     cli_qmv, cli_ar = qmv.quantized_matvec.launches, ar.fused_read.launches
+    cli_ds = wsb.weighted_sum_softmax_backward_kernel.launches
     n_cli = 2 * forwards(2, n_file, n_test)
+    # 2 tasks x 2 epochs of steps over the train file's first 90%
+    steps_cli = 2 * 2 * math.ceil((n_file - int(n_file * 0.1))
+                                  / QmannConfig().size_batch)
     n_epochs, finite = cli_costs(lines)
     rows = {n: csv_rows(out / n) for n in ("result.csv", "result_all.csv")}
     print(f"[14 cli] tasks 1-2, 2 epochs, use_pallas, flagship widths: rc "
@@ -3095,13 +3289,16 @@ def main():
           f"{[r[0] for r in rows['result_all.csv']]}; {n_epochs} epoch "
           f"lines, every cost finite: {finite}; {n_cli} forwards: "
           f"qmatvec launches {cli_qmv} (want {10 * n_cli}), attention_read "
-          f"launches {cli_ar} (want {3 * n_cli})", flush=True)
+          f"launches {cli_ar} (want {3 * n_cli}); {steps_cli} steps: "
+          f"weighted_sum_softmax_backward launches {cli_ds} (want "
+          f"{3 * steps_cli})", flush=True)
     if rc != 0 or any([r[0] for r in v] != ["1", "2"] for v in rows.values()):
         fail("the CLI run did not write one result row per task")
     if n_epochs != 4 or not finite:
         fail("a CLI training or validation cost is not finite")
-    if (cli_qmv, cli_ar) != (10 * n_cli, 3 * n_cli):
-        fail("the CLI run did not launch the training kernels per forward")
+    if (cli_qmv, cli_ar, cli_ds) != (10 * n_cli, 3 * n_cli, 3 * steps_cli):
+        fail("the CLI run did not launch the training kernels per forward "
+             "and the weighted-sum backward per step")
 
     # the checkpoint reloaded and served: the chain kernel against the
     # plain route on task 1's test split
@@ -3255,7 +3452,9 @@ def main():
                 ar.fused_read, "hamming_score": ham.hamming_score_kernel,
                 "hop_chain": hop_chain.fused_hop_chain,
                 "hamming_backward": hbwd.hamming_backward_kernel,
-                "qweighted_sum_backward": wsb.qweighted_sum_backward_kernel}
+                "qweighted_sum_backward": wsb.qweighted_sum_backward_kernel,
+                "weighted_sum_softmax_backward":
+                    wsb.weighted_sum_softmax_backward_kernel}
 
     def zero_counts():
         for fn in counters.values():
@@ -3265,12 +3464,14 @@ def main():
         return {k: fn.launches for k, fn in counters.items()}
 
     def want_counts(qmatvec=0, attention_read=0, hamming_score=0,
-                    backward=0):
-        """backward: the launches of each of the two backward kernels."""
+                    hamming_backward=0, wsum_dp=0, wsum_ds=0):
+        """wsum_dp, wsum_ds: the launches of the weighted-sum backward's dp
+        entry (the unfused mode-3 hop) and ds entry (the fused read)."""
         return {"qmatvec": qmatvec, "attention_read": attention_read,
                 "hamming_score": hamming_score, "hop_chain": 0,
-                "hamming_backward": backward,
-                "qweighted_sum_backward": backward}
+                "hamming_backward": hamming_backward,
+                "qweighted_sum_backward": wsum_dp,
+                "weighted_sum_softmax_backward": wsum_ds}
 
     def feature_base(cfg_f):
         return {k: 4.0 * v for k, v in memn2n.init_params(
@@ -3306,7 +3507,8 @@ def main():
                    + math.ceil(len(data.test) / EVAL_CHUNK))
     want_total = want_counts(
         qmatvec=10 * (3 * n_steps_epoch + n_chunks_ls),
-        attention_read=3 * (n_steps_epoch + n_chunks_ls))
+        attention_read=3 * (n_steps_epoch + n_chunks_ls),
+        wsum_ds=3 * n_steps_epoch)
     print(f"[15 features] linear start: epochs (softmax removed, launches "
           f"per step) "
           + "; ".join(f"{rm}: " + ", ".join(
@@ -3317,6 +3519,7 @@ def main():
         fail("linear start did not run 2 epochs without the softmax, then 1")
     for rm, c in per_epoch:
         want = want_counts(qmatvec=10 * n_steps_epoch, attention_read=(
+            0 if rm else 3 * n_steps_epoch), wsum_ds=(
             0 if rm else 3 * n_steps_epoch))
         if c != want:
             fail(f"a linear-start epoch (softmax removed: {rm}) launched "
@@ -3371,7 +3574,7 @@ def main():
     got = counts()
     feature_launches["mode3_sc_att"] = got
     want = want_counts(qmatvec=10 * n_m3, hamming_score=3 * n_m3,
-                       backward=3 * m3_steps)
+                       hamming_backward=3 * m3_steps, wsum_dp=3 * m3_steps)
     print(f"[15 features] mode 3 sc_att iwl 1: {n_m3} forwards ({m3_steps} "
           f"steps), launches {got} (want {want})", flush=True)
     if got != want or not finite:
@@ -3381,7 +3584,8 @@ def main():
     zero_counts()
     sgd_steps_agree((cfg_m3.replace(use_pallas=False), cfg_m3), base_m3,
                     batches_np, dev, "15 features mode 3 sc_att")
-    if counts() != want_counts(qmatvec=20, hamming_score=6, backward=6):
+    if counts() != want_counts(qmatvec=20, hamming_score=6,
+                               hamming_backward=6, wsum_dp=6):
         fail(f"the mode-3 EN_SC_ATT steps launched {counts()}, want 10 "
              "lattice, 3 Hamming, 3 surrogate backward and 3 weighted-sum "
              "backward launches per kernel-route step and none on the plain "
@@ -3496,8 +3700,9 @@ def main():
     n_chunks16 = (cfg16.num_itr * math.ceil(FAMILY_VALID / 128)
                   + math.ceil(FAMILY_TEST / 128))
     n_fwd16 = cfg16.num_itr * nb16 + n_chunks16
-    step_want = want_counts(qmatvec=10, attention_read=3)
-    want16 = want_counts(qmatvec=10 * n_fwd16, attention_read=3 * n_fwd16)
+    step_want = want_counts(qmatvec=10, attention_read=3, wsum_ds=3)
+    want16 = want_counts(qmatvec=10 * n_fwd16, attention_read=3 * n_fwd16,
+                         wsum_ds=3 * cfg16.num_itr * nb16)
     odd = [i for i, c in enumerate(steps16) if c != step_want]
     print(f"[16 family] train_tasks_multi, {cfg16.num_itr} epochs: "
           f"{len(steps16)} family steps (want {cfg16.num_itr * nb16}), "
@@ -3669,9 +3874,10 @@ def main():
     fam3_launches = {}
     for label, kw, step_want in (
             ("use_pallas", dict(use_pallas=True),
-             want_counts(qmatvec=10, attention_read=3, backward=3)),
+             want_counts(qmatvec=10, attention_read=3, hamming_backward=3,
+                         wsum_ds=3)),
             ("use_pallas_hamming", dict(use_pallas_hamming=True),
-             want_counts(hamming_score=3, backward=3))):
+             want_counts(hamming_score=3, hamming_backward=3, wsum_dp=3))):
         cfg_f3 = QmannConfig(iwl=1, attention_mode=3, num_itr=1,
                              verbose=False, **kw)
         zero_counts()
@@ -3685,7 +3891,8 @@ def main():
             FAMILY_TEST / 128)
         # the forward kernels per step and eval chunk, the backward per step
         want3 = {k: v * (nb16 if k in ("hamming_backward",
-                                       "qweighted_sum_backward")
+                                       "qweighted_sum_backward",
+                                       "weighted_sum_softmax_backward")
                          else n_fwd3)
                  for k, v in step_want.items()}
         odd3 = [i for i, c in enumerate(steps3) if c != step_want]
@@ -3848,9 +4055,14 @@ def main():
         return tuple(t.reshape(R3, -1, *t.shape[1:]) for t in (c, p, mask)) \
             + (fmt,)
 
+    # the R = 200 family's folded training batch of phase 16 (mode 2: the
+    # ds entry's float instance), p from the read's plain version
+    p16 = ar.fused_read_reference(*read16)[1]
+    fam200 = {f"R = {R16}": tuple(t.reshape(R16, -1, *t.shape[1:])
+                                  for t in (read16[1], p16, read16[3]))}
     wsum21 = phase_wsum_backward(card, dev, cfg11.fmt_act[0], {
         label: family_wsum(r_args) for label, (r_args, _) in
-        fam3_args.items()})
+        fam3_args.items()}, fam200)
 
     b_chain = chain_bound(*chain_args[:4])
     b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
@@ -4032,12 +4244,14 @@ def main():
          "replaces": "qmann_tpu/ops/qlinear.py:602",
          # XLA's fusion of _qweighted_sum_bwd's quantized branch
          "pallas_counterpart": None,
-         "launches": wsum3_launches, "max_abs_err": wsum21["max_abs_err"],
+         # its dp entry: the unfused mode-3 hop (use_pallas_hamming)
+         "launches": wsum_ham_launches,
+         "max_abs_err": wsum21["max_abs_err"],
          "dp_flips": wsum21["dp_flips"], "cases": wsum21["cases"],
          **{k: wsum21["times"]["train"][k] for k in (
              "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")},
          "library_ms": None,
-         "use_pallas_hamming": {"launches": wsum_ham_launches},
+         "use_pallas": {"launches": wsum3_launches},
          "cli_launches": wsum_cli,
          "features": {"mode3_sc_att": feature_launches["mode3_sc_att"][
              "qweighted_sum_backward"]},
@@ -4046,6 +4260,33 @@ def main():
                     **{label: wsum21["times"][f"family {label}"]
                        for label in fam3_args}},
          **{shape: wsum21["times"][shape] for shape in ("eval", "wide")}},
+        {"name": "weighted_sum_softmax_backward", "route": "cuda",
+         "source": "qmann_tpu_torch/csrc/qweighted_sum_bwd.cu",
+         # XLA's fusion of _fused_bwd: the weighted-sum backward's two
+         # branches (qlinear.py:602-621) and the softmax backward
+         "replaces": "qmann_tpu/ops/fused.py:88",
+         "pallas_counterpart": None,
+         "launches": ds_launches, "max_abs_err": wsum21["ds"]["max_abs_err"],
+         "ds_differ": wsum21["ds"]["ds_differ"],
+         "cases": wsum21["ds"]["cases"],
+         **{k: wsum21["ds"]["times"]["train float"][k] for k in (
+             "ms", "plain_ms", "device_ms", "bound_ms", "bound_by")},
+         "library_ms": None,
+         "mode3": {"launches": ds3_launches,
+                   **wsum21["ds"]["times"]["train quantized"]},
+         "cli_launches": cli_ds,
+         "features": {k: v["weighted_sum_softmax_backward"]
+                      for k, v in feature_launches.items()},
+         "family": {"launches": total16["weighted_sum_softmax_backward"],
+                    "mode3_launches": {
+                        k: v["weighted_sum_softmax_backward"]
+                        for k, v in fam3_launches.items()},
+                    **{label: t for label, t in
+                       wsum21["ds"]["times"].items()
+                       if label.startswith("family")}},
+         **{f"{shape} {inst}": wsum21["ds"]["times"][f"{shape} {inst}"]
+            for shape in ("eval", "wide") for inst in ("float",
+                                                       "quantized")}},
     ]
     for entry in kernels_line:
         entry["mesh"] = {"added_in": 10, **mesh18[entry["name"]]}

@@ -63,7 +63,9 @@ COUNTED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec"),
            ("qmann_tpu_torch.ops.cuda.hamming_bwd",
             "hamming_backward_kernel"),
            ("qmann_tpu_torch.ops.cuda.qweighted_sum_bwd",
-            "qweighted_sum_backward_kernel"))
+            "qweighted_sum_backward_kernel"),
+           ("qmann_tpu_torch.ops.cuda.qweighted_sum_bwd",
+            "weighted_sum_softmax_backward_kernel"))
 
 
 def without_fast_path(cfg: QmannConfig) -> QmannConfig:
@@ -82,7 +84,7 @@ def _counters() -> List[Callable]:
 
 
 def launch_counts() -> Tuple[int, ...]:
-    """The six wrappers' launch counts, in ``COUNTED``'s order."""
+    """The seven wrappers' launch counts, in ``COUNTED``'s order."""
     return tuple(fn.launches for fn in _counters())
 
 

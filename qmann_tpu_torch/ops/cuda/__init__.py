@@ -16,11 +16,12 @@ from qmann_tpu_torch.ops.cuda.qmatvec import (
     quantized_matvec, quantized_matvec_reference,
 )
 from qmann_tpu_torch.ops.cuda.qweighted_sum_bwd import (
-    qweighted_sum_backward_kernel,
+    qweighted_sum_backward_kernel, weighted_sum_softmax_backward_kernel,
 )
 
 __all__ = ["fused_hop_chain", "fused_hop_chain_reference", "fused_read",
            "fused_read_reference", "hamming_backward",
            "hamming_backward_kernel", "hamming_score_kernel",
            "hamming_score_reference", "quantized_matvec",
-           "quantized_matvec_reference", "qweighted_sum_backward_kernel"]
+           "quantized_matvec_reference", "qweighted_sum_backward_kernel",
+           "weighted_sum_softmax_backward_kernel"]

@@ -6,18 +6,19 @@ the whole hop read (score -> masked softmax -> weighted sum) on CUDA
 tensors, its plain PyTorch version on CPU tensors.
 
 Backward: the raw-float composition of the three ops' reference backwards,
-as in JAX: the weighted-sum backward, float in plain PyTorch as an einsum
-in JAX, or under ``sum_grad_quantized`` the quantized contractions, which
-XLA fuses in JAX and the port runs as one hand-written CUDA kernel
-(``ops/cuda/qweighted_sum_bwd.py``); the softmax backward p*(dp -
-sum(p*dp)) in plain PyTorch, as plain jnp in JAX (the TPU package has no
-kernel for it); then the score backward on the raw m and u: the float
-qscore backward in modes 1 and 2, and in mode 3 the reference's Hamming
-surrogate, which XLA fuses in JAX and the port runs as one hand-written
-CUDA kernel (``ops/cuda/hamming_bwd.py``).  On CPU tensors both kernels'
-wrappers take their plain versions.  So training through the kernel is
-gradient-identical to the unfused op chain (the query gradient's sum over
-the memory rows aside).
+as in JAX: the weighted-sum backward (float, or under
+``sum_grad_quantized`` the quantized contractions) and the softmax
+backward p*(dp - sum(p*dp)), which XLA fuses in JAX (``_fused_bwd``) and
+the port runs as one hand-written CUDA kernel
+(``ops/cuda/qweighted_sum_bwd.py::weighted_sum_softmax_backward_kernel``,
+one launch per hop in every attention mode); then the score backward on
+the raw m and u: the float qscore backward in modes 1 and 2, and in mode 3
+the reference's Hamming surrogate, which XLA fuses in JAX and the port
+runs as one hand-written CUDA kernel (``ops/cuda/hamming_bwd.py``).  On
+CPU tensors both kernels' wrappers take their plain versions.  So training
+through the kernel is gradient-identical to the unfused op chain (the
+query gradient's sum over the memory rows aside, and the float sums taken
+in another order on the card).
 """
 from __future__ import annotations
 
@@ -27,9 +28,8 @@ from qmann_tpu_torch.numerics import QFormat
 from qmann_tpu_torch.ops.cuda.attention_read import fused_read
 from qmann_tpu_torch.ops.cuda.hamming_bwd import hamming_backward_kernel
 from qmann_tpu_torch.ops.cuda.qweighted_sum_bwd import (
-    qweighted_sum_backward_kernel,
+    weighted_sum_softmax_backward_kernel,
 )
-from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
 from qmann_tpu_torch.ops.softmax import softmax_backward
 
 
@@ -63,18 +63,16 @@ class _FusedAttentionRead(torch.autograd.Function):
         # cotangents of unused outputs arrive as None
         m, c, u, mask_f, p = ctx.saved_tensors
         dm = dc = du = None
-        dp = dp_in
-        if do is not None:
-            if ctx.sum_grad_quantized:
-                dc, dp_o = qweighted_sum_backward_kernel(c, p, mask_f, do,
-                                                         ctx.fmt_act)
-            else:
-                dc, dp_o = qweighted_sum_backward(c, p, mask_f, do,
-                                                  ctx.fmt_act)
-            dp = dp_o if dp is None else dp_o + dp
         ds = ds_in
-        if dp is not None:
-            ds_p = softmax_backward(p, dp)   # padded entries have p == 0
+        if do is not None:
+            # the weighted-sum and softmax backwards in one launch
+            dc, ds = weighted_sum_softmax_backward_kernel(
+                c, p, mask_f, do, dp_in, ds_in, ctx.fmt_act,
+                ctx.sum_grad_quantized)
+        elif dp_in is not None:
+            # only p's cotangent (no caller on the training path): the
+            # softmax backward alone; padded entries have p == 0
+            ds_p = softmax_backward(p, dp_in)
             ds = ds_p if ds is None else ds_p + ds
         if ds is not None and ctx.hamming is not None:
             dm, du = hamming_backward_kernel(m, u, ds, *ctx.hamming)

@@ -104,7 +104,9 @@ def verify_kernels(rng: Optional[np.random.Generator] = None,
     and the hop chain with their scores bit for bit, p within
     TH_ERROR_FLOAT, and the output bit for bit in every query whose
     Q(p, act) did not flip (at most one may); the weighted sum's
-    quantized backward bit for bit (8-bit words: every sum exact)."""
+    quantized backward bit for bit (8-bit words: every sum exact), and its
+    ds entry (the fused read's backward, quantized and float): dc bit for
+    bit, ds within ds_bound."""
     from qmann_tpu_torch.ops.cuda import attention_read as ar
     from qmann_tpu_torch.ops.cuda import hamming as ham
     from qmann_tpu_torch.ops.cuda import hamming_bwd as hbwd
@@ -174,6 +176,24 @@ def verify_kernels(rng: Optional[np.random.Generator] = None,
                         dc_w, threshold=0.0),
                 compare("qweighted_sum_backward dp kernel-vs-plain", dp_g,
                         dp_w, threshold=0.0)]
+    # its ds entry in both instances: ds within the rounding of the
+    # softmax sum (and of float dp) taken in another order
+    for quantized in (True, False):
+        ds_args = wsum_args[:4] + (None, None, wsum_args[4], quantized)
+        (dc_g, ds_g), (dc_w, ds_w) = (
+            wsb.weighted_sum_softmax_backward_kernel(*ds_args),
+            wsb.weighted_sum_softmax_backward_plain(*ds_args))
+        _, dp_w = qweighted_sum_backward(*wsum_args,
+                                         grad_quantized=quantized)
+        ds_tol = float(wsb.ds_bound(p_w, dp_w, wsb.dp_error(
+            read_args[1], mask_f, wsum_args[3], wsum_args[4],
+            quantized)).max())
+        name = ("weighted_sum_softmax_backward "
+                + ("quantized" if quantized else "float"))
+        results += [compare(f"{name} dc kernel-vs-plain", dc_g, dc_w,
+                            threshold=0.0),
+                    compare(f"{name} ds kernel-vs-plain", ds_g, ds_w,
+                            threshold=ds_tol)]
 
     K = cfg.num_hops
     chain_args = (t(B, M, 2 * K * D), float_quant(t(B, D), cfg.fmt_w[0]),

@@ -45,6 +45,22 @@ Groups (--only takes a comma-separated subset; default all):
            device ms per recorded launch, event ms, the bound and the
            sha256 of dm's then du's bytes (equal digests: bit-identical
            outputs across checkouts);
+  wsum_bwd the weighted-sum backward at B=32 (M=10), the wide layout
+           (B=32, M=50), the mode-3 family's folded 1280 and 5120 queries
+           and the R = 200 family's folded 6400 (M=50), D=60, on
+           chip_smoke.wsum_inputs from one seed per case: the dp entry
+           (quantized, iwl 1 wl 8, truncation), and the fused read's
+           backward hop in the quantized and float instances: the ds
+           entry where the checkout has it (one launch), else the hop as
+           the checkout runs it (the dp entry or the plain float backward,
+           then softmax_backward); each held against its plain version
+           (chip_smoke.check_wsum_backward, check_wsum_softmax); device ms
+           per recorded launch (the hop's busy ms per call where it is
+           more than one kernel), event ms, the bound, and the sha256 of
+           dc's then dp's (or ds's) bytes (equal digests: bit-identical
+           outputs across checkouts); the ds cases also give the eager
+           composition's event ms and busy ms (plain weighted-sum backward
+           and softmax_backward on the card);
   steps    one training step at B=32 (forward, backward, SGD): mode 2 at
            iwl 5 and mode 3 at iwl 1 with use_pallas, mode 3 at iwl 1 with
            use_pallas_hamming; event time, busy time, launches, idle share;
@@ -65,8 +81,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 BATCH = 1000
-GROUPS = ("chain", "qmatvec", "read", "hamming", "hamming_bwd", "steps",
-          "state")
+GROUPS = ("chain", "qmatvec", "read", "hamming", "hamming_bwd", "wsum_bwd",
+          "steps", "state")
 STATES = ("idle", "busy", "idle", "busy")
 CHAIN_SHAPES = {"flagship": (19, 10, 6), "wide": (64, 50, 7)}
 QMV_SHAPES = {"320": (32, 19, 10, 6), "1600": (32, 64, 50, 7),
@@ -114,6 +130,107 @@ def time_hamming_bwd(cs, hbwd, dev, times):
     return out
 
 
+WSUM_SHAPES = {"B32": (32, 10, 60), "wide": (32, 50, 60),
+               "family 1280": (1280, 50, 60), "family 5120": (5120, 50, 60),
+               "family 6400": (6400, 50, 60)}
+
+
+def time_wsum_bwd(cs, dev, times):
+    """The wsum_bwd group (module docstring): {case: entry}."""
+    import hashlib
+    import numpy as np
+    import torch
+    from qmann_tpu_torch.numerics import QFormat
+    from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
+    from qmann_tpu_torch.ops.qlinear import qweighted_sum_backward
+    from qmann_tpu_torch.ops.softmax import softmax_backward
+    fused = getattr(wsb, "weighted_sum_softmax_backward_kernel", None)
+    fmt = QFormat(1, 6, 3)
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def hop(c, p, mask, g, quantized):
+        """The fused read's backward hop as the checkout runs it."""
+        if fused is not None:
+            return fused(c, p, mask, g, None, None, fmt, quantized)
+        dc, dp = (wsb.qweighted_sum_backward_kernel(c, p, mask, g, fmt)
+                  if quantized else
+                  qweighted_sum_backward(c, p, mask, g, fmt))
+        return dc, softmax_backward(p, dp)
+
+    def plain_hop(c, p, mask, g, dp_in, ds_in, fmt, quantized):
+        """The hop's plain composition (no cotangents here)."""
+        dc, dp = qweighted_sum_backward(c, p, mask, g, fmt,
+                                        grad_quantized=quantized)
+        return dc, softmax_backward(p, dp)
+
+    def busy_ms(fn):
+        with torch.inference_mode():
+            return sum(ms for ms, _ in cs.device_ms(fn).values())
+
+    bounds = load_bounds()
+
+    out = {}
+    for i, (name, (B, M, D)) in enumerate(WSUM_SHAPES.items()):
+        rng = np.random.default_rng(cs.SEED + 150 + i)
+        for inst in ("quantized", "float"):
+            c, p, mask, g = (torch.from_numpy(a).to(dev) for a in
+                             cs.wsum_inputs(rng, fmt if inst == "quantized"
+                                            else None, B, M, D))
+            q = inst == "quantized"
+            if q:
+                args = (c, p, mask, g, fmt)
+                got = wsb.qweighted_sum_backward_kernel(*args)
+                _, _, good = cs.check_wsum_backward(got, cs.wsum_plain(*args),
+                                                    *args)
+                if not good:
+                    cs.fail(f"the dp entry differs from its plain version "
+                            f"({name})")
+                b = cs.wsum_backward_bound(c, p, mask, g)
+                out[f"dp {name}"] = {
+                    **times(lambda: wsb.qweighted_sum_backward_kernel(*args)),
+                    "shape": [B, M, D], "bound_ms": b[0], "bound_by": b[1],
+                    "sha256": digest(got)}
+            got = hop(c, p, mask, g, q)
+            s_args = (c, p, mask, g, None, None, fmt, q)
+            err, _, good = cs.check_wsum_softmax(
+                got, plain_hop(*s_args), *s_args, wsb=bounds)
+            if not good:
+                cs.fail(f"the fused read's backward hop differs from its "
+                        f"plain version ({inst} {name})")
+            b = cs.wsum_backward_bound(c, p, mask, g, quantized=q,
+                                       softmax=True)
+            entry = {**times(lambda: hop(c, p, mask, g, q)),
+                     "launches_per_hop": 1 if fused is not None else None,
+                     "busy_ms": busy_ms(lambda: hop(c, p, mask, g, q)),
+                     "composition_ms": cs.cuda_ms(
+                         lambda: plain_hop(*s_args)),
+                     "composition_busy_ms": busy_ms(
+                         lambda: plain_hop(*s_args)),
+                     "shape": [B, M, D], "bound_ms": b[0], "bound_by": b[1],
+                     "max_abs_err_ds": err, "sha256": digest(got)}
+            if fused is None:   # several kernels: per_launch_ms misreads
+                entry["device_ms"] = entry["busy_ms"]
+            out[f"ds {inst} {name}"] = entry
+    return out
+
+
+def load_bounds():
+    """This repository's ops/cuda/qweighted_sum_bwd.py (dp_error,
+    ds_bound) as a module of its own, on whichever qmann_tpu_torch is
+    imported: an older checkout's hop is held to the same bounds."""
+    spec = importlib.util.spec_from_file_location(
+        "_wsum_bounds", REPO / "qmann_tpu_torch" / "ops" / "cuda"
+        / "qweighted_sum_bwd.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def load_chip_smoke():
     """This repository's chip_smoke.py, whatever DIR holds."""
     spec = importlib.util.spec_from_file_location(
@@ -159,7 +276,8 @@ def main():
     rng = np.random.default_rng(cs.SEED)
     out = {"tag": args.tag, "root": str(root), "card": card,
            "chain": {}, "qmatvec": {}, "forward_prepared": {}, "read": {},
-           "hamming": {}, "hamming_bwd": {}, "steps": {}, "state": {}}
+           "hamming": {}, "hamming_bwd": {}, "wsum_bwd": {}, "steps": {},
+           "state": {}}
 
     def times(fn):
         with torch.inference_mode():
@@ -292,6 +410,13 @@ def main():
         out["hamming_bwd"] = time_hamming_bwd(cs, hamming_bwd, dev, times)
         for key in out["hamming_bwd"]:
             report("hamming_bwd", key)
+
+    if "wsum_bwd" in groups:
+        from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd
+        qweighted_sum_bwd.build()
+        out["wsum_bwd"] = time_wsum_bwd(cs, dev, times)
+        for key in out["wsum_bwd"]:
+            report("wsum_bwd", key)
 
     if "steps" in groups:
         from qmann_tpu_torch.train import train_step

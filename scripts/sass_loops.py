@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Count the SASS instructions, and the 32-bit integer ones among them, in
-each loop of the surrogate backward kernel (csrc/hamming_bwd.cu).
+each loop of the surrogate backward kernel (csrc/hamming_bwd.cu) or of the
+weighted-sum backward kernel (csrc/qweighted_sum_bwd.cu).
 
     python3 scripts/sass_loops.py [--root DIR] [--tag NAME]
+                                  [--kernel hamming_bwd|wsum_bwd]
 
 Builds (or finds) the kernel library with the port's own flags
 (qmann_tpu_torch.ops.cuda._build, imported from DIR, default this
 repository: an older commit unpacked into a gitignored directory is read
 the same way), disassembles it with the CUDA toolkit's `cuobjdump -sass`
-and takes the kernel's instance for rounding mode 3 (truncation).  A loop
+and takes the kernel's instance for rounding mode 3 (truncation); for the
+weighted-sum backward, the FastQ instance with 128-bit accesses and two
+column groups a lane (D=60), or an older commit's one FastQ instance.  A loop
 is the address range from a backward branch's target to the branch.
 Prints one JSON line: per loop its range, its nesting depth, its
 instructions and its integer instructions (the opcodes in INT_OPS, which
@@ -78,24 +82,36 @@ def loops(instrs):
     return out
 
 
+# kernel: (source, function name, instance substrings in the order tried)
+KERNELS = {"hamming_bwd": ("hamming_bwd.cu", "hamming_bwd_kernel",
+                           ("ILi3E",)),
+           "wsum_bwd": ("qweighted_sum_bwd.cu", "wsum_bwd_kernel",
+                        ("5FastQILi3EEELb1EE", "5FastQILi3EEE"))}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(REPO))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--kernel", choices=sorted(KERNELS),
+                    default="hamming_bwd")
     args = ap.parse_args(argv)
+    source, name, instances = KERNELS[args.kernel]
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     from qmann_tpu_torch.ops.cuda import _build
     if not Path(_build.__file__).resolve().is_relative_to(root):
         sys.exit(f"imported {_build.__file__}, not the checkout at {root}")
-    lib, _ = _build.build(_build.CSRC / "hamming_bwd.cu")
+    lib, _ = _build.build(_build.CSRC / source)
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
-    instrs = kernel_instrs(sass)
+    instrs = next((found for found in (kernel_instrs(sass, name, inst)
+                                       for inst in instances) if found), [])
     if not instrs:
-        sys.exit(f"no mode-3 hamming_bwd_kernel in {lib}")
-    print(json.dumps({"tag": args.tag or root.name, "library": lib.name,
+        sys.exit(f"no mode-3 {name} in {lib}")
+    print(json.dumps({"tag": args.tag or root.name, "kernel": args.kernel,
+                      "library": lib.name,
                       "instructions": len(instrs),
                       "integer": sum(op in INT_OPS for _, op, _ in instrs),
                       "loops": loops(instrs)}), flush=True)

@@ -54,7 +54,8 @@ WRAPPERS = (("hop_chain", "fused_hop_chain"), ("qmatvec", "quantized_matvec"),
             ("attention_read", "fused_read"),
             ("hamming", "hamming_score_kernel"),
             ("hamming_bwd", "hamming_backward_kernel"),
-            ("qweighted_sum_bwd", "qweighted_sum_backward_kernel"))
+            ("qweighted_sum_bwd", "qweighted_sum_backward_kernel"),
+            ("qweighted_sum_bwd", "weighted_sum_softmax_backward_kernel"))
 
 
 FAMILY = "sweep_fixed family: mode 3 iwl 1, use_pallas, R = 40"
@@ -176,12 +177,14 @@ def main(argv=None):
     mods = {}
     for name, wrapper in WRAPPERS:
         try:
-            mods[wrapper] = importlib.import_module(
-                f"qmann_tpu_torch.ops.cuda.{name}")
+            mod = importlib.import_module(f"qmann_tpu_torch.ops.cuda.{name}")
         except ModuleNotFoundError:   # an older commit without it
-            pass
-    with ThreadPoolExecutor(len(mods)) as pool:
-        list(pool.map(lambda m: m.build(), mods.values()))
+            continue
+        if hasattr(mod, wrapper):     # an older module without it
+            mods[wrapper] = mod
+    sources = list({id(m): m for m in mods.values()}.values())
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda m: m.build(), sources))
 
     def launches():
         return {w: getattr(m, w).launches for w, m in mods.items()}
@@ -200,7 +203,7 @@ def main(argv=None):
                for k, v in _batched_arrays(data.train,
                                            cs.TRAIN_BATCH).items()}
     run = {"tag": args.tag, "root": str(root), "card": cs.card_line(),
-           "kernel_modules": len(mods)}
+           "kernel_modules": len(sources), "wrappers": len(mods)}
     for name, kw in CONFIGS:
         cfg = QmannConfig(verbose=False, **kw)
         base = {k: 4.0 * v for k, v in memn2n.init_params(

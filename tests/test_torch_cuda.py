@@ -20,8 +20,11 @@ another order), two launches bitwise equal.  Weighted sum's quantized
 backward: dc bit-identical; dp bit-identical where every sum is exact
 (``sums_exact``: words of up to 16 bits), else within ``dp_interval``
 (a D-term float32 sum in another order, then the requant); two launches
-bitwise equal.  One SGD step, kernel route against plain route: rtol
-1e-5, atol 1e-6.
+bitwise equal.  Its ds entry (the fused read's weighted-sum and softmax
+backwards), quantized and float: dc bit-identical, ds within ``ds_bound``
+(S, an M-term float32 sum, in another order, plus ``dp_error``), two
+launches bitwise equal.  One SGD step, kernel route against plain route:
+rtol 1e-5, atol 1e-6.
 """
 import numpy as np
 import pytest
@@ -451,6 +454,71 @@ def test_qweighted_sum_backward_kernel_folds_a_family(cuda, B):
                                   g.reshape(40, B, 60), fmt)
 
 
+def _assert_ds_entry_matches(c, p, mask, g, fmt, quantized, cotangents):
+    """The ds entry against its plain version on the card: one launch
+    counted per call, dc bit for bit, ds within ds_bound, the second launch
+    bitwise equal to the first."""
+    dp_in, ds_in = (torch.randn(p.shape, device=p.device) if on else None
+                    for on in cotangents)
+    args = (c, p, mask, g, dp_in, ds_in, fmt, quantized)
+    kernel = wsb.weighted_sum_softmax_backward_kernel
+    before = kernel.launches
+    dc, ds = kernel(*args)
+    again = kernel(*args)
+    want_dc, want_ds = wsb.weighted_sum_softmax_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert dc.shape == c.shape and ds.shape == p.shape
+    assert torch.equal(dc.view(torch.int32), want_dc.view(torch.int32))
+    _, dp = qweighted_sum_backward(c, p, mask, g, fmt,
+                                   grad_quantized=quantized)
+    if dp_in is not None:
+        dp = dp + dp_in
+    bound = wsb.ds_bound(p, dp, wsb.dp_error(c, mask, g, fmt, quantized,
+                                             dp_in), ds_in)
+    assert bool(((ds.double() - want_ds.double()).abs() <= bound).all())
+    for a, b in zip(again, (dc, ds)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cotangents", [(False, False), (True, True)])
+@pytest.mark.parametrize("fmt", WSUM_FORMATS + [None])
+@pytest.mark.parametrize("B,M,D", [(32, 10, 60), (1024, 10, 60),
+                                   (32, 50, 60), (1, 1, 1), (7, 64, 256),
+                                   (5, 33, 130), (9, 3, 7)])
+def test_weighted_sum_softmax_backward_kernel_matches_plain(cuda, B, M, D,
+                                                            fmt, cotangents):
+    """The ds entry at the training, eval-chunk and wide shapes, the
+    limits, two column groups a lane (D=130) and the scalar instance
+    (D=7), at every format of the dp entry's tests (quantized) and in the
+    float instance (fmt None: unit-range inputs), with and without the
+    cotangents of p and the scores."""
+    quantized = fmt is not None
+    c, p, mask, g = (torch.from_numpy(a).to(cuda) for a in wsum_inputs(
+        fmt if quantized else QFormat(0, 7), B, M, D))
+    if not quantized:
+        c = c.clamp(-4.0, 4.0)
+    _assert_ds_entry_matches(c, p, mask, g, fmt or QFormat(5, 2), quantized,
+                             cotangents)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,B,quantized", [(40, 32, True), (40, 128, True),
+                                           (200, 32, False)])
+def test_weighted_sum_softmax_backward_kernel_folds_a_family(cuda, R, B,
+                                                             quantized):
+    """The mode-3 family's [40, B, 50, 60] (quantized) and the R = 200
+    family's [200, 32, 50, 60] (float), folded by the wrapper."""
+    fmt = QFormat(1, 6) if quantized else QFormat(0, 7)
+    c, p, mask, g = (torch.from_numpy(a).to(cuda)
+                     for a in wsum_inputs(fmt, R * B, 50, 60, seed=B))
+    _assert_ds_entry_matches(c.reshape(R, B, 50, 60).clamp(-4.0, 4.0),
+                             p.reshape(R, B, 50), mask.reshape(R, B, 50),
+                             g.reshape(R, B, 60), fmt, quantized,
+                             (False, False))
+
+
 @pytest.mark.cuda
 def test_qweighted_sum_backward_kernel_rejects_what_it_cannot_take(cuda):
     c = torch.zeros((4, 6, 8), device=cuda)
@@ -516,9 +584,9 @@ def test_chain_kernel_mode3_matches_plain(cuda, V, M, W, kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra,launches", [
-    ({"use_pallas": True}, (10, 3, 0, 3, 3)),
-    ({"use_pallas_hamming": True}, (0, 0, 3, 3, 3)),
-    ({"use_pallas": True, "en_grad_quant": True}, (10, 0, 3, 3, 3))])
+    ({"use_pallas": True}, (10, 3, 0, 3, 0, 3)),
+    ({"use_pallas_hamming": True}, (0, 0, 3, 3, 3, 0)),
+    ({"use_pallas": True, "en_grad_quant": True}, (10, 0, 3, 3, 3, 0))])
 def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
                                                           launches):
     """One SGD step at iwl 1, mode 3, on a partial batch: the kernel routes
@@ -541,11 +609,12 @@ def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
         params = {k: v.clone() for k, v in base.items()}
         counters = (qmv.quantized_matvec, ar.fused_read,
                     ham.hamming_score_kernel, hbwd.hamming_backward_kernel,
-                    wsb.qweighted_sum_backward_kernel)
+                    wsb.qweighted_sum_backward_kernel,
+                    wsb.weighted_sum_softmax_backward_kernel)
         before = [f.launches for f in counters]
         cost, _ = train_step(params, batch, lr, route)
         launched = tuple(f.launches - b for f, b in zip(counters, before))
-        assert launched == (launches if route is not cfg else (0,) * 5)
+        assert launched == (launches if route is not cfg else (0,) * 6)
         assert torch.isfinite(cost)
         after.append(params)
     for k in base:

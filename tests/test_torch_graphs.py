@@ -290,7 +290,7 @@ def test_launch_accounting_on_a_stub_capture():
     with graphs.launches_taken_back(delta):
         qmv.quantized_matvec.launches += 10
         graphs._counters()[1].launches += 3    # the read's count
-    assert delta == [10, 3, 0, 0, 0, 0]     # graphs.COUNTED: six wrappers
+    assert delta == [10, 3, 0, 0, 0, 0, 0]  # graphs.COUNTED: seven wrappers
     assert graphs.launch_counts() == start
     stub = _StubGraph()
     g = graphs.Graph(("family_step",), stub, (), None, delta)
@@ -314,30 +314,38 @@ def test_launch_accounting_on_a_stub_capture():
     real.launches, graphs._counters()[1].launches = start[:2]
 
 
-WSUM_ROUTES = {"use_pallas": (dict(use_pallas=True), 3),
-               "use_pallas_hamming": (dict(use_pallas_hamming=True), 3),
-               "plain": (dict(), 0)}
+# route: (config, launches of the dp entry, launches of the ds entry)
+WSUM_ROUTES = {"use_pallas": (dict(use_pallas=True), 0, 3),
+               "use_pallas_hamming": (dict(use_pallas_hamming=True), 3, 0),
+               "plain": (dict(), 0, 0)}
 
 
 @pytest.mark.parametrize("route", WSUM_ROUTES)
 def test_launch_accounting_of_the_wsum_backward(monkeypatch, route):
-    """The weighted sum's quantized backward kernel is graphs.COUNTED's
-    sixth wrapper: a captured mode-3 step (here an eager CPU step, with a
-    spy that counts each call of the wrapper as its launch) gains 3 on the
-    kernel routes, taken back after the capture and added again by every
-    replay, and none on the plain route."""
+    """The weighted sum's backward kernel's two entries are graphs.COUNTED's
+    sixth (dp) and seventh (ds) wrappers: a captured mode-3 step (here an
+    eager CPU step, with spies that count each call of an entry as its
+    launch) gains 3 on its route's entry (the fused read's ds entry on
+    use_pallas, the unfused hop's dp entry on use_pallas_hamming), taken
+    back after the capture and added again by every replay, and none on
+    the plain route."""
     from qmann_tpu_torch.ops import fused
     from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
-    real = wsb.qweighted_sum_backward_kernel
 
-    def spy(*args):
-        spy.launches += 1
-        return real(*args)
+    def counting(real):
+        def spy(*args):
+            spy.launches += 1
+            return real(*args)
+        spy.launches = 0
+        return spy
 
-    spy.launches = 0
-    monkeypatch.setattr(wsb, "qweighted_sum_backward_kernel", spy)
-    monkeypatch.setattr(fused, "qweighted_sum_backward_kernel", spy)
-    extra, want = WSUM_ROUTES[route]
+    dp_spy = counting(wsb.qweighted_sum_backward_kernel)
+    ds_spy = counting(wsb.weighted_sum_softmax_backward_kernel)
+    monkeypatch.setattr(wsb, "qweighted_sum_backward_kernel", dp_spy)
+    monkeypatch.setattr(wsb, "weighted_sum_softmax_backward_kernel", ds_spy)
+    monkeypatch.setattr(fused, "weighted_sum_softmax_backward_kernel",
+                        ds_spy)
+    extra, want_dp, want_ds = WSUM_ROUTES[route]
     cfg = QmannConfig(dim_emb=8, attention_mode=3, iwl=1, verbose=False,
                       **extra)
     data, batches = _epoch_batches(5, n_batches=1)
@@ -349,13 +357,14 @@ def test_launch_accounting_of_the_wsum_backward(monkeypatch, route):
     delta = []
     with graphs.launches_taken_back(delta):
         trainer.train_step(params, batch, torch.tensor(0.3), cfg)
-    assert delta[-1] == want and graphs.launch_counts() == start
+    assert delta[-2:] == [want_dp, want_ds]
+    assert graphs.launch_counts() == start
     g = graphs.Graph(("step",), _StubGraph(), (), None, delta)
     for _ in range(2):
         g.replay()
     assert graphs.launch_counts() == tuple(s + 2 * d
                                            for s, d in zip(start, delta))
-    assert spy.launches == 2 * want
+    assert (dp_spy.launches, ds_spy.launches) == (2 * want_dp, 2 * want_ds)
     for fn, s in zip(graphs._counters(), start):
         fn.launches = s
 
