@@ -1,0 +1,6 @@
+"""The device's idle share of the traced window: 1 - busy / window."""
+from benchmark.metrics_common import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
