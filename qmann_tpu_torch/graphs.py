@@ -44,6 +44,13 @@ again at every replay: the counts stay those of the kernels the card ran.
 
 The sync debug mode is process-wide: while a warm-up runs, a host sync on
 another thread raises too.
+
+While a ``torch.profiler`` session records, each call on the card leaves
+one of the spans ``graphs.warm_up``, ``graphs.capture`` (then
+``graphs.replay`` of the new graph) or ``graphs.replay`` (the inputs'
+``copy_``, the replay and its launch accounting), each with the key's
+first item (``train_step``, ``evaluate``, ``infer``, ...) as its argument
+(``utils/profiling.py::annotate``).
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from typing import Callable, Dict, Hashable, List, Sequence, Tuple
 import torch
 
 from qmann_tpu_torch.config import QmannConfig
+from qmann_tpu_torch.utils.profiling import annotate
 
 # where each kernel wrapper keeps its launch count: (module, name)
 COUNTED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec"),
@@ -178,14 +186,19 @@ class Graphs:
         if graph is None:
             if full not in self._warm:
                 self._warm.add(full)
-                return self._warm_up(body, inputs)
-            graph = self.graphs[full] = self._capture(full, body, inputs,
-                                                      bound)
+                with annotate("graphs.warm_up", key[0]):
+                    return self._warm_up(body, inputs)
+            with annotate("graphs.capture", key[0]):
+                graph = self.graphs[full] = self._capture(full, body, inputs,
+                                                          bound)
+            with annotate("graphs.replay", key[0]):
+                graph.replay()
         else:
-            for buf, t in zip(graph.inputs, inputs):
-                if buf is not t:
-                    buf.copy_(t)
-        graph.replay()
+            with annotate("graphs.replay", key[0]):
+                for buf, t in zip(graph.inputs, inputs):
+                    if buf is not t:
+                        buf.copy_(t)
+                graph.replay()
         return _clone(graph.outputs)
 
     def _side_stream(self) -> torch.cuda.Stream:

@@ -45,6 +45,17 @@ it while no wave comes, so that the followers' wait for the next wave is
 never the one that times out.  The sharded forward's own collectives run
 on the mesh's groups, with the timeout ``make_mesh`` gave them.  A mesh
 wave runs eagerly: no graph spans ranks.
+
+While a ``torch.profiler`` session records, the engine's thread leaves
+spans (``utils/profiling.py::annotate``): ``engine.idle`` (waiting for a
+wave's first request), ``engine.fill`` (from that request until the wave
+closes) and ``engine.wave`` (from the close until the wave's last future
+is resolved), the wave's with the children ``engine.vectorize``,
+``engine.upload`` (the host-to-device copies), ``engine.replay`` (the
+graph, or the eager or mesh forward), ``engine.readback`` (the copy to the
+host, which waits for the device) and ``engine.resolve`` (the futures'
+results and callbacks).  A request submitted then is stamped, and its wait
+from ``submit`` to its wave's close is kept as ``engine.queue_wait_s``.
 """
 from __future__ import annotations
 
@@ -66,6 +77,7 @@ from qmann_tpu_torch.graphs import Graphs, without_fast_path
 from qmann_tpu_torch.models import memn2n
 from qmann_tpu_torch.ops import argmax_last
 from qmann_tpu_torch.serve.packet import IndexedSample
+from qmann_tpu_torch.utils.profiling import annotate, observe, stamp
 
 # the bound on each collective of a mesh engine's waves
 MESH_TIMEOUT = datetime.timedelta(seconds=60)
@@ -83,11 +95,14 @@ class Request:
     te_indices: Optional[List[int]] = None
     future: "Future[int]" = dataclasses.field(default_factory=Future)
     indexed: bool = False   # sentences and question hold dictionary indices
+    # when it was submitted, while a profiler records (profiling.stamp)
+    queued_at: Optional[float] = None
 
 
 @dataclasses.dataclass
 class EngineStats:
-    """Per-engine wave counters (bench/engine_bench.py reads these)."""
+    """Per-engine wave counters, always on (bench/engine_bench.py and the
+    benchmark's engine cell read these)."""
     waves: int = 0
     requests: int = 0
     vectorize_s: float = 0.0   # host BoW vectorization inside the dispatcher
@@ -168,6 +183,7 @@ class InferenceEngine:
                                f"{self.mesh.rank if self.mesh else 0})")
 
     def _enqueue(self, req: Request) -> "Future[int]":
+        req.queued_at = stamp()
         with self._lock:
             if self.error is not None:
                 req.future.set_exception(self.error)
@@ -241,16 +257,27 @@ class InferenceEngine:
               mask: np.ndarray) -> np.ndarray:
         """One wave: vectorized batch -> predicted dictionary indices."""
         dev = self.device
-        batch = (torch.from_numpy(mem).to(dev), torch.from_numpy(que).to(dev),
-                 torch.from_numpy(mask).to(dev))
+        with annotate("engine.upload"):
+            batch = (torch.from_numpy(mem).to(dev),
+                     torch.from_numpy(que).to(dev),
+                     torch.from_numpy(mask).to(dev))
         if self.mesh is not None:
             if self._multi:
                 batch = self._broadcast_wave(batch)[1]
-            return self._wave_on_mesh(lambda: self._infer_sharded(
-                *batch).cpu().numpy())
-        pred = self._graphs(("infer", self._graph_cfg), self._predict, *batch,
-                            bound=self._bound)
-        return pred.cpu().numpy()
+            return self._wave_on_mesh(lambda: self._read(
+                self._infer_sharded, batch))
+        return self._read(lambda *b: self._graphs(
+            ("infer", self._graph_cfg), self._predict, *b,
+            bound=self._bound), batch)
+
+    @staticmethod
+    def _read(forward, batch) -> np.ndarray:
+        """The wave's forward on the device, then its predictions on the
+        host."""
+        with annotate("engine.replay"):
+            pred = forward(*batch)
+        with annotate("engine.readback"):
+            return pred.cpu().numpy()
 
     def _predict(self, mem, que, mask) -> torch.Tensor:
         """The wave's program: the forward and argmax_last, on the
@@ -358,7 +385,8 @@ class InferenceEngine:
     def _loop(self):
         while self._running:
             try:
-                first = self._queue.get(timeout=0.1)
+                with annotate("engine.idle"):
+                    first = self._queue.get(timeout=0.1)
             except queue.Empty:
                 if (self._multi
                         and time.monotonic() - self._last_head > self._idle_s):
@@ -370,38 +398,60 @@ class InferenceEngine:
                 continue
             if first is None:
                 break
-            wave = [first]
-            # continuous batching: drain whatever arrived, up to the wave
-            deadline_passed = False
-            while len(wave) < self.batch_size and not deadline_passed:
-                try:
-                    nxt = self._queue.get(timeout=self.max_wait)
-                    if nxt is None:
-                        deadline_passed = True
-                        self._running = False
-                    else:
-                        wave.append(nxt)
-                except queue.Empty:
-                    deadline_passed = True
-            try:
-                t0 = time.perf_counter()
-                mem, que, mask = self._vectorize(wave)
-            except Exception as exc:  # fail the wave, keep serving
-                self._fail_wave(wave, exc)
-                continue
-            try:
-                t1 = time.perf_counter()
-                preds = self.infer(mem, que, mask)
-                t2 = time.perf_counter()
-                self.stats.waves += 1
-                self.stats.requests += len(wave)
-                self.stats.vectorize_s += t1 - t0
-                self.stats.infer_s += t2 - t1
-            except Exception as exc:
-                self._fail_wave(wave, exc)
-                if self._multi:   # broadcast: every rank's loop ends
-                    self._close(exc)
+            with annotate("engine.fill"):
+                wave = self._fill(first)
+            closed = stamp()
+            if closed is not None:
+                for r in wave:
+                    if r.queued_at is not None:
+                        observe("engine.queue_wait_s", closed - r.queued_at)
+            with annotate("engine.wave", self.stats.waves):
+                if not self._run_wave(wave):
                     break
-                continue          # fail the wave, keep serving
+
+    def _fill(self, first: Request) -> List[Request]:
+        """Continuous batching: the wave from its first request, draining
+        whatever arrives up to the wave's size while no gap between
+        arrivals exceeds ``max_wait`` (the end ends the wave, and the
+        loop after it)."""
+        wave = [first]
+        while len(wave) < self.batch_size:
+            try:
+                nxt = self._queue.get(timeout=self.max_wait)
+            except queue.Empty:
+                break
+            if nxt is None:
+                self._running = False
+                break
+            wave.append(nxt)
+        return wave
+
+    def _run_wave(self, wave: List[Request]) -> bool:
+        """Vectorize, infer and resolve one wave; a failed wave fails its
+        futures.  False when the loop must end (a failed wave on a mesh of
+        more than one rank)."""
+        try:
+            t0 = time.perf_counter()
+            with annotate("engine.vectorize"):
+                mem, que, mask = self._vectorize(wave)
+        except Exception as exc:  # fail the wave, keep serving
+            self._fail_wave(wave, exc)
+            return True
+        try:
+            t1 = time.perf_counter()
+            preds = self.infer(mem, que, mask)
+            t2 = time.perf_counter()
+            self.stats.waves += 1
+            self.stats.requests += len(wave)
+            self.stats.vectorize_s += t1 - t0
+            self.stats.infer_s += t2 - t1
+        except Exception as exc:
+            self._fail_wave(wave, exc)
+            if self._multi:   # broadcast: every rank's loop ends
+                self._close(exc)
+                return False
+            return True       # fail the wave, keep serving
+        with annotate("engine.resolve"):
             for bi, r in enumerate(wave):
                 r.future.set_result(int(preds[bi]))
+        return True

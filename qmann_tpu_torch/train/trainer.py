@@ -48,6 +48,7 @@ from qmann_tpu_torch.ops.losses import cross_entropy
 from qmann_tpu_torch.train.optim import (lr_schedule, sgd_update,
                                          zero_null_columns)
 from qmann_tpu_torch.utils.analysis import SimilarityAnalyzer
+from qmann_tpu_torch.utils.profiling import annotate
 
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, torch.Tensor]
@@ -234,7 +235,11 @@ def eval_split(params: Params, split: VectorizedSplit, cfg: QmannConfig,
     mesh: every rank calls this alike, with params whole on its device; a
     chunk's batch goes over "data" and its memory over "model" as
     ``parallel.sharding.infer_specs`` places them, and every rank returns
-    the whole split's results (eagerly: no graph spans ranks)."""
+    the whole split's results (eagerly: no graph spans ranks).
+
+    While a profiler records, each chunk's padding and copy to the device
+    is the span ``eval.upload`` and the host reads after the last chunk
+    are ``eval.read`` (``utils/profiling.py::annotate``)."""
     n = len(split)
     costs, matches, preds = [], [], []
     if mesh is None:
@@ -242,31 +247,39 @@ def eval_split(params: Params, split: VectorizedSplit, cfg: QmannConfig,
         graphs = Graphs(dev) if graphs is None else graphs
         cfg_g = without_fast_path(cfg)
 
-        def run(*arrays):
+        def upload(a):
+            return torch.from_numpy(a).to(dev)
+
+        def run(*batch):
             return graphs(("evaluate", cfg_g), lambda *t: evaluate(
-                params, *t, cfg_g), *(torch.from_numpy(a).to(dev)
-                                      for a in arrays),
-                bound=list(params.values()))
+                params, *t, cfg_g), *batch, bound=list(params.values()))
     else:
         from qmann_tpu_torch.parallel.sharding import sharded_evaluate
+
+        def upload(a):
+            return a
 
         def run(*arrays):
             return sharded_evaluate(params, *arrays, cfg, mesh)
 
     for s in range(0, n, chunk):
         e = min(s + chunk, n)
-        c, m, p = run(*(_pad_to(x[s:e], chunk) for x in (
-            split.memory, split.question, split.answer, split.mask)))
+        with annotate("eval.upload"):
+            batch = [upload(_pad_to(x[s:e], chunk)) for x in (
+                split.memory, split.question, split.answer, split.mask)]
+        c, m, p = run(*batch)
         costs.append(c)
         matches.append(m)
         preds.append(p[:e - s])
     if not costs:
         return 0.0, 1.0, np.zeros(0, np.int64)
-    # the chunk costs added in float64, in chunk order, as the JAX
-    # package adds its Python floats (cost_valid feeds the best-model test)
-    cost = sum(torch.stack(costs).tolist())
-    err = 1.0 - int(torch.stack(matches).sum()) / max(n, 1)
-    return cost, err, torch.cat(preds).cpu().numpy()
+    with annotate("eval.read"):
+        # the chunk costs added in float64, in chunk order, as the JAX
+        # package adds its Python floats (cost_valid feeds the best-model
+        # test)
+        cost = sum(torch.stack(costs).tolist())
+        err = 1.0 - int(torch.stack(matches).sum()) / max(n, 1)
+        return cost, err, torch.cat(preds).cpu().numpy()
 
 
 @torch.no_grad()
