@@ -475,6 +475,17 @@ def qmatvec_bound(w, x):
     return _bound(_nbytes(w, x) + 4 * R * B * O, ops)
 
 
+def qmatvec_nnz_bound(w, x):
+    """qmatvec_bound on the products the inputs need: a multiply, a requant
+    and an add per nonzero entry of x and output, as the whole-row kernel
+    forms them (the same bytes)."""
+    (B, I), O = x.shape[-2:], w.shape[-2]
+    R = w.shape[0] if w.dim() == 3 else 1
+    nnz = int((x != 0).sum())
+    ops = R * Q_OPS * (O * I + B * I + B * O) + nnz * O * (2 + Q_OPS)
+    return _bound(_nbytes(w, x) + 4 * R * B * O, ops)
+
+
 def ham_score_ops(B, M, D, num_bit):
     """(float, integer, popcount-pipe) operations of one Hamming score
     (module docstring): the encodes of m and u; per element pair the
@@ -1418,7 +1429,9 @@ def record_calls(module, name, key, calls):
                                      for a in args))
         return wrapper(*args)
 
-    spy.launches = 0
+    for count in ("launches", "sparse_launches"):   # those the wrapper keeps
+        if hasattr(wrapper, count):
+            setattr(spy, count, 0)
     setattr(module, name, spy)
     return spy, lambda: setattr(module, name, wrapper)
 
@@ -1944,7 +1957,8 @@ GRAPH_ENGINE_REQUESTS, GRAPH_WAVE = 200, 64
 KERNEL_KEYS = ("qmatvec", "attention_read", "hamming_score", "hop_chain",
                "hamming_backward",
                "qweighted_sum_backward",
-               "weighted_sum_softmax_backward")   # graphs.COUNTED's order
+               "weighted_sum_softmax_backward",
+               "qmatvec_sparse")   # graphs.COUNTED's order
 
 
 def event_ms(fn):
@@ -2078,6 +2092,11 @@ def phase_graphs(card, dev, data, serve_dims, dictionary, family):
             fail(f"a graphed step did not launch the surrogate backward "
                  f"once per mode-3 hop and the weighted-sum backward once "
                  f"per hop ({name})")
+        # every lattice launch of a step takes the zero-skipping route
+        # (no binary format)
+        if per_replay["qmatvec_sparse"] != per_replay["qmatvec"]:
+            fail(f"a graphed step's lattice launches did not all skip the "
+                 f"zero entries of Q(x) ({name})")
         same_values(name, "parameters after 2 epochs", p_g, p_e)
         same_values(name, "epoch costs", torch.stack(cost_g),
                     torch.stack(cost_e))
@@ -2222,6 +2241,10 @@ def phase_graphs(card, dev, data, serve_dims, dictionary, family):
             multi.multi_epoch, multi._runner = real_epoch, real_runner
         if side == "graphed":
             record("family", ran(before))
+            if launches["qmatvec_sparse"]["family"] != launches["qmatvec"][
+                    "family"]:
+                fail("the graphed family's lattice launches did not all "
+                     "skip the zero entries of Q(x)")
     same_values(f"family R={stacked['A'].shape[0]}", "parameters after "
                 f"{cfg16.num_itr} epochs", res["graphed"].params,
                 res["eager"].params)
@@ -3357,7 +3380,7 @@ def main():
         seen_i.add(int(x.shape[-1]))
         return qmv_kernel(w, x, fmt_w, fmt_x)
 
-    qmv_spy.launches = qmv_kernel.launches = 0
+    qmv_spy.launches = qmv_spy.sparse_launches = qmv_kernel.launches = 0
     ar.fused_read.launches = 0
     qmv.quantized_matvec = qmv_spy
     t0 = time.perf_counter()
@@ -3847,11 +3870,16 @@ def main():
                    "read eval": (lambda: ar.fused_read(*read_ev16),
                                  lambda: ar.fused_read_reference(
                                      *read_ev16), 20, 5, 7)}.items()}
-    b16 = {"family": qmatvec_bound(*fam_args[:2]),
-           "family eval": qmatvec_bound(*ev_args[:2]),
-           "wide": qmatvec_bound(*wide_args[:2]),
+    # the lattice's bound on the products its inputs need, which is what
+    # the kernel forms; the dense lattice's beside it
+    b16 = {"family": qmatvec_nnz_bound(*fam_args[:2]),
+           "family eval": qmatvec_nnz_bound(*ev_args[:2]),
+           "wide": qmatvec_nnz_bound(*wide_args[:2]),
            "read": attention_read_bound(*read16[:4]),
            "read eval": attention_read_bound(*read_ev16[:4])}
+    b16_dense = {"family": qmatvec_bound(*fam_args[:2]),
+                 "family eval": qmatvec_bound(*ev_args[:2]),
+                 "wide": qmatvec_bound(*wide_args[:2])}
     for name, desc in (
             ("family", f"lattice R={R16} x {rows16.shape[1]} rows, "
                        f"I={dims16.dim_input}"),
@@ -3865,9 +3893,12 @@ def main():
         dev_txt = ("not measured (the profiler kept no record)"
                    if t_dev is None else
                    f"{t_dev:.4f} ms, {b[0] / t_dev:.1%} of the bound")
+        dense = b16_dense.get(name)
+        dense_txt = ("" if dense is None else
+                     f"; the dense lattice's {dense[0]:.4f} ms ({dense[1]})")
         print(f"[16 family] {card} | {desc}: kernel {t_k:.4f} ms (device "
               f"{dev_txt}), plain {t_p:.4f} ms, bound {b[0]:.4f} ms "
-              f"({b[1]})", flush=True)
+              f"({b[1]}){dense_txt}", flush=True)
 
     # (f) the sweep_fixed.sh family: mode 3 at iwl 1, 20 tasks x 2 seeds,
     # 1 epoch, on the mode-3 read and on the Hamming kernel
@@ -4145,18 +4176,22 @@ def main():
                     "ms": t16["family"][0], "plain_ms": t16["family"][1],
                     "device_ms": t16["family"][2],
                     "bound_ms": b16["family"][0],
-                    "bound_by": b16["family"][1], "library_ms": None,
+                    "bound_by": b16["family"][1],
+                    "dense_bound_ms": b16_dense["family"][0],
+                    "library_ms": None,
                     "eval": {"rows": int(rows_ev16.shape[1]),
                              "max_abs_err": ev_err,
                              "ms": t16["family eval"][0],
                              "plain_ms": t16["family eval"][1],
                              "device_ms": t16["family eval"][2],
                              "bound_ms": b16["family eval"][0],
-                             "bound_by": b16["family eval"][1]}},
+                             "bound_by": b16["family eval"][1],
+                             "dense_bound_ms": b16_dense["family eval"][0]}},
          "wide": {"rows": int(wide_args[1].shape[0]),
                   "dim_input": dims16.dim_input, "ms": t16["wide"][0],
                   "plain_ms": t16["wide"][1], "device_ms": t16["wide"][2],
-                  "bound_ms": b16["wide"][0], "bound_by": b16["wide"][1]},
+                  "bound_ms": b16["wide"][0], "bound_by": b16["wide"][1],
+                  "dense_bound_ms": b16_dense["wide"][0]},
          **{name: {"rows": int(a[1].shape[0]),
                    "dim_input": int(a[1].shape[1]), "ms": t_tiled[name][0],
                    "plain_ms": t_tiled[name][1],
@@ -4292,6 +4327,8 @@ def main():
         entry["mesh"] = {"added_in": 10, **mesh18[entry["name"]]}
         entry["graphs"] = {"added_in": 11,
                            "launches": graphs19[entry["name"]]}
+        if entry["name"] == "qmatvec":
+            entry["graphs"]["sparse_launches"] = graphs19["qmatvec_sparse"]
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

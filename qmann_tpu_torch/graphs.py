@@ -38,9 +38,11 @@ a run's persistent buffers.
 
 Launch accounting.  Each kernel wrapper (``ops/cuda/*.py``) adds one to its
 ``.launches`` where it launches its kernel, on the name in its own module.
-A capture runs the wrappers but executes no kernel, so ``Graphs`` takes
-back what the counts gained during the capture and a ``Graph`` adds that
-again at every replay: the counts stay those of the kernels the card ran.
+The lattice's wrapper also counts, in ``.sparse_launches``, the launches
+that skip the zero entries of Q(x).  A capture runs the wrappers but
+executes no kernel, so ``Graphs`` takes back what the counts gained during
+the capture and a ``Graph`` adds that again at every replay: the counts
+stay those of the kernels the card ran.
 
 The sync debug mode is process-wide: while a warm-up runs, a host sync on
 another thread raises too.
@@ -63,17 +65,25 @@ import torch
 from qmann_tpu_torch.config import QmannConfig
 from qmann_tpu_torch.utils.profiling import annotate
 
-# where each kernel wrapper keeps its launch count: (module, name)
-COUNTED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec"),
-           ("qmann_tpu_torch.ops.cuda.attention_read", "fused_read"),
-           ("qmann_tpu_torch.ops.cuda.hamming", "hamming_score_kernel"),
-           ("qmann_tpu_torch.ops.cuda.hop_chain", "fused_hop_chain"),
+# where each kernel wrapper keeps its launch counts: (module, name, count);
+# the last, the lattice's launches that skip the zero entries of Q(x),
+# comes after the seven wrappers' launches so that their indices hold
+COUNTED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
+            "launches"),
+           ("qmann_tpu_torch.ops.cuda.attention_read", "fused_read",
+            "launches"),
+           ("qmann_tpu_torch.ops.cuda.hamming", "hamming_score_kernel",
+            "launches"),
+           ("qmann_tpu_torch.ops.cuda.hop_chain", "fused_hop_chain",
+            "launches"),
            ("qmann_tpu_torch.ops.cuda.hamming_bwd",
-            "hamming_backward_kernel"),
+            "hamming_backward_kernel", "launches"),
            ("qmann_tpu_torch.ops.cuda.qweighted_sum_bwd",
-            "qweighted_sum_backward_kernel"),
+            "qweighted_sum_backward_kernel", "launches"),
            ("qmann_tpu_torch.ops.cuda.qweighted_sum_bwd",
-            "weighted_sum_softmax_backward_kernel"))
+            "weighted_sum_softmax_backward_kernel", "launches"),
+           ("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
+            "sparse_launches"))
 
 
 def without_fast_path(cfg: QmannConfig) -> QmannConfig:
@@ -85,15 +95,21 @@ def without_fast_path(cfg: QmannConfig) -> QmannConfig:
             if cfg.en_integer_fast_path else cfg)
 
 
-def _counters() -> List[Callable]:
-    """The objects whose ``.launches`` the wrappers count on now."""
+def _counters() -> List[Tuple[Callable, str]]:
+    """(object, count) of each of ``COUNTED``, on the objects the wrappers'
+    module names hold now."""
     import qmann_tpu_torch.ops.cuda  # noqa: F401  (loads the six modules)
-    return [getattr(sys.modules[m], n) for m, n in COUNTED]
+    return [(getattr(sys.modules[m], n), a) for m, n, a in COUNTED]
 
 
 def launch_counts() -> Tuple[int, ...]:
-    """The seven wrappers' launch counts, in ``COUNTED``'s order."""
-    return tuple(fn.launches for fn in _counters())
+    """The wrappers' counts, in ``COUNTED``'s order."""
+    return tuple(getattr(fn, a) for fn, a in _counters())
+
+
+def _add_launches(delta: Sequence[int]) -> None:
+    for (fn, a), d in zip(_counters(), delta):
+        setattr(fn, a, getattr(fn, a) + d)
 
 
 @contextlib.contextmanager
@@ -105,8 +121,7 @@ def launches_taken_back(delta: List[int]):
         yield delta
     finally:
         delta[:] = [a - b for a, b in zip(launch_counts(), before)]
-        for fn, d in zip(_counters(), delta):
-            fn.launches -= d
+        _add_launches([-d for d in delta])
 
 
 @contextlib.contextmanager
@@ -146,8 +161,7 @@ class Graph:
 
     def replay(self) -> None:
         self.graph.replay()
-        for fn, n in zip(_counters(), self.launches):
-            fn.launches += n
+        _add_launches(self.launches)
         self.replays += 1
 
 

@@ -16,13 +16,15 @@ ctypes.
 ``quantized_matvec_reference``; a CUDA tensor launches the kernel or
 raises (also when fmt_w and fmt_x mix rounding modes: the kernel fixes the
 mode at compile time).  It takes any O, I >= 1: shapes with
-O*I + I <= 12288 run the whole-row kernel, wider ones the kernel tiled over
-I and O.  Both take a family axis: w [R, O, I] against x [R, B, I] gives
-[R, B, O], each run's rows against its own weights, in one launch (the
-family trainer, ``train/multi.py``; JAX's vmap of the TPU kernel).
-``qmatvec_geometry`` gives the launch's rows per block, tiles, blocks and
-shared memory.  ``quantized_matvec.launches`` counts kernel launches (one
-per call).
+O*I + I <= 12288 run the whole-row kernel, which forms only the products
+whose Q(x) entry is nonzero (``skips_zeros``: not for a binary or 31-bit
+format), wider ones the kernel tiled over I and O.  Both take a family
+axis: w [R, O, I] against x [R, B, I] gives [R, B, O], each run's rows
+against its own weights, in one launch (the family trainer,
+``train/multi.py``; JAX's vmap of the TPU kernel).  ``qmatvec_geometry``
+gives the launch's rows per block, tiles, blocks and shared memory.
+``quantized_matvec.launches`` counts kernel launches (one per call),
+``quantized_matvec.sparse_launches`` those that skip the zero entries.
 """
 from __future__ import annotations
 
@@ -38,24 +40,35 @@ from qmann_tpu_torch.ops.cuda import _build
 
 SOURCE = _build.CSRC / "qmatvec.cu"
 
-# the whole-row kernel's operand limit, O*I + I <= 12288 floats, and its
-# shared memory, O*I + rows*I <= 12288 floats (48 KB: csrc/qmatvec.cu,
-# kSmemFloats); 256 threads per block.  Past the limit the tiled kernel
-# takes O in tiles of at most THREADS outputs and I in tiles of at most
-# MAX_I_TILE, with (o_tile + rows) * (i_tile | 1) floats of shared memory
-# (about 20 KB at O=60: 8 blocks of 256 threads stay resident per SM), and
-# keeps up to MAX_OUTPUTS raw sums per thread in registers (kMaxOutputs)
+# the whole-row kernel's operand limit, O*I + I <= 12288 floats
+# (csrc/qmatvec.cu, kSmemFloats); its shared memory is Q(w) transposed, I
+# rows of wq_stride(O, I) floats, a NaN bit per column and each warp's list
+# of the entries it takes (``whole_row_smem_bytes``: past 48 KB only at
+# the widest O*I); 256 threads (WARPS warps) per block, one warp a row of
+# x, taken in pieces of CHUNKS x 32 entries.  Past the limit the tiled
+# kernel takes O in tiles of at most THREADS outputs and I in tiles of at
+# most MAX_I_TILE, with (o_tile + rows) * (i_tile | 1) floats of shared
+# memory (about 20 KB at O=60: 8 blocks of 256 threads stay resident per
+# SM), and keeps up to MAX_OUTPUTS raw sums per thread in registers
+# (kMaxOutputs)
 MAX_SMEM_FLOATS = 12288
 THREADS = 256
+WARPS = THREADS // 32
+CHUNKS = 4            # a warp takes a row in pieces of CHUNKS x 32 entries
 MAX_RUNS = 65535      # the family axis is the grid's z extent
 MAX_I_TILE = 64
 MAX_OUTPUTS = 4
-# geometry, chosen by measurement on the H100 (PERF.md, section 6): a base
-# tile of as many rows as one round of the threads covers, one output each
-# (at most 32 rows); doubled while the grid holds more blocks than the card
-# runs at once (132 SMs x 8 resident blocks of 256 threads), up to
-# MAX_TILES base tiles: w's requant is then paid fewer times
+# the blocks the card runs at once (132 SMs x 8 resident blocks of 256
+# threads).  Whole rows: one row a warp while every run's blocks fit in
+# one wave, else as many blocks a run as one wave holds, the rows shared
+# evenly, but for MAX_ROWS rows a block (the fastest of 96 to 640 at the
+# family's shapes, PERF.md), so that each block pays its run's Q(w) once
+# for many rows.  Tiled: a base tile of as many rows as one round of the
+# threads covers, one output each (at most 32 rows), doubled while the
+# grid holds more blocks than the card runs at once, up to MAX_TILES base
+# tiles
 RESIDENT_BLOCKS = 132 * 8
+MAX_ROWS = 160
 MAX_TILES = 4
 # products per piece of the plain version, which takes its rows in pieces
 # so that a family's lattice (R x B x O x I products) fits in memory
@@ -71,10 +84,10 @@ class QmatvecGeometry(NamedTuple):
 
 
 def _rows(B: int, o_tile: int, o_blocks: int) -> int:
-    """The base tile of rows (one round of the threads over o_tile
-    outputs, at most 32 rows), doubled up to MAX_TILES times while the grid
-    holds more blocks than the card runs at once (o_blocks: the blocks
-    beside each tile of rows, over O and the runs)."""
+    """The tiled kernel's rows: the base tile (one round of the threads
+    over o_tile outputs, at most 32 rows), doubled up to MAX_TILES times
+    while the grid holds more blocks than the card runs at once (o_blocks:
+    the blocks beside each tile of rows, over O and the runs)."""
     base = max(1, min(32, THREADS // o_tile))
     rows = base
     while (rows < MAX_TILES * base
@@ -83,18 +96,37 @@ def _rows(B: int, o_tile: int, o_blocks: int) -> int:
     return rows
 
 
+def wq_stride(O: int, I: int) -> int:
+    """The row stride of the whole-row kernel's staged Q(w)^T: O, made odd
+    where the padded layout fits (csrc/qmatvec.cu, wq_stride)."""
+    odd = I * (O | 1) + -(-I // 32)
+    return O | 1 if odd <= MAX_SMEM_FLOATS else O
+
+
+def whole_row_smem_bytes(O: int, I: int) -> int:
+    """The whole-row kernel's shared memory: Q(w)^T, a NaN bit per column,
+    then (8-byte aligned) each warp's list of the (offset, value) pairs it
+    takes from a piece of CHUNKS x 32 entries of a row."""
+    floats = (I * wq_stride(O, I) + -(-I // 32) + 1) & ~1
+    return 4 * (floats + WARPS * 32 * CHUNKS * 2)
+
+
 @functools.lru_cache(maxsize=None)
 def qmatvec_geometry(B: int, O: int, I: int, R: int = 1) -> QmatvecGeometry:
     """The launch of R runs of B rows: whole rows (o_tile = O, i_tile = I;
     grid ceil(B / rows) x 1 x R) while Q(w) and one row of x fit in shared
-    memory, rows no more than fit beside Q(w); else tiles of O (at most
+    memory, rows a multiple of WARPS, as few as keep the grid within the
+    card's resident blocks but for MAX_ROWS; else tiles of O (at most
     THREADS outputs) and I (at most MAX_I_TILE, and what shared memory
     holds beside the row tile), grid ceil(B / rows) x ceil(O / o_tile) x
     R.  R = 1 is the 2-D call."""
     if O * I + I <= MAX_SMEM_FLOATS:
-        rows = min(_rows(B, O, R), (MAX_SMEM_FLOATS - O * I) // I)
+        warp_rows = -(-B // WARPS)
+        per_run = max(1, min(warp_rows, max(RESIDENT_BLOCKS // R,
+                                            -(-B // MAX_ROWS))))
+        rows = WARPS * -(-warp_rows // per_run)
         return QmatvecGeometry(rows, O, I, -(-B // rows) * R,
-                               4 * (O * I + rows * I))
+                               whole_row_smem_bytes(O, I))
     o_tile = min(O, THREADS)
     o_blocks = -(-O // o_tile)
     rows = _rows(B, o_tile, o_blocks * R)
@@ -102,6 +134,16 @@ def qmatvec_geometry(B: int, O: int, I: int, R: int = 1) -> QmatvecGeometry:
     return QmatvecGeometry(rows, o_tile, i_tile,
                            -(-B // rows) * o_blocks * R,
                            4 * (o_tile + rows) * (i_tile | 1))
+
+
+def skips_zeros(geo: QmatvecGeometry, O: int, I: int, fmt_w: QFormat,
+                fmt_x: QFormat) -> bool:
+    """Whether the launch takes the route that skips the zero entries of
+    Q(x): the whole-row kernel with both formats on the compile-time
+    quantizer (FastQ: non-binary, at most 30 bits, one rounding mode)."""
+    fast = all(not f.is_binary and f.iwl + f.frac <= 30
+               for f in (fmt_w, fmt_x)) and fmt_w.mode == fmt_x.mode
+    return fast and (geo.o_tile, geo.i_tile) == (O, I)
 
 
 def build() -> Tuple[Path, str]:
@@ -187,7 +229,9 @@ def quantized_matvec(w: torch.Tensor, x: torch.Tensor, fmt_w: QFormat,
     if rc != 0:
         raise RuntimeError(f"qmatvec kernel launch failed: CUDA error {rc}")
     quantized_matvec.launches += 1
+    quantized_matvec.sparse_launches += skips_zeros(geo, O, I, fmt_w, fmt_x)
     return out
 
 
 quantized_matvec.launches = 0
+quantized_matvec.sparse_launches = 0

@@ -28,9 +28,15 @@ Groups (--only takes a comma-separated subset; default all):
            busy time and the idle share;
   qmatvec  qmatvec on the A embedding at 320 rows (B=32, M=10), 1600 rows
            (the wide layout, B=32, M=50) and 10240 rows (an evaluation
-           chunk, B=1024); past the whole-row limit, the joint block's
-           (I=256, M=64) at 2048 and 65536 rows and I=1024 at 2048 rows
-           ("refused" where the checkout's kernel does not take them);
+           chunk, B=1024); the question embedding (32 rows of I=19) and a
+           hop's linear map (O=I=60, 32 dense rows); the run.sh family's
+           memory embedding, R=200 runs' weights against 200 x 1600 rows
+           (B=32, M=50, I=114) and an evaluation chunk's 200 x 6400;
+           past the whole-row limit, the joint block's (I=256, M=64) at
+           2048 and 65536 rows and I=1024 at 2048 rows ("refused" where
+           the checkout's kernel does not take them); each with the
+           sha256 of its output's bytes (equal digests: bit-identical
+           outputs across checkouts);
   read     the attention read in modes 1, 2 and 3 (iwl 1) at B=32, B=1024
            and the wide layout (B=32, M=50), on the training forward's
            inputs with 3 padded samples;
@@ -91,6 +97,9 @@ QMV_SHAPES = {"320": (32, 19, 10, 6), "1600": (32, 64, 50, 7),
               # embedding (I = 192 + 64) at B=32 and B=1024, and I=1024
               "2048x256": (32, 192, 64, 7), "65536x256": (1024, 192, 64, 7),
               "2048x1024": (32, 960, 64, 7)}
+# the run.sh family's memory embedding: (runs, stories a run, V, M, W)
+QMV_FAMILY = {"family 200x1600": (200, 32, 64, 50, 7),
+              "family 200x6400": (200, 128, 64, 50, 7)}
 # (B, V, M, W): the read's inputs, as chip_smoke.py phase 6 makes them
 READ_SHAPES = {"B32": (32, 19, 10, 6), "B1024": (1024, 19, 10, 6),
                "wide": (32, 64, 50, 7)}
@@ -279,6 +288,10 @@ def main():
            "hamming": {}, "hamming_bwd": {}, "wsum_bwd": {}, "steps": {},
            "state": {}}
 
+    def digest(t):
+        import hashlib
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
     def times(fn):
         with torch.inference_mode():
             dev_ms = cs.per_launch_ms(cs.device_ms(fn))
@@ -351,7 +364,7 @@ def main():
 
     cfg = QmannConfig(use_pallas=True)
     for key, (B, V, M, W) in QMV_SHAPES.items() if "qmatvec" in groups else ():
-        dims, mem, _, _ = synthetic_batch(rng, B, V, M, W)
+        dims, mem, que_np, _ = synthetic_batch(rng, B, V, M, W)
         params = {k: 4.0 * v for k, v in memn2n.init_params(
             cfg, dims, torch.Generator().manual_seed(cs.SEED),
             device=dev).items()}
@@ -366,6 +379,38 @@ def main():
         if not torch.equal(got, qmv.quantized_matvec_reference(*qargs)):
             cs.fail(f"qmatvec differs from its plain version ({key} rows)")
         out["qmatvec"][key] = times(lambda: qmv.quantized_matvec(*qargs))
+        out["qmatvec"][key]["sha256"] = digest(got)
+        report("qmatvec", key)
+        if key == "320":
+            que = torch.from_numpy(que_np).to(dev)
+            u = float_quant(torch.from_numpy(rng.normal(
+                0.0, 1.5, (B, cfg.dim_emb)).astype(np.float32)).to(dev),
+                cfg.fmt_w[0])
+            for name, small in (("32 question", (params["B"], que)),
+                                ("32 linear map", (params["H"], u))):
+                sargs = small + (cfg.fmt_w[0], cfg.fmt_w[0])
+                got = qmv.quantized_matvec(*sargs)
+                if not torch.equal(got,
+                                   qmv.quantized_matvec_reference(*sargs)):
+                    cs.fail(f"qmatvec differs from its plain version "
+                            f"({name})")
+                out["qmatvec"][name] = {
+                    **times(lambda: qmv.quantized_matvec(*sargs)),
+                    "sha256": digest(got)}
+                report("qmatvec", name)
+    for key, (R, B, V, M, W) in (QMV_FAMILY.items() if "qmatvec" in groups
+                                 else ()):
+        dims, mem, _, _ = synthetic_batch(rng, R * B, V, M, W)
+        w = torch.stack([4.0 * memn2n.init_params(
+            cfg, dims, torch.Generator().manual_seed(cs.SEED + r),
+            device=dev)["A"] for r in range(R)])
+        rows = torch.from_numpy(mem).to(dev).reshape(R, B * M, dims.dim_input)
+        qargs = (w, rows, cfg.fmt_w[0], cfg.fmt_w[0])
+        got = qmv.quantized_matvec(*qargs)
+        if not torch.equal(got, qmv.quantized_matvec_reference(*qargs)):
+            cs.fail(f"qmatvec differs from its plain version ({key})")
+        out["qmatvec"][key] = {**times(lambda: qmv.quantized_matvec(*qargs)),
+                               "sha256": digest(got)}
         report("qmatvec", key)
 
     read_cfgs = {1: cfg, 2: cfg,

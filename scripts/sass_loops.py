@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Count the SASS instructions, and the 32-bit integer ones among them, in
-each loop of the surrogate backward kernel (csrc/hamming_bwd.cu) or of the
-weighted-sum backward kernel (csrc/qweighted_sum_bwd.cu).
+each loop of the surrogate backward kernel (csrc/hamming_bwd.cu), of the
+weighted-sum backward kernel (csrc/qweighted_sum_bwd.cu) or of the
+lattice's whole-row kernel (csrc/qmatvec.cu).
 
     python3 scripts/sass_loops.py [--root DIR] [--tag NAME]
-                                  [--kernel hamming_bwd|wsum_bwd]
+                                  [--kernel hamming_bwd|wsum_bwd|qmatvec]
 
 Builds (or finds) the kernel library with the port's own flags
 (qmann_tpu_torch.ops.cuda._build, imported from DIR, default this
@@ -12,7 +13,10 @@ repository: an older commit unpacked into a gitignored directory is read
 the same way), disassembles it with the CUDA toolkit's `cuobjdump -sass`
 and takes the kernel's instance for rounding mode 3 (truncation); for the
 weighted-sum backward, the FastQ instance with 128-bit accesses and two
-column groups a lane (D=60), or an older commit's one FastQ instance.  A loop
+column groups a lane (D=60), or an older commit's one FastQ instance; for
+the lattice, the instance for rows of one piece (I <= 128, O <= 64: every
+embedding and linear map of the configurations), or an older commit's one
+FastQ instance.  A loop
 is the address range from a backward branch's target to the branch.
 Prints one JSON line: per loop its range, its nesting depth, its
 instructions and its integer instructions (the opcodes in INT_OPS, which
@@ -86,7 +90,9 @@ def loops(instrs):
 KERNELS = {"hamming_bwd": ("hamming_bwd.cu", "hamming_bwd_kernel",
                            ("ILi3E",)),
            "wsum_bwd": ("qweighted_sum_bwd.cu", "wsum_bwd_kernel",
-                        ("5FastQILi3EEELb1EE", "5FastQILi3EEE"))}
+                        ("5FastQILi3EEELb1EE", "5FastQILi3EEE")),
+           "qmatvec": ("qmatvec.cu", "qmatvec_kernel",
+                       ("5FastQILi3EEELb1E", "5FastQILi3EEE"))}
 
 
 def main(argv=None):

@@ -1073,6 +1073,123 @@ def test_family_step_launches_as_one_run(cuda):
                                        atol=1e-6)
 
 
+# the zero-skipping lattice's cases: (R, B) of x, the run.sh family's
+# memory rows (R = 200, fewer rows) and one run's 32 / 320 / 1600 / 10240
+SKIP_SHAPES = [(200, 64), (1, 32), (1, 320), (1, 1600), (1, 10240)]
+SKIP_CASES = ["bow", "dense", "tiny", "negative", "nan_w", "nan_x",
+              "mixed", "binary_w", "binary_x"]
+
+
+def _skip_operands(case, R, B, mode, dev):
+    """(w, x, fmt_w, fmt_x) of one zero-skip case: bag-of-words rows of
+    I = 64 + 50 (6 words and a time bit, every other row dead) against
+    Gaussian weights; "dense" is a hop's linear map (O = I = 60, Gaussian
+    x); "tiny" adds values that Q(x) rounds to zero; "negative" has
+    negative weights and x, so zeros meet them with either sign; "nan_w"
+    a NaN in w on columns where x is zero; "nan_x" a NaN in x; "mixed"
+    Q6.1 x Q2.5; the binary formats map 0 to +1 (no skip)."""
+    rng = np.random.default_rng(SKIP_CASES.index(case) * 64 + B + R + mode)
+    O, I = 60, 114
+    w = rng.normal(0.0, 1.5, (R, O, I)).astype(np.float32)
+    x = np.zeros((R, B, I), np.float32)
+    runs, live = np.arange(R)[:, None], np.arange(0, B, 2)
+    for _ in range(6):
+        np.add.at(x, (runs, live, rng.integers(0, 64, (R, live.size))), 1.0)
+    x[:, live, 64 + live % 50] = 1.0
+    f = QFormat(5, 2, mode)
+    fmt_w = fmt_x = f
+    if case == "dense":
+        w = rng.normal(0.0, 1.5, (R, 60, 60)).astype(np.float32)
+        x = rng.normal(0.0, 1.5, (R, B, 60)).astype(np.float32)
+    elif case == "tiny":
+        x = x + (rng.normal(0.0, 1e-3, x.shape)
+                 * (rng.random(x.shape) < 0.2)).astype(np.float32)
+    elif case == "negative":
+        w, x = -np.abs(w), -x
+    elif case == "nan_w":
+        w[:, 7, 100] = np.nan
+        w[:, 3, 113] = np.nan
+    elif case == "nan_x":
+        x[:, 1 % B, 9] = np.nan
+    elif case == "mixed":
+        fmt_w, fmt_x = QFormat(6, 1, mode), QFormat(2, 5, mode)
+    elif case == "binary_w":
+        fmt_w = QFormat(0, 0, mode)
+    elif case == "binary_x":
+        fmt_x = QFormat(0, 0, mode)
+    w, x = (torch.from_numpy(a).to(dev) for a in (w, x))
+    if R == 1:
+        w, x = w[0], x[0]
+    return w, x, fmt_w, fmt_x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", SKIP_CASES)
+@pytest.mark.parametrize("R,B", SKIP_SHAPES)
+def test_qmatvec_skips_zero_entries_bit_for_bit(cuda, R, B, case,
+                                                quant_mode):
+    """The whole-row kernel skips the entries with Q(x) == +-0 whose column
+    of Q(w) holds no NaN: bit-identical to the plain lattice (int32 views,
+    NaN masks equal) on bag-of-words rows with dead rows, dense rows, tiny
+    x, signed zeros, a NaN in Q(w) where x is zero (NaN, as dense), a NaN
+    in x, mixed formats, every rounding mode; a launch counts in
+    ``sparse_launches`` unless a format is binary (the dense loop)."""
+    w, x, fmt_w, fmt_x = _skip_operands(case, R, B, quant_mode, cuda)
+    before = (qmv.quantized_matvec.launches,
+              qmv.quantized_matvec.sparse_launches)
+    got = qmv.quantized_matvec(w, x, fmt_w, fmt_x)
+    want = qmv.quantized_matvec_reference(w, x, fmt_w, fmt_x)
+    torch.cuda.synchronize()
+    sparse = 0 if case.startswith("binary") else 1
+    assert (qmv.quantized_matvec.launches - before[0],
+            qmv.quantized_matvec.sparse_launches - before[1]) == (1, sparse)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+    if case == "nan_w":
+        assert torch.isnan(got[..., [3, 7]]).all()
+
+
+@pytest.mark.cuda
+def test_graphed_family_step_counts_sparse_launches(cuda):
+    """A family step captured as a graph (R = 6, use_pallas, the lattice's
+    formats non-binary) counts each of its 10 lattice launches in
+    ``sparse_launches`` too, per replay as per eager call."""
+    from qmann_tpu_torch import graphs
+    from qmann_tpu_torch.train import multi
+    cfg = graphs.without_fast_path(QmannConfig(use_pallas=True,
+                                               verbose=False))
+    dims, mem, que, mask = synthetic_batch(np.random.default_rng(0), 32,
+                                           19, 10, 6)
+    R = 6
+    params = {k: torch.stack([4.0 * v for _ in range(R)])
+              for k, v in memn2n.init_params(
+                  cfg, dims, torch.Generator().manual_seed(0),
+                  device=cuda).items()}
+    ans = np.zeros_like(que)
+    ans[np.arange(32), np.arange(32) % 19] = 1.0
+    one = {"memory": mem, "question": que, "answer": ans, "mask": mask,
+           "sample_mask": np.ones(32, np.float32),
+           "size_b": np.float32(32.0)}
+    batch = {k: torch.stack([torch.as_tensor(v).to(cuda)] * R)
+             for k, v in one.items()}
+    lr = torch.tensor(cfg.learning_rate, device=cuda)
+    g = graphs.Graphs(cuda)
+    bound = (*params.values(), *batch.values(), lr)
+    for _ in range(4):      # warm-up, capture and replay, replays
+        before = graphs.launch_counts()
+        g(("family_step",), lambda: multi.family_step(params, batch, lr,
+                                                      cfg), bound=bound)
+        torch.cuda.synchronize()
+        ran = [a - b for a, b in zip(graphs.launch_counts(), before)]
+        assert ran[0] == ran[7] == 10
+    (graph,) = g.graphs.values()
+    assert graph.replays == 3
+    assert graph.launches[0] == graph.launches[7] == 10
+
+
 @pytest.mark.cuda
 def test_packet_server_on_the_card_through_the_chain(cuda):
     """The packet server in front of an engine on the card with

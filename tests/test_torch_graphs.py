@@ -289,8 +289,10 @@ def test_launch_accounting_on_a_stub_capture():
     delta = []
     with graphs.launches_taken_back(delta):
         qmv.quantized_matvec.launches += 10
-        graphs._counters()[1].launches += 3    # the read's count
-    assert delta == [10, 3, 0, 0, 0, 0, 0]  # graphs.COUNTED: seven wrappers
+        qmv.quantized_matvec.sparse_launches += 10
+        graphs._counters()[1][0].launches += 3    # the read's count
+    # graphs.COUNTED: seven wrappers' launches, then the lattice's sparse
+    assert delta == [10, 3, 0, 0, 0, 0, 0, 10]
     assert graphs.launch_counts() == start
     stub = _StubGraph()
     g = graphs.Graph(("family_step",), stub, (), None, delta)
@@ -298,20 +300,21 @@ def test_launch_accounting_on_a_stub_capture():
         g.replay()
     assert stub.replays == g.replays == 4
     assert graphs.launch_counts() == (start[0] + 40, start[1] + 12,
-                                      *start[2:])
+                                      *start[2:7], start[7] + 40)
     real = qmv.quantized_matvec
 
     def spy(*args):
         return real(*args)
 
-    spy.launches = 0
+    spy.launches = spy.sparse_launches = 0
     qmv.quantized_matvec = spy
     try:
         g.replay()
-        assert spy.launches == 10
+        assert spy.launches == spy.sparse_launches == 10
     finally:
         qmv.quantized_matvec = real
-    real.launches, graphs._counters()[1].launches = start[:2]
+    for (fn, count), s in zip(graphs._counters(), start):
+        setattr(fn, count, s)
 
 
 # route: (config, launches of the dp entry, launches of the ds entry)
@@ -357,7 +360,7 @@ def test_launch_accounting_of_the_wsum_backward(monkeypatch, route):
     delta = []
     with graphs.launches_taken_back(delta):
         trainer.train_step(params, batch, torch.tensor(0.3), cfg)
-    assert delta[-2:] == [want_dp, want_ds]
+    assert delta[5:7] == [want_dp, want_ds]
     assert graphs.launch_counts() == start
     g = graphs.Graph(("step",), _StubGraph(), (), None, delta)
     for _ in range(2):
@@ -365,8 +368,8 @@ def test_launch_accounting_of_the_wsum_backward(monkeypatch, route):
     assert graphs.launch_counts() == tuple(s + 2 * d
                                            for s, d in zip(start, delta))
     assert (dp_spy.launches, ds_spy.launches) == (2 * want_dp, 2 * want_ds)
-    for fn, s in zip(graphs._counters(), start):
-        fn.launches = s
+    for (fn, count), s in zip(graphs._counters(), start):
+        setattr(fn, count, s)
 
 
 def test_graphs_run_the_body_eagerly_on_the_cpu():

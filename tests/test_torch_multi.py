@@ -499,27 +499,40 @@ def test_read_and_hamming_geometry_at_the_family_batch(B):
                                      (200, 32, 60, 114), (200, 32, 60, 60),
                                      (40, 2048, 60, 256), (1, 320, 60, 29)])
 def test_qmatvec_geometry_with_a_family_axis(R, B, O, I):
-    """The family's launch: each run's rows follow the 2-D rule with the
-    blocks of all R runs counted against the resident blocks; the grid's
-    z extent is R; R = 1 is the 2-D call's geometry."""
+    """The family's launch: the grid's z extent is R, and the blocks of all
+    R runs are counted against the resident blocks.  Whole rows: each
+    run's rows are shared evenly by as many blocks as one wave holds, or
+    by blocks of about MAX_ROWS rows where those are more (rows a multiple
+    of the warps; one row a warp where they fit), each row taken once; the
+    tiled kernel's rows follow its own rule; R = 1 is the 2-D call's
+    geometry."""
+    from test_torch_qmatvec import _rows_taken
     geo = qmv.qmatvec_geometry(B, O, I, R)
     one = qmv.qmatvec_geometry(B, O, I)
     o_blocks = -(-O // geo.o_tile)
     assert geo.blocks == -(-B // geo.rows_per_block) * o_blocks * R
     assert R <= qmv.MAX_RUNS and geo.smem_bytes <= 48 * 1024
-    assert (geo.o_tile, geo.i_tile) == (one.o_tile, one.i_tile) or R > 1
-    base = max(1, min(32, qmv.THREADS // geo.o_tile))
-    tiles = 1
-    while (tiles < qmv.MAX_TILES and -(-B // (base * tiles)) * o_blocks * R
-           > qmv.RESIDENT_BLOCKS):
-        tiles *= 2
+    assert (geo.o_tile, geo.i_tile) == (one.o_tile, one.i_tile)
     if O * I + I <= qmv.MAX_SMEM_FLOATS:
-        assert geo.rows_per_block == min(base * tiles,
-                                         (qmv.MAX_SMEM_FLOATS - O * I) // I)
+        warp_rows = -(-B // qmv.WARPS)
+        per_run = max(1, min(warp_rows, max(qmv.RESIDENT_BLOCKS // R,
+                                            -(-B // qmv.MAX_ROWS))))
+        assert geo.rows_per_block == qmv.WARPS * -(-warp_rows // per_run)
+        assert geo.rows_per_block <= qmv.MAX_ROWS + qmv.WARPS
+        assert geo.smem_bytes == one.smem_bytes
+        assert (_rows_taken(geo, B) == 1).all()
     else:
+        base = max(1, min(32, qmv.THREADS // geo.o_tile))
+        tiles = 1
+        while (tiles < qmv.MAX_TILES
+               and -(-B // (base * tiles)) * o_blocks * R
+               > qmv.RESIDENT_BLOCKS):
+            tiles *= 2
         assert geo.rows_per_block == base * tiles
     if R == 1:
         assert geo == one
+    if (R, B, I) == (200, 1600, 114):   # the run.sh family's memory rows
+        assert geo[:4] == (160, 60, 114, 2000)
 
 
 MEGASWEEP_FLAGS = {

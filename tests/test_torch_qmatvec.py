@@ -142,41 +142,63 @@ def test_fast_quant_formula_equals_float_quant(mode):
                                want[~nan].view(torch.int32)), fmt
 
 
+def _rows_taken(geo, B):
+    """How many times the whole-row kernel's warps take each row: block b
+    owns rows [b*R, min((b+1)*R, B)) with R = rows_per_block, and its warp
+    k takes rows b*R + k, b*R + k + WARPS, ... of them."""
+    R, taken = geo.rows_per_block, np.zeros(B, np.int64)
+    blocks = np.arange(-(-B // R))[:, None]
+    first = blocks * R + np.arange(qmv.WARPS)          # [block, warp]
+    end = np.minimum((blocks + 1) * R, B)
+    for step in range(0, R, qmv.WARPS):
+        rows = first + step
+        np.add.at(taken, rows[rows < end], 1)
+    return taken
+
+
 @pytest.mark.parametrize("O,I", [(1, 1), (60, 29), (60, 60), (60, 114),
                                  (1, 6144), (203, 60), (4095, 3),
                                  (6143, 1)])
 def test_qmatvec_geometry_covers_every_row_once(O, I):
     """For every B from 1 to 2100 (and 4224, 4225, 10240, 10241, 100000)
-    at shapes up to the operand limit O*I + I <= 12288: block b takes rows
-    [b*R, min((b+1)*R, B)) with R = rows_per_block, so the blocks cover
-    each row exactly once; Q(w) and the row tile fit the kernel's 48 KB of
-    shared memory; one round of the threads covers a base tile (at most 32
-    rows), doubled while the grid exceeds the card's resident blocks, up
-    to MAX_TILES base tiles, where they fit; the 32-row query call keeps
-    8 blocks."""
+    at shapes up to the operand limit O*I + I <= 12288: the blocks' warps
+    take each row exactly once; the rows per block are a multiple of the
+    warps, one row a warp while the grid fits the card's resident blocks,
+    else as few as keep the grid within them, but for MAX_ROWS (a block's
+    Q(w) is then paid for at most about MAX_ROWS rows); Q(w)^T (row stride
+    O, odd where it fits), its NaN bits and the warps' lists fit the
+    227 KB a block may ask for."""
     assert O * I + I <= qmv.MAX_SMEM_FLOATS
-    base = max(1, min(32, qmv.THREADS // O))
-    fit = (qmv.MAX_SMEM_FLOATS - O * I) // I
+    words = -(-I // 32)
+    odd_fits = I * (O | 1) + words <= qmv.MAX_SMEM_FLOATS
+    ld = qmv.wq_stride(O, I)
+    assert ld == (O | 1 if odd_fits else O)
+    smem = 4 * (((I * ld + words + 1) & ~1)
+                + qmv.WARPS * 32 * qmv.CHUNKS * 2)
+    assert smem == qmv.whole_row_smem_bytes(O, I) <= 227 * 1024
     for B in [*range(1, 2101), 4224, 4225, 10240, 10241, 100000]:
         geo = qmv.qmatvec_geometry(B, O, I)
         R = geo.rows_per_block
-        assert 1 <= R <= fit
-        tiles = 1
-        while (tiles < qmv.MAX_TILES
-               and -(-B // (base * tiles)) > qmv.RESIDENT_BLOCKS):
-            tiles *= 2
-        assert R == min(fit, base * tiles)
+        assert (geo.o_tile, geo.i_tile) == (O, I)
+        assert R % qmv.WARPS == 0
         assert (geo.blocks - 1) * R < B <= geo.blocks * R
-        covered = np.zeros(B, np.int64)
-        for b in range(geo.blocks):
-            covered[b * R:min((b + 1) * R, B)] += 1
-        assert (covered == 1).all()
-        assert geo.smem_bytes == 4 * (O * I + R * I) <= 48 * 1024
-    assert qmv.qmatvec_geometry(32, 60, 29).blocks == 8
-    assert qmv.qmatvec_geometry(320, 60, 29).blocks == 80
-    # the measured choices at the flagship embedding (O=60, I=29)
-    assert [qmv.qmatvec_geometry(B, 60, 29).rows_per_block
-            for B in (320, 4096, 6144, 10240, 100000)] == [4, 4, 8, 16, 16]
+        warp_rows = -(-B // qmv.WARPS)
+        if warp_rows <= qmv.RESIDENT_BLOCKS:
+            assert R == qmv.WARPS
+        else:
+            assert R <= qmv.MAX_ROWS + qmv.WARPS
+            assert geo.blocks <= max(qmv.RESIDENT_BLOCKS,
+                                     -(-B // qmv.MAX_ROWS))
+            assert (geo.blocks > qmv.RESIDENT_BLOCKS
+                    or R == qmv.WARPS * -(-warp_rows // qmv.RESIDENT_BLOCKS))
+        if B <= 2100 or B == 10241:
+            assert (_rows_taken(geo, B) == 1).all()
+        assert geo.smem_bytes == smem
+    # the flagship's query embedding and memory embedding, an evaluation
+    # chunk's: one row a warp, then two
+    assert qmv.qmatvec_geometry(32, 60, 29)[:4] == (8, 60, 29, 4)
+    assert qmv.qmatvec_geometry(320, 60, 29)[:4] == (8, 60, 29, 40)
+    assert qmv.qmatvec_geometry(10240, 60, 29)[:4] == (16, 60, 29, 640)
 
 
 @pytest.mark.parametrize("O,I", [(60, 202), (60, 256), (60, 1024), (1, 6145),
@@ -216,3 +238,108 @@ def test_tiled_qmatvec_geometry_covers_every_output_once(O, I):
         assert (cols == 1).all()
     # the joint block's memory embedding: 4 rows x 60 outputs per block
     assert qmv.qmatvec_geometry(2048, 60, 256)[:3] == (4, 60, 64)
+
+
+def _walk(w, x, fmt_w, fmt_x, skip):
+    """The whole-row kernel's sum in torch: out[b, o] = Q(acc) with acc
+    from +0, adding Q(Q(w[o, i]) * Q(x[b, i])) in order of i over the
+    entries it takes: with ``skip``, those whose Q(x) is nonzero (NaN
+    included) or whose column of Q(w) holds a NaN (the ballot's mask),
+    else every entry."""
+    from qmann_tpu_torch.numerics import float_quant
+    wq, xq = float_quant(w, fmt_w), float_quant(x, fmt_x)
+    take = torch.ones(xq.shape, dtype=torch.bool)
+    if skip:
+        take = (xq != 0) | torch.isnan(wq).any(0)
+    acc = torch.zeros((x.shape[0], w.shape[0]), dtype=torch.float32)
+    for i in range(x.shape[1]):
+        prod = float_quant(wq[:, i] * xq[:, i, None], fmt_w)
+        acc = torch.where(take[:, i, None], acc + prod, acc)
+    return float_quant(acc, fmt_w)
+
+
+def _same_bits(a, b):
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32),
+                            b[~nan].view(torch.int32)))
+
+
+def _walk_case(case, rng, mode):
+    """(w, x, fmt_w, fmt_x) of one case of the zero-skip walk."""
+    f = QFormat(5, 2, mode)
+    w = rng.normal(0.0, 1.5, (60, 114)).astype(np.float32)
+    x = np.zeros((40, 114), np.float32)      # bag-of-words, dead rows
+    for b in range(0, 40, 2):
+        x[b, rng.integers(0, 64, 6)] += 1.0
+        x[b, 64 + b % 50] = 1.0
+    if case == "dense":                      # a hop's linear map
+        w = rng.normal(0.0, 1.5, (60, 60)).astype(np.float32)
+        x = rng.normal(0.0, 1.5, (40, 60)).astype(np.float32)
+    elif case == "tiny":                     # Q(x) rounds them to +-0
+        x = x * np.float32(0.3) + rng.normal(0.0, 1e-3, x.shape).astype(
+            np.float32) * (rng.random(x.shape) < 0.2)
+    elif case == "negative":                 # -0 products: sign of zero
+        w = -np.abs(w)
+        x = -x
+    elif case == "nan_w":                    # a NaN where x is zero
+        w[7, 100] = np.nan
+        w[3, 113] = np.nan
+    elif case == "nan_x":
+        x[4, 9] = np.nan
+    elif case == "mixed":
+        return (torch.from_numpy(w), torch.from_numpy(x), QFormat(6, 1, mode),
+                QFormat(2, 5, mode))
+    elif case == "wide":                     # 30-bit words: inexact sums
+        w = rng.normal(0.0, 30.0, (60, 114)).astype(np.float32)
+        x = x * np.float32(97.3)
+        return (torch.from_numpy(w), torch.from_numpy(x),
+                QFormat(12, 18, mode), QFormat(12, 18, mode))
+    return torch.from_numpy(w), torch.from_numpy(x), f, f
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", ["bow", "dense", "tiny", "negative",
+                                  "nan_w", "nan_x", "mixed", "wide"])
+def test_zero_skip_walk_equals_the_dense_sum(case, mode):
+    """The argument of csrc/qmatvec.cu: leaving out the entries with
+    Q(x) == +-0 whose column of Q(w) holds no NaN changes no bit of the
+    in-order sum (acc starts at +0 and never becomes -0, so adding +-0
+    leaves it as it is), on bag-of-words rows with dead rows, dense rows,
+    tiny x that Q rounds to zero, negative weights against zeros, a NaN
+    in Q(w) on a column where x is zero (NaN, as the dense sum), a NaN in
+    x, mixed formats and 30-bit words, whose sums are not exact; with
+    words of 8 bits it equals the plain lattice too."""
+    rng = np.random.default_rng(["bow", "dense", "tiny", "negative",
+                                 "nan_w", "nan_x", "mixed",
+                                 "wide"].index(case) * 4 + mode)
+    w, x, fmt_w, fmt_x = _walk_case(case, rng, mode)
+    got = _walk(w, x, fmt_w, fmt_x, skip=True)
+    assert _same_bits(got, _walk(w, x, fmt_w, fmt_x, skip=False))
+    if case != "wide":
+        want = qmv.quantized_matvec_reference(w, x, fmt_w, fmt_x)
+        assert _same_bits(got, want)
+    if case == "nan_w":
+        assert torch.isnan(got[:, [3, 7]]).all()
+    if case == "negative":
+        assert not torch.signbit(got[1::2]).any()   # dead rows: +0
+
+
+@pytest.mark.parametrize("fmt_w,fmt_x,O,I,skips", [
+    (QFormat(5, 2, 3), QFormat(5, 2, 3), 60, 114, True),   # the family
+    (QFormat(1, 6, 3), QFormat(1, 6, 3), 60, 29, True),    # mode 3, iwl 1
+    (QFormat(6, 1, 0), QFormat(2, 5, 0), 60, 60, True),    # mixed widths
+    (QFormat(12, 18, 2), QFormat(12, 18, 2), 60, 29, True),  # 30 bits
+    (QFormat(0, 0, 3), QFormat(5, 2, 3), 60, 29, False),   # binary w
+    (QFormat(5, 2, 3), QFormat(0, 0, 3), 60, 60, False),   # binary x
+    (QFormat(1, 30, 3), QFormat(5, 2, 3), 60, 29, False),  # 31 bits: AnyQ
+    (QFormat(5, 2, 1), QFormat(5, 2, 2), 60, 29, False),   # mixed modes
+    (QFormat(5, 2, 3), QFormat(5, 2, 3), 60, 256, False),  # tiled
+])
+def test_which_launches_skip_zero_entries(fmt_w, fmt_x, O, I, skips):
+    """``sparse_launches`` counts the route that skips the zero entries of
+    Q(x): the whole-row kernel on the compile-time quantizer, chosen by
+    the formats and the shape alone; binary and 31-bit formats (AnyQ)
+    keep the dense loop, and the tiled kernel is dense."""
+    geo = qmv.qmatvec_geometry(33, O, I)
+    assert qmv.skips_zeros(geo, O, I, fmt_w, fmt_x) is skips
