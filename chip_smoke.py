@@ -9,13 +9,20 @@ Phases, one line each; any failure exits non-zero:
                nvidia-smi's name and power limit
   2. build   — compiles the six kernels from qmann_tpu_torch/csrc, one
                nvcc per source, all started together
-  3. kernel  — the hop-chain kernel against its plain PyTorch version, both
-               on the card, at the flagship shape (B=1000, M=10, I=29, D=60,
-               K=3, EN_MQ formats) and the wide layout (M=50, I=114), at
-               each of the four rounding modes (the kernel fixes the mode
-               at compile time: one instance per mode); the launch on the
-               Q(H) that prepare_inference caches (the serving path's,
-               requant skipped) equals the launch on raw H bit for bit
+  3. kernel  — the hop-chain kernel (fused_hop_chain_from_memory: it
+               embeds the bag-of-words memory with Q(A|C) itself) against
+               its plain PyTorch version (the exact GEMM, then the plain
+               chain), both on the card, at the flagship shape (B=1000,
+               M=10, I=29, D=60, K=3, EN_MQ formats), the wide layout
+               (M=50, I=114) and the wide layout with rows of 10 to 12
+               nonzero entries (W=11), at each of the four rounding modes
+               (the kernel fixes the mode at compile time: one instance per
+               mode); the launch on the Q(H) that prepare_inference caches
+               (the serving path's, requant skipped) equals the launch on
+               raw H bit for bit, and both equal bit for bit the kernel on
+               the exact GEMM's output with the identity as weights (its
+               slices are then the GEMM's values: the check of the
+               kernel's own embedding)
   4. slice   — an InferenceEngine on cuda:0 answers ~100 synthetic
                qa1-shaped requests over several waves; every answer equals
                the plain route's, and the chain kernel must have launched
@@ -56,8 +63,9 @@ Attention mode 3 (the Hamming attention):
                (printed, not gated: those sums may round); the read kernel
                in mode 3 at iwl 1 at the training, eval-chunk and wide
                shapes with padded samples, at each rounding mode; the
-               chain kernel in mode 3 at iwl 5, B=1000, flagship and wide,
-               at each of the four rounding modes
+               chain kernel in mode 3 at iwl 5, B=1000, on phase 3's three
+               layouts, at each of the four rounding modes, checked as in
+               phase 3
  10. mode3-serve — an engine at iwl 5 with use_fused_chain answers ~100
                requests through the chain kernel; an engine at iwl 1 with
                use_pallas leaves the exact route and runs 10 qmatvec and 3
@@ -416,14 +424,15 @@ def card_line():
 
 
 def scaled_prepared(cfg, dims, mem, dev):
-    """Seeded Gaussian params scaled x6, x5 or x4 — the largest scale at
-    which prepare_inference keeps the exact-GEMM route (unscaled N(0, 0.1)
-    weights quantize almost entirely to 0 or +-0.25 at Q5.2)."""
+    """Seeded Gaussian params scaled x6, x5, x4 or x3 — the largest scale
+    at which prepare_inference keeps the exact-GEMM route (unscaled N(0,
+    0.1) weights quantize almost entirely to 0 or +-0.25 at Q5.2; rows of
+    more than 8 words take x3)."""
     import torch
     from qmann_tpu_torch.models import memn2n
     base = memn2n.init_params(cfg, dims, torch.Generator().manual_seed(SEED),
                               device=dev)
-    for scale in (6.0, 5.0, 4.0):
+    for scale in (6.0, 5.0, 4.0, 3.0):
         params = {k: v * scale for k, v in base.items()}
         prep = memn2n.prepare_inference(
             params, cfg, max_count=float(dims.max_word + 1),
@@ -577,15 +586,20 @@ def attention_read_bound(m, c, u, mask, num_bit=None):
                   *_read_ops(B, M, D, num_bit))
 
 
-def chain_bound(flat, u, hmats, mask, num_bit=None):
-    """Per hop: the requant of the hop's A and C slices, one read, the lin
+def chain_bound(x, wt, u, hmats, mask, num_bit=None):
+    """The chain from the memory x [B, M, I] and Q(A|C) wt: x, wt, u, the
+    lin maps and the mask read once, u, p and s written once.  Per hop:
+    the embedding of the hop's A and C slices (a multiply and an add per
+    nonzero entry of x and column) and their requant, one read, the lin
     map lattice (Q(H) once) and the residual (3 requants per element)."""
-    B, M, _ = flat.shape
+    B, M, _ = x.shape
     K, D = hmats.shape[0], u.shape[1]
     read_f, read_i, read_p = _read_ops(B, M, D, num_bit)
-    per_hop = (Q_OPS * 2 * B * M * D + read_f
-               + Q_OPS * D * D + B * D * D * (2 + Q_OPS) + 3 * Q_OPS * B * D)
-    return _bound(_nbytes(flat, u, hmats, mask) + 4 * (B * D + 2 * K * B * M),
+    per_hop = (2 * int((x != 0).sum()) * 2 * D + Q_OPS * 2 * B * M * D
+               + read_f + Q_OPS * D * D + B * D * D * (2 + Q_OPS)
+               + 3 * Q_OPS * B * D)
+    return _bound(_nbytes(x, wt, u, hmats, mask)
+                  + 4 * (B * D + 2 * K * B * M),
                   K * per_hop, K * read_i, K * read_p)
 
 
@@ -1381,7 +1395,7 @@ def kernel_counters():
     from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd as wsb
     return {"qmatvec": qmv.quantized_matvec, "attention_read": ar.fused_read,
             "hamming_score": ham.hamming_score_kernel,
-            "hop_chain": hop_chain.fused_hop_chain,
+            "hop_chain": hop_chain.fused_hop_chain_from_memory,
             "hamming_backward": hbwd.hamming_backward_kernel,
             "qweighted_sum_backward": wsb.qweighted_sum_backward_kernel,
             "weighted_sum_softmax_backward":
@@ -2640,49 +2654,56 @@ def main():
     # 3. kernel against plain, both on the card
     cfg = QmannConfig(use_fused_chain=True)
     rng = np.random.default_rng(SEED)
-    shapes = {"flagship": (19, 10, 6), "wide": (64, 50, 7)}
+    shapes = {"flagship": (19, 10, 6), "wide": (64, 50, 7),
+              "long rows": (64, 50, 11)}
+    chain = hop_chain.fused_hop_chain_from_memory
+    chain_plain = hop_chain.fused_hop_chain_from_memory_reference
 
     def chain_inputs(cfg_c, V, M, W):
-        """The chain's inputs as forward_prepared makes them at B=1000."""
+        """The chain's inputs as forward_prepared makes them at B=1000:
+        the memory, Q(A|C), u, raw H, the mask and the formats."""
         dims, mem, que, mask = synthetic_batch(rng, BATCH, V, M, W)
         scale, _, prep = scaled_prepared(cfg_c, dims, mem, dev)
         mem_t, que_t, mask_t = (torch.from_numpy(a).to(dev)
                                 for a in (mem, que, mask))
-        flat = exact_matmul(mem_t, prep.embed_wt)
         u = float_quant(exact_matmul(que_t, prep.query_wt), cfg_c.fmt_w[0])
-        return scale, (flat, u, prep.hmats, mask_t, cfg_c.fmt_w,
-                       cfg_c.fmt_att, cfg_c.fmt_bin, cfg_c.fmt_act), prep
+        return scale, (mem_t, prep.embed_wt, u, prep.hmats, mask_t,
+                       cfg_c.fmt_w, cfg_c.fmt_att, cfg_c.fmt_bin,
+                       cfg_c.fmt_act), prep
 
     def cached_launch(args, prep, **kw):
         """The serving path's launch: on Q(H) cached by prepare_inference,
         with the kernel's requant skipped."""
-        return lambda: hop_chain.fused_hop_chain(
-            args[0], args[1], prep.hmats_q, *args[3:], hmats_quantized=True,
-            **kw)
+        return lambda: chain(*args[:3], prep.hmats_q, *args[4:],
+                             hmats_quantized=True, **kw)
 
     def cached_equal(args, prep, got, **kw):
-        """The cached launch equals the launch on raw H."""
+        """The cached launch equals the launch on raw H, and the kernel on
+        the exact GEMM's output with the identity as weights (each slice
+        then holds the GEMM's value: x * 1 plus +-0 terms is x)."""
+        flat = exact_matmul(args[0], args[1])
+        on_flat = chain(flat, torch.eye(flat.shape[-1], device=flat.device),
+                        *args[2:], **kw)
         cached = cached_launch(args, prep, **kw)()
-        return all(torch.equal(a, b) for a, b in zip(cached, got))
+        return all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(cached, got, on_flat))
 
     def time_chain(args, prep, **kw):
         """{"cached": the serving launch, "raw H": the launch on raw H}:
         (kernel event ms, plain event ms, kernel device ms) each."""
         return time_kernels({
             "cached": (cached_launch(args, prep, **kw),
-                       lambda: hop_chain.fused_hop_chain_reference(*args,
-                                                                   **kw)),
-            "raw H": (lambda: hop_chain.fused_hop_chain(*args, **kw),
-                      lambda: hop_chain.fused_hop_chain_reference(*args,
-                                                                  **kw))})
+                       lambda: chain_plain(*args, **kw)),
+            "raw H": (lambda: chain(*args, **kw),
+                      lambda: chain_plain(*args, **kw))})
 
     max_err, chain_args, chain_prep = 0.0, None, None
     for round_mode in ROUND_MODES:
         cfg_r = cfg.replace(quant_mode=round_mode)
         for name, (V, M, W) in shapes.items():
             scale, args, prep = chain_inputs(cfg_r, V, M, W)
-            got = hop_chain.fused_hop_chain(*args)
-            want = hop_chain.fused_hop_chain_reference(*args)
+            got = chain(*args)
+            want = chain_plain(*args)
             torch.cuda.synchronize()
             diffs, flips, good = compare_chain(cfg_r, got, want)
             good &= cached_equal(args, prep, got)
@@ -2715,7 +2736,7 @@ def main():
     scale, params, _ = scaled_prepared(cfg, dims, mem0, dev)
     engine, answers, want, (launches,), logits_ok = serve_requests(
         params, cfg, cfg.replace(use_fused_chain=False), dims, dictionary,
-        stories, dev, [hop_chain.fused_hop_chain])
+        stories, dev, [chain])
     stats = engine.stats
     if not engine.prepared.fast:
         fail("the engine's prepared forward left the exact route")
@@ -2998,8 +3019,8 @@ def main():
         cfg_r = cfg_c3.replace(quant_mode=round_mode)
         for name, (V, M, W) in shapes.items():
             scale, args, prep = chain_inputs(cfg_r, V, M, W)
-            got = hop_chain.fused_hop_chain(*args, **ham_kw)
-            want = hop_chain.fused_hop_chain_reference(*args, **ham_kw)
+            got = chain(*args, **ham_kw)
+            want = chain_plain(*args, **ham_kw)
             torch.cuda.synchronize()
             diffs, flips, good = compare_chain(cfg_r, got, want)
             good &= cached_equal(args, prep, got, **ham_kw)
@@ -3020,7 +3041,7 @@ def main():
     _, params_c3, _ = scaled_prepared(cfg_c3, serve_dims, mem0, dev)
     engine3, answers, want, (chain3_launches,), logits_ok = serve_requests(
         params_c3, cfg_c3, cfg_c3.replace(use_fused_chain=False), serve_dims,
-        dictionary, stories, dev, [hop_chain.fused_hop_chain])
+        dictionary, stories, dev, [chain])
     st = engine3.stats
     print(f"[10 mode3-serve] iwl 5, use_fused_chain: {len(answers)} answers "
           f"over {st.waves} waves, failed_waves {st.failed_waves}, exact "
@@ -3341,11 +3362,11 @@ def main():
         max_rowsum=float(c_dims.max_word + 1))
     batch_t = tuple(torch.from_numpy(a).to(dev) for a in (
         test.memory, test.question, test.mask))
-    hop_chain.fused_hop_chain.launches = 0
+    chain.launches = 0
     with torch.inference_mode():
         served = memn2n.forward_prepared(
             prep, *batch_t, c_cfg.replace(use_fused_chain=True))
-        chain_served = hop_chain.fused_hop_chain.launches
+        chain_served = chain.launches
         plain = memn2n.forward_prepared(
             prep, *batch_t, c_cfg.replace(use_fused_chain=False,
                                           use_pallas=False))
@@ -3473,7 +3494,7 @@ def main():
     from qmann_tpu_torch.train import trainer as trainer_mod
     counters = {"qmatvec": qmv.quantized_matvec, "attention_read":
                 ar.fused_read, "hamming_score": ham.hamming_score_kernel,
-                "hop_chain": hop_chain.fused_hop_chain,
+                "hop_chain": chain,
                 "hamming_backward": hbwd.hamming_backward_kernel,
                 "qweighted_sum_backward": wsb.qweighted_sum_backward_kernel,
                 "weighted_sum_softmax_backward":
@@ -4095,8 +4116,8 @@ def main():
         label: family_wsum(r_args) for label, (r_args, _) in
         fam3_args.items()}, fam200)
 
-    b_chain = chain_bound(*chain_args[:4])
-    b_chain3 = chain_bound(*chain3_args[:4], num_bit=cfg_c3.num_bits_attention)
+    b_chain = chain_bound(*chain_args[:5])
+    b_chain3 = chain_bound(*chain3_args[:5], num_bit=cfg_c3.num_bits_attention)
     b_qmv = qmatvec_bound(*qmv_args["train"][:2])
     b_qmv_eval = qmatvec_bound(*qmv_args["eval"][:2])
     b_read = attention_read_bound(*read_args["train"][:4])

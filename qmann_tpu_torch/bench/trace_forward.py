@@ -326,7 +326,7 @@ def main(argv=None) -> int:
             dependent_batches(forward, memory, question, mask, 30, graphs)
             sync()
 
-    wrappers = {"hop_chain": hop_chain.fused_hop_chain,
+    wrappers = {"hop_chain": hop_chain.fused_hop_chain_from_memory,
                 "qmatvec": qmatvec.quantized_matvec,
                 "attention_read": attention_read.fused_read,
                 "hamming_score": hamming.hamming_score_kernel}

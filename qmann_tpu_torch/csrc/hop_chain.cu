@@ -1,9 +1,11 @@
 // The whole K-hop MemN2N controller chain, several queries per thread
-// block.
+// block, with the hops' memory embeddings built inside it.
 //
 // Replaces the TPU kernel fused_hop_chain_pallas / _fused_chain_kernel
-// (qmann_tpu/ops/pallas/qkernels.py), attention modes 2 and 3.  Per hop h:
-//   m, c   = Q(slice of flat, fmt_w[h])                 (A and C embeddings)
+// (qmann_tpu/ops/pallas/qkernels.py), attention modes 2 and 3, and on the
+// serving path the stacked embedding GEMM before it (_mxu_matmul of the
+// memory by Q(A|C), models/memn2n.py::forward_prepared).  Per hop h:
+//   m, c   = Q(A and C slices of x @ Q(A|C), fmt_w[h])  (the embeddings)
 //   score  = Q(sum_d Q(Q(m,att)*Q(u,bin), att), att)   (mode 2)
 //          | Q(sum_d ham_term(m, u), (iwl_att, 31-iwl_att))  (mode 3: the
 //            Hamming similarity of the requanted m and the raw current u,
@@ -12,47 +14,65 @@
 //   o      = Q(sum_m mask*Q(Q(p,act)*Q(c,act), act), act)
 //   u_map  = Q(sum_i Q(Q(H,w)*Q(u,bin), w), w)          (when linear mapping)
 //   u      = Q(Q(u_map,act)+Q(o,act), act), then Q(relu(u), act) if enabled
+// The kernel takes the bag-of-words memory x [B, M, I] and Q(A|C) [I,
+// 2K*D] and forms each hop's slices itself
+// (ops/cuda/hop_chain.py::fused_hop_chain_from_memory), so the product
+// flat = x @ Q(A|C) [B, M, 2K*D] is never written or read.
 //
-// What bounds it on an H100: at the flagship shape (B=1000, M=10, K=3,
-// D=60) the chain reads flat once, 1000*10*360*4 B = 14.4 MB per batch
-// (~4.5 us at 3.35 TB/s), and does ~6000 requantized products per query
-// and hop (~0.15 G float operations a batch, ~2 us at 67 TFLOP/s).  The
-// steps of a hop depend on each other, so what the first design (one
-// 128-thread block per query) lost was per-block latency: a global
-// load inside each row loop, Q(H) recomputed for every product of every
-// query, the rounding mode switched at run time in every requant, and a
-// shuffle reduction per lin-map row.  This design:
+// What bounds it on an H100.  At the serve cell's shape (B=1000, M=50,
+// I=114, K=3, D=60) the GEMM route wrote flat, 72 MB a batch, and the
+// chain read it back.  Embedding in the kernel, what the work needs is:
+// x's rows read once (22.8 MB dense, ~11-23 MB of live rows; as (index,
+// count) pairs ~0.36 MB), Q(A|C) (164 KB) from L2, and ~25,500 live rows
+// x ~7 nonzero entries x 360 columns = 64 M multiply-adds a batch (~2 us
+// on the f32 pipe), the rest of the chain (~6,000 requantized products a
+// query and hop at M=10, ~30,000 at M=50) as before, and the same
+// latency chain of dependent steps per hop.  No operation pipe and no
+// byte stream comes near the time: each hop's steps depend on each
+// other, so per-block latency bounds it.  This design:
 //  - fixes the rounding mode at compile time and saturates without a
 //    branch (FastQ<Mode>, qformat.cuh; the C entry picks one of four
 //    instances by the launch's one mode, and the runtime AnyQ instance
 //    only for binary or 31-bit formats; the mode-3 term takes the same
-//    mode, hamming.cuh).  This step alone halved the
-//    first design's time and more: its runtime switch and saturation select
-//    compiled to branches and convergence barriers around every requant;
-//  - stages each hop's A and C slices of the block's queries in shared
-//    memory with cp.async, double-buffered: hop h+1's slices are in flight
-//    while hop h computes.  They are requantized once as they land
-//    (Q(Q(m,w),att) in mode 2, Q(m,w) in mode 3, Q(Q(c,w),act)), so the
-//    score, softmax, weighted sum and residual touch only shared memory
-//    and registers;
-//  - stages H[h] with cp.async too (into a row stride of D+1), issued as
-//    soon as hop h-1's lin map is done with the buffer, shared by the
-//    block's queries.  The serving path hands it over quantized once
+//    mode, hamming.cuh);
+//  - lists each row's nonzero entries of x once, before the first hop
+//    (list_rows: one warp a row, a ballot a piece of 32), as (offset,
+//    value) pairs in shared memory: kList = 8 slots a row, the unused ones
+//    (0, +0).  A block whose rows all fit (the serve cell's: 6 words and
+//    the time bit) keeps that layout; a block with a longer row lists
+//    again with the room of the weight slices added, 58 slots a row at
+//    the serve shape, and reads the weights through the cache instead
+//    (a row longer still is walked in x itself at every hop);
+//  - at each hop gives one thread a column d of both parts and a group of
+//    rows: it sums the row's pairs against its two weight columns (kList
+//    slots with no branch where the weights are staged, else to the
+//    row's own count), requantizes as the
+//    score and weighted sum take them (Q(Q(m,w),att) in mode 2, Q(m,w) in
+//    mode 3, Q(Q(c,w),act)) and stores them in the stage.  Hop h's weight
+//    slices [I][2D] are staged in shared memory with cp.async (in the
+//    buffer of Q(H[h]): W[h] lands during hop h-1's softmax and weighted
+//    sum, H[h] during hop h's score) wherever they fit beside one query's
+//    block, else read through the cache.  Every row gets its slices from
+//    its own x, live or not (s holds a score for every row);
+//  - stages H[h] with cp.async (row stride D+1), shared by the block's
+//    queries; the serving path hands it over quantized once
 //    (prepare_inference caches Q(H)); raw H is quantized in place once per
-//    block and hop (10% slower at the flagship shape);
+//    block and hop;
 //  - gives each (query, lin-map output row) one thread that walks its row
 //    of Q(H) (neighbouring threads, rows an odd stride apart: no bank
 //    conflicts) with four partial sums, no reduction;
-//  - keeps every loop free of a load whose latency the next iteration
-//    waits on: no global load sits inside a loop;
-//  - takes its geometry (queries per block, threads) from the wrapper
-//    (ops/cuda/hop_chain.py::chain_geometry), with dynamic shared memory
-//    opted in above 48 KB.
-// Measured on one H100 80GB HBM3 at 700 W (device time, B=1000, flagship;
-// PERF.md, section 6): 0.028 ms in mode 2 and 0.032 ms in mode 3 on the
-// cached Q(H), from 0.108 and 0.118 ms for the first design (mode 3 took
-// 0.045 ms before its Hamming term got the compile-time rounding mode and
-// the word form of hamming.cuh).
+//  - takes its geometry (queries per block, threads, whether the weights
+//    are staged) from the wrapper (ops/cuda/hop_chain.py::chain_geometry),
+//    with dynamic shared memory opted in above 48 KB, and at most 64
+//    registers a thread, so that two 512-thread blocks share an SM.
+// Measured on one H100 80GB HBM3 at 700 W (PERF.md, section 6), device
+// time a call, B=1000, mode 2: at the serve cell's shape 0.118 ms where
+// the exact GEMM and the chain from its output took 0.228; at the
+// flagship (M=10, I=29) 0.037 against 0.044; at the serve shape with rows
+// of 10 to 12 nonzero entries 0.163-0.193 against 0.227-0.234 (0.46 when
+// each such row was walked in x).  In that kernel the walk takes ~24 us,
+// the softmax and weighted sum ~25, the lin map ~9 and the score ~8.5
+// (phases left out one at a time).
 //
 // Numerics: every lattice sum is exact in float32 (quantized products lie
 // on the 2^-frac grid, partial sums stay under 2^24 units), so the sums
@@ -89,6 +109,8 @@ using qmann::warp_sum;
 constexpr int kMaxHops = 8;
 constexpr int kMaxMem = 64;     // the softmax keeps two rows per lane
 constexpr int kMaxDim = 128;
+constexpr int kPieces = 4;  // entries of x a lane holds: a chunk of 128
+constexpr int kList = 8;    // listed nonzero entries a row of x
 constexpr int kMaxThreads = 512;
 constexpr int kSlots = 3 * kMaxHops + 1;  // w[K], att[K], act[K], bin
 // dynamic shared memory a block may take: 227 KB less the static formats
@@ -99,17 +121,29 @@ struct ChainFormats {
   HamFmt ham[kMaxHops];  // mode 3: each hop's Hamming format
 };
 
-// Floats of dynamic shared memory for qpb queries per block; the same
-// formula as ops/cuda/hop_chain.py::chain_smem_bytes.
-size_t smem_floats(int qpb, int M, int D) {
-  return (size_t)4 * qpb * M * D       // two stages of [qpb, M, 2D]
-         + (size_t)D * (D + 1)         // Q(H[h]), row stride D+1
-         + (size_t)3 * qpb * D         // u, Q(u, bin), u_map
-         + (size_t)3 * qpb * M;        // scores, Q(p, act), live
+// Floats of dynamic shared memory for qpb queries per block: the buffer
+// of Q(H[h]), which holds hop h's weight slices too when they are staged
+// (wstaged), the rows' lists of x and their counts, one stage of the
+// hop's slices and the per-query vectors.  The same formula as
+// ops/cuda/hop_chain.py::chain_smem_bytes.
+__host__ __device__ inline size_t round4(size_t n) {  // 16-byte multiple
+  return (n + 3) & ~(size_t)3;
 }
 
-// Issue the copies of hop h's A and C slices of the block's nq queries
-// into stage [nq*M rows][2D]: A at columns [0, D), C at [D, 2D).
+__host__ __device__ inline size_t hbuf_floats(int D, int I, bool wstaged) {
+  const size_t h = (size_t)D * (D + 1), w = (size_t)I * 2 * D;
+  return round4(wstaged && w > h ? w : h);
+}
+
+size_t smem_floats(int qpb, int M, int D, int I, bool wstaged) {
+  return hbuf_floats(D, I, wstaged)                  // Q(H[h]) | weights
+         + (size_t)qpb * M * (2 * kList + 1 + 2 * D)  // lists, counts, stage
+         + (size_t)3 * qpb * D                        // u, Q(u, bin), u_map
+         + (size_t)3 * qpb * M;  // scores, Q(p, act), live
+}
+
+// Issue the copies of hop h's A and C slices of wt [rows][2K*D] into
+// stage [rows][2D]: A at columns [0, D), C at [D, 2D).
 __device__ __forceinline__ void stage_hop(float* stage, const float* fb,
                                           int rows, int D, int K, int h,
                                           bool vec16) {
@@ -152,9 +186,146 @@ __device__ __forceinline__ void stage_h(float* hq, const float* hmats, int D,
   cp_async_commit();
 }
 
+// List the nonzero entries of the block's rows of x [rows][I]: row r's
+// first L entries, in order of i, as (i * ld, x[r, i]) pairs (ld: the row
+// stride of the weights the embedding reads) in list[r*L ...], and its
+// count of nonzero entries in cnt[r] (a row with more than L is walked in
+// x itself at every hop).  At L = kList the slots past a row's entries
+// hold (0, +0) (embed_hop's walk of all kList slots); at a longer L, the
+// slot after an odd count does (its walk of the count in pairs).  One warp
+// a row, the row's entries loaded in chunks of 128 (four per lane), a
+// ballot a piece of 32.  Returns whether a row of this thread's warp has
+// more than L entries.
+__device__ __forceinline__ bool list_rows(int2* list, int L, int* cnt,
+                                          const float* __restrict__ xb,
+                                          int rows, int I, int ld) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  bool longer = false;
+  for (int r = threadIdx.x >> 5; r < rows; r += blockDim.x >> 5) {
+    const float* xr = xb + (size_t)r * I;
+    int2* lr = list + (size_t)r * L;
+    int n = 0;
+    for (int p0 = 0; p0 < I; p0 += 32 * kPieces) {
+      float v[kPieces];
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k) {
+        const int i = p0 + 32 * k + lane;
+        v[k] = i < I ? __ldg(xr + i) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kPieces; ++k) {
+        const bool nz = v[k] != 0.f;
+        const unsigned m = __ballot_sync(0xffffffffu, nz);
+        const int slot = n + __popc(m & below);
+        if (nz && slot < L)
+          lr[slot] = make_int2((p0 + 32 * k + lane) * ld, __float_as_int(v[k]));
+        n += __popc(m);
+      }
+    }
+    if (L == kList) {
+      if (lane >= n && lane < kList) lr[lane] = make_int2(0, 0);
+    } else if (lane == 0 && (n & 1) && n < L) {
+      lr[n] = make_int2(0, 0);
+    }
+    if (lane == 0) cnt[r] = n;
+    longer |= n > L;
+  }
+  return longer;
+}
+
+// Hop h's slices of the block's rows, requantized, into st [rows][2D]:
+// output (r, c) is Q(sum over the nonzero entries i of x[r, i] * w[i,
+// col]) (the stacked GEMM's output for that row and column), in fw, then
+// fa (A, mode 2) or fc (C).  One thread a column d of both parts and a
+// group of rows (r = g, g + R, ...): the thread's two weight columns are
+// fixed, it reads each list entry once for both, and a warp's lanes read
+// one row's list at once.  w [., ld]: hop h's slices staged in shared
+// memory (Staged), whose lists hold kList slots and are summed with no
+// branch (the unused slots (0, +0) add +0); else wt itself, read through
+// the cache, whose lists hold L slots and are summed to the row's count.
+// A row longer than its list walks its row of x itself; a row with no
+// nonzero entry is Q(+0).  The parts' columns start at col_a and col_c.
+template <bool Staged, class Q>
+__device__ __forceinline__ void embed_hop(float* st, const int2* list, int L,
+                                          const int* cnt,
+                                          const float* __restrict__ xb,
+                                          const float* w, int ld, int col_a,
+                                          int col_c, int rows, int I, int D,
+                                          const Q& fw, const Q& fa,
+                                          const Q& fc, int hamming) {
+  const int T = blockDim.x;
+  const int R = T >= D ? T / D : 1;
+  const int g = T >= D ? threadIdx.x / D : 0;
+  auto ld_w = [&](const float* p) { return Staged ? *p : __ldg(p); };
+  for (int d = T >= D ? threadIdx.x % D : threadIdx.x; d < D && g < R;
+       d += T) {
+    const float* wa = w + col_a + d;
+    const float* wc = w + col_c + d;
+    const int stride = Staged ? kList : L;
+#pragma unroll 1
+    for (int r = g; r < rows; r += R) {
+      const int n = cnt[r];
+      float a = 0.f, c = 0.f;
+      if (n != 0) {
+        const int4* lr =
+            reinterpret_cast<const int4*>(list + (size_t)r * stride);
+        auto walk = [&](const int4 e) {
+          a = fmaf(__int_as_float(e.y), ld_w(wa + e.x), a);
+          c = fmaf(__int_as_float(e.y), ld_w(wc + e.x), c);
+          a = fmaf(__int_as_float(e.w), ld_w(wa + e.z), a);
+          c = fmaf(__int_as_float(e.w), ld_w(wc + e.z), c);
+        };
+        if constexpr (Staged) {
+#pragma unroll
+          for (int k = 0; k < kList / 2; ++k) walk(lr[k]);
+        } else if (n <= L) {
+#pragma unroll 2
+          for (int k = 0; k < (n + 1) >> 1; ++k) walk(lr[k]);
+        }
+        if (n > stride) {  // longer than its list: x's row itself
+          const float* xr = xb + (size_t)r * I;
+          a = c = 0.f;
+          for (int i = 0; i < I; ++i) {
+            const float v = __ldg(xr + i);
+            if (v != 0.f) {
+              a = fmaf(v, ld_w(wa + (size_t)i * ld), a);
+              c = fmaf(v, ld_w(wc + (size_t)i * ld), c);
+            }
+          }
+        }
+      }
+      const float xa = fw(a);
+      st[r * 2 * D + d] = hamming ? xa : fa(xa);
+      st[r * 2 * D + D + d] = fc(fw(c));
+    }
+  }
+}
+
+// Q(H[h]) in place: the lin map's weights staged raw
+template <class Q>
+__device__ __forceinline__ void requant_h(float* hq, int D, const Q& fw) {
+  const int T = blockDim.x;
+  int i = threadIdx.x / D, j = threadIdx.x % D;
+  const int di = T / D, dj = T % D;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < D * D; e += T) {
+    float* v = hq + i * (D + 1) + j;
+    *v = fw(*v);
+    i += di;
+    j += dj;
+    if (j >= D) {
+      j -= D;
+      ++i;
+    }
+  }
+}
+
 template <class Q, int HamMode>
-__global__ void __launch_bounds__(kMaxThreads)
-hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
+__global__ void __launch_bounds__(kMaxThreads, 2)
+hop_chain_kernel(const float* __restrict__ x,       // [B, M, I]
+                 const float* __restrict__ wt,      // [I, 2K*D] Q(A|C)
+                 int I,
                  const float* __restrict__ u_in,    // [B, D] Q(., fmt_w[0])
                  const float* __restrict__ hmats,   // [K, D, D] raw, or
                                                     // Q(H) if h_quantized
@@ -164,13 +335,20 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
                  float* __restrict__ s_out,         // [K, B, M]
                  int B, int M, int D, int K, int qpb, int linear_mapping,
                  int h_quantized, int non_linearity, int hamming, int vec16,
-                 ChainFormats formats) {
+                 int wstaged, ChainFormats formats) {
   __shared__ QFmt fmt[kSlots];
   __shared__ HamFmt ham[kMaxHops];
   extern __shared__ __align__(16) float smem[];
-  float* stages = smem;                              // [2][qpb*M][2D]
-  float* hq = stages + (size_t)4 * qpb * M * D;       // [D][D+1] Q(H[h])
-  float* u = hq + (size_t)D * (D + 1);                 // [qpb][D]
+  // hq (Q(H[h]), and hop h's weight slices [I][2D] when they are staged; a
+  // 16-byte multiple), the rows' lists of x [qpb*M][kList] and counts
+  // [qpb*M], the stage [qpb*M][2D], then the vectors.  A block with a row
+  // longer than kList lists from the end of Q(H[h]) to the counts instead.
+  const size_t hbuf = hbuf_floats(D, I, wstaged);
+  float* hq = smem;
+  int2* list = reinterpret_cast<int2*>(smem + hbuf);
+  int* cnt = reinterpret_cast<int*>(list + (size_t)qpb * M * kList);
+  float* st = reinterpret_cast<float*>(cnt + qpb * M);
+  float* u = st + (size_t)2 * qpb * M * D;             // [qpb][D]
   float* ubin = u + qpb * D;                           // [qpb][D]
   float* umap = ubin + qpb * D;                        // [qpb][D]
   float* s = umap + qpb * D;                           // [qpb][M]
@@ -185,15 +363,34 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
   const int nq = min(qpb, B - b0);
   const int rows = nq * M;
   const int D2 = 2 * D;
-  const float* fb = flat + (size_t)b0 * M * 2 * K * D;
+  const float* xb = x + (size_t)b0 * M * I;
   // lanes per score row: a power of two that about fills the block
   int G = 1;
   while (G < 32 && 2 * G * qpb * M <= T) G <<= 1;
 
-  stage_hop(stages, fb, rows, D, K, 0, vec16);
-  if (linear_mapping) stage_h(hq, hmats, D, 0);
+  // staged weights share hq with H[h]: W[h] is staged for the embedding,
+  // H[h] after it (and W[h+1] after the lin map)
+  if (wstaged) stage_hop(hq, wt, I, D, K, 0, vec16);
+  if (linear_mapping && !wstaged) stage_h(hq, hmats, D, 0);
+  const bool longer =
+      list_rows(list, kList, cnt, xb, rows, I, wstaged ? D2 : 2 * K * D);
   for (int i = tid; i < 3 * K + 1; i += T) fmt[i] = formats.f[i];
   for (int i = tid; i < K; i += T) ham[i] = formats.ham[i];
+  // a row longer than kList where the weight slices are staged: list
+  // again from the end of Q(H[h]), in the weights' room too, and read the
+  // weights through the cache (W[0] is in flight into that room)
+  bool w_in_hq = wstaged;
+  int L = kList;
+  const size_t h0 = round4((size_t)D * (D + 1));
+  if (__syncthreads_or(longer) && hbuf > h0) {
+    cp_async_wait_all();
+    __syncthreads();
+    w_in_hq = false;
+    if (linear_mapping) stage_h(hq, hmats, D, 0);
+    list = reinterpret_cast<int2*>(smem + h0);
+    L = (int)(((hbuf - h0) / 2 + (size_t)qpb * M * kList) / rows) & ~1;
+    list_rows(list, L, cnt, xb, rows, I, 2 * K * D);
+  }
   __syncthreads();
   const Q fbin = Q::from(fmt[3 * K]);
   for (int t = tid; t < nq * D; t += T) {
@@ -208,46 +405,25 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
     const Q fw = Q::from(fmt[h]);
     const Q fa = Q::from(fmt[K + h]);
     const Q fc = Q::from(fmt[2 * K + h]);
-    float* st = stages + (size_t)(h & 1) * 2 * qpb * M * D;
     const size_t out_off = ((size_t)h * B + b0) * M;
 
-    // hop h's slices and H[h] have landed; hop h-1 is done with the other
-    // stage
+    // H[h] (or hop h's staged weights) have landed; hop h-1 is done with
+    // the stage
     cp_async_wait_all();
     __syncthreads();
-    if (h + 1 < K)
-      stage_hop(stages + (size_t)((h + 1) & 1) * 2 * qpb * M * D, fb, rows,
-                D, K, h + 1, vec16);
 
-    // requantize the slices and H[h] in place
-    {
-      int col = tid % D2;
-      const int step = T % D2;
-#pragma unroll 4
-      for (int e = tid; e < rows * D2; e += T) {
-        const float x = fw(st[e]);
-        st[e] = col < D ? (hamming ? x : fa(x)) : fc(x);
-        col += step;
-        if (col >= D2) col -= D2;
-      }
-    }
-    if (linear_mapping && !h_quantized) {
-      int i = tid / D, j = tid % D;
-      const int di = T / D, dj = T % D;
-#pragma unroll 4
-      for (int e = tid; e < D * D; e += T) {
-        float* v = hq + i * (D + 1) + j;
-        *v = fw(*v);
-        i += di;
-        j += dj;
-        if (j >= D) {
-          j -= D;
-          ++i;
-        }
-      }
-    }
+    // the slices, requantized: embedded from the rows' lists and hop h's
+    // weights (staged in hq, else wt's columns)
+    if (w_in_hq)
+      embed_hop<true>(st, list, L, cnt, xb, hq, D2, 0, D, rows, I, D, fw, fa,
+                      fc, hamming);
+    else
+      embed_hop<false>(st, list, L, cnt, xb, wt, 2 * K * D, h * D,
+                       (K + h) * D, rows, I, D, fw, fa, fc, hamming);
+    if (linear_mapping && !h_quantized && !w_in_hq) requant_h(hq, D, fw);
     __syncthreads();
-
+    // staged weights: hq is spent; H[h] lands during the score
+    if (w_in_hq && linear_mapping) stage_h(hq, hmats, D, h);
     // score: G lanes per (query, memory row), a shuffle sum over the G
     // lanes (every lane of the block takes each round, so the shuffles
     // see full warps)
@@ -283,6 +459,14 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
         }
       }
     }
+    if (w_in_hq && linear_mapping) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (!h_quantized) {
+        requant_h(hq, D, fw);
+        __syncthreads();
+      }
+    }
     // lin map: one thread per (query, output row) walks its row of Q(H)
     // (neighbouring threads: neighbouring rows, an odd stride apart)
     if (linear_mapping) {
@@ -303,8 +487,12 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
       }
     }
     __syncthreads();
-    // Q(H[h]) is spent: H[h+1] lands during the softmax and weighted sum
-    if (linear_mapping && h + 1 < K) stage_h(hq, hmats, D, h + 1);
+    // Q(H[h]) is spent: H[h+1], or W[h+1] when staged, lands during the
+    // softmax and weighted sum
+    if (w_in_hq && h + 1 < K)
+      stage_hop(hq, wt, I, D, K, h + 1, vec16);
+    else if (linear_mapping && h + 1 < K)
+      stage_h(hq, hmats, D, h + 1);
 
     // masked softmax: one warp per query, rows lane and lane+32
     for (int q = warp; q < nq; q += T >> 5) {
@@ -359,12 +547,13 @@ hop_chain_kernel(const float* __restrict__ flat,    // [B, M, 2K*D] raw GEMM
 }
 
 template <class Q, int HamMode>
-int launch(const float* flat, const float* u, const float* hmats,
-           const int* mask, float* u_out, float* p_out, float* s_out, int B,
-           int M, int D, int K, int qpb, int threads, int linear_mapping,
-           int h_quantized, int non_linearity, int hamming,
-           const ChainFormats& formats, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats(qpb, M, D);
+int launch(const float* x, const float* wt, int I, const float* u,
+           const float* hmats, const int* mask, float* u_out, float* p_out,
+           float* s_out, int B, int M, int D, int K, int qpb, int threads,
+           int linear_mapping, int h_quantized, int non_linearity,
+           int hamming, int wstaged, const ChainFormats& formats,
+           cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * smem_floats(qpb, M, D, I, wstaged);
   // raised once per instance and device (the attribute is per device)
   static bool opted_in[64] = {};
   int dev = 0;
@@ -372,21 +561,25 @@ int launch(const float* flat, const float* u, const float* hmats,
   if (bytes > 48 * 1024 && !(dev < 64 && opted_in[dev])) {
     const cudaError_t rc = cudaFuncSetAttribute(
         hop_chain_kernel<Q, HamMode>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemLimit);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (rc != cudaSuccess) return (int)rc;
     if (dev < 64) opted_in[dev] = true;
   }
-  const int vec16 = D % 4 == 0 && ((uintptr_t)flat & 15u) == 0;
+  // 16-byte copies of the staged weight slices
+  const int vec16 = D % 4 == 0 && ((uintptr_t)wt & 15u) == 0;
   const int blocks = (B + qpb - 1) / qpb;
   hop_chain_kernel<Q, HamMode><<<blocks, threads, bytes, stream>>>(
-      flat, u, hmats, mask, u_out, p_out, s_out, B, M, D, K, qpb,
-      linear_mapping, h_quantized, non_linearity, hamming, vec16, formats);
+      x, wt, I, u, hmats, mask, u_out, p_out, s_out, B, M, D, K, qpb,
+      linear_mapping, h_quantized, non_linearity, hamming, vec16, wstaged,
+      formats);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// x: the bag-of-words memory [B, M, I] (I >= 1), which the kernel embeds
+// with wt = Q(A|C) [I, 2K*D], row-major and contiguous, hop h's weight
+// slices staged in shared memory when wstaged, else read from wt.
 // fmts: host array of (iwl, frac, mode) triples for the 3K+1 slots
 // w[0..K), att[0..K), act[0..K), bin.  attention_mode 2 or 3; ham_knobs:
 // num_bit, const_scale, weight_para and weighted of the mode-3 score,
@@ -398,18 +591,19 @@ int launch(const float* flat, const float* u, const float* hmats,
 // most 30 bits and all share one rounding mode, else AnyQ.  Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes,
 // geometry, formats, modes or knobs out of range).
-extern "C" int qmann_hop_chain(const float* flat, const float* u,
-                               const float* hmats, const int* mask,
-                               float* u_out, float* p_out, float* s_out,
-                               int B, int M, int D, int K, const int* fmts,
-                               int linear_mapping, int hmats_quantized,
-                               int non_linearity, int attention_mode,
-                               const int* ham_knobs, int qpb, int threads,
+extern "C" int qmann_hop_chain(const float* x, const float* wt, int I,
+                               const float* u, const float* hmats,
+                               const int* mask, float* u_out, float* p_out,
+                               float* s_out, int B, int M, int D, int K,
+                               const int* fmts, int linear_mapping,
+                               int hmats_quantized, int non_linearity,
+                               int attention_mode, const int* ham_knobs,
+                               int qpb, int threads, int wstaged,
                                void* stream) {
   if (B < 1 || M < 1 || M > kMaxMem || D < 1 || D > kMaxDim || K < 1 ||
-      K > kMaxHops || qpb < 1 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 ||
-      sizeof(float) * smem_floats(qpb, M, D) > (size_t)kSmemLimit)
+      K > kMaxHops || I < 1 || qpb < 1 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      sizeof(float) * smem_floats(qpb, M, D, I, wstaged) > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
   ChainFormats formats = {};
   bool fast = true;
@@ -433,10 +627,10 @@ extern "C" int qmann_hop_chain(const float* flat, const float* u,
         formats.ham[h].full.mode != ham_mode)
       return (int)cudaErrorInvalidValue;
   const auto st = (cudaStream_t)stream;
-#define QMANN_CHAIN_LAUNCH(QT, HM)                                          \
-  launch<QT, HM>(flat, u, hmats, mask, u_out, p_out, s_out, B, M, D, K,     \
-                 qpb, threads, linear_mapping, hmats_quantized,             \
-                 non_linearity, hamming, formats, st)
+#define QMANN_CHAIN_LAUNCH(QT, HM)                                        \
+  launch<QT, HM>(x, wt, I, u, hmats, mask, u_out, p_out, s_out, B, M, D, K, \
+                 qpb, threads, linear_mapping, hmats_quantized,            \
+                 non_linearity, hamming, wstaged != 0, formats, st)
   switch (ham_mode) {
     case 0:
       return fast ? QMANN_CHAIN_LAUNCH(FastQ<0>, 0)

@@ -66,7 +66,7 @@ from qmann_tpu_torch.ops import (CEMetrics, activation, apply_softmax,
                                  exact_matmul, qembed_mat_multi, qmatvec,
                                  qsum, qweighted_sum, scale_apply)
 from qmann_tpu_torch.ops.attention import attention_score
-from qmann_tpu_torch.ops.cuda import fused_hop_chain
+from qmann_tpu_torch.ops.cuda import fused_hop_chain_from_memory
 from qmann_tpu_torch.ops.fused import fused_attention_read
 from qmann_tpu_torch.ops.losses import argmax_last
 from qmann_tpu_torch.ops.qlinear import integer_fast_ok
@@ -471,11 +471,12 @@ def forward_prepared(prep: PreparedInference, memory: torch.Tensor,
     if not prep.fast:
         return forward(prep.raw, memory, question, mask, cfg)
     fmt_w = cfg.fmt_w
-    u, flat = _prepared_gemms(prep, memory, question, cfg)
     if _use_chain(cfg):
+        # the chain embeds the memory itself: no [B, M, 2K*D] product
         cached = prep.hmats_q is not None
-        u_fin, p, s = fused_hop_chain(
-            flat, u, prep.hmats_q if cached else prep.hmats, mask, fmt_w,
+        u_fin, p, s = fused_hop_chain_from_memory(
+            memory, prep.embed_wt, _prepared_question(prep, question, cfg),
+            prep.hmats_q if cached else prep.hmats, mask, fmt_w,
             cfg.fmt_att, cfg.fmt_bin,
             cfg.fmt_act, linear_mapping=cfg.en_linear_mapping,
             non_linearity=cfg.en_non_linearity,
@@ -487,6 +488,7 @@ def forward_prepared(prep: PreparedInference, memory: torch.Tensor,
         logits = qmatvec(_output_weight(prep.raw, cfg), u_fin,
                          cfg.fmt_ds_ans, cfg.fmt_ds_ans, quantized=False)
         return ForwardResult(logits, p, s)
+    u, flat = _prepared_gemms(prep, memory, question, cfg)
     return _hop_stack(prep.raw, cfg, u, _split_embeddings(flat, cfg), mask,
                       False, "kernel" if cfg.use_pallas else "plain")
 
@@ -500,11 +502,17 @@ def _split_embeddings(flat: torch.Tensor, cfg: QmannConfig):
     return torch.split(flatq, D, dim=-1)
 
 
+def _prepared_question(prep: PreparedInference, question: torch.Tensor,
+                       cfg: QmannConfig) -> torch.Tensor:
+    """u = Q(B q): an exact f32 GEMM on the cached quantized transpose."""
+    return float_quant(exact_matmul(question, prep.query_wt), cfg.fmt_w[0])
+
+
 def _prepared_gemms(prep: PreparedInference, memory: torch.Tensor,
                     question: torch.Tensor, cfg: QmannConfig):
     """u = Q(B q) and the stacked 2K hop embeddings [B, M, 2K*D]: exact
     f32 GEMMs on the cached quantized transposes."""
-    return (float_quant(exact_matmul(question, prep.query_wt), cfg.fmt_w[0]),
+    return (_prepared_question(prep, question, cfg),
             exact_matmul(memory, prep.embed_wt))
 
 

@@ -101,7 +101,8 @@ def verify_kernels(rng: Optional[np.random.Generator] = None,
     over I) and the Hamming score bit for bit; the Hamming surrogate
     backward's dm bit for bit and du within the rounding of a sum over the
     memory rows in another order; the attention read (mode 2)
-    and the hop chain with their scores bit for bit, p within
+    and the hop chain (embedding a bag-of-words memory) with their scores
+    bit for bit, p within
     TH_ERROR_FLOAT, and the output bit for bit in every query whose
     Q(p, act) did not flip (at most one may); the weighted sum's
     quantized backward bit for bit (8-bit words: every sum exact), and its
@@ -195,12 +196,18 @@ def verify_kernels(rng: Optional[np.random.Generator] = None,
                     compare(f"{name} ds kernel-vs-plain", ds_g, ds_w,
                             threshold=ds_tol)]
 
-    K = cfg.num_hops
-    chain_args = (t(B, M, 2 * K * D), float_quant(t(B, D), cfg.fmt_w[0]),
-                  t(K, D, D, sd=0.3), mask.to(dev), cfg.fmt_w, cfg.fmt_att,
-                  cfg.fmt_bin, cfg.fmt_act)
-    (u_g, p_g, s_g) = hop_chain.fused_hop_chain(*chain_args)
-    (u_w, p_w, s_w) = hop_chain.fused_hop_chain_reference(*chain_args)
+    # the chain from a bag-of-words memory (counts 0..2, I=24) and Q(A|C)
+    # on the fmt_w lattice: every embedding sum exact
+    K, I = cfg.num_hops, 24
+    memory = torch.from_numpy(
+        rng.integers(0, 3, (B, M, I)).astype(np.float32)).to(dev)
+    chain_args = (memory, float_quant(t(I, 2 * K * D), cfg.fmt_w[0]),
+                  float_quant(t(B, D), cfg.fmt_w[0]), t(K, D, D, sd=0.3),
+                  mask.to(dev), cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
+                  cfg.fmt_act)
+    (u_g, p_g, s_g) = hop_chain.fused_hop_chain_from_memory(*chain_args)
+    (u_w, p_w, s_w) = hop_chain.fused_hop_chain_from_memory_reference(
+        *chain_args)
     keep = _unflipped(p_g, p_w, cfg.fmt_act)
     results += [compare("hop_chain hop-0 scores kernel-vs-plain", s_g[0],
                         s_w[0], threshold=0.0),

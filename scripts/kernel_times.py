@@ -19,13 +19,22 @@ for the read
 and the Hamming kernel also the wrapper's host time (host_us: the host
 clock per call over 100 calls issued without a wait, median of 7 samples).
 Groups (--only takes a comma-separated subset; default all):
-  chain    the chain at B=1000, attention modes 2 and 3, on the flagship
-           (M=10, I=29, D=60, K=3) and wide (M=50, I=114) inputs
-           chip_smoke.py makes, on raw H and, where prepare_inference
-           caches it, on Q(H) with the kernel's requant skipped ("cached":
-           the serving path's launch); forward_prepared at B=1000 on the
-           kernel route, modes 2 and 3: event time, the profiler's device
-           busy time and the idle share;
+  chain    the chain's serving launch at B=1000, attention modes 2 and 3,
+           on the flagship (M=10, I=29, D=60, K=3), wide (M=50, I=114;
+           the serve cell's shape) and wide W11 (rows of 10 to 12 nonzero
+           entries) inputs chip_smoke.py makes, on raw H and, where
+           prepare_inference caches it, on Q(H) with the kernel's requant
+           skipped ("cached"): fused_hop_chain_from_memory where the
+           checkout has it, else the exact GEMM then the chain from flat;
+           held against the plain chain (chip_smoke.compare_chain); event
+           ms, the profiler's busy ms and kernel records a call, the
+           chain kernel's device ms a launch, and the sha256 of u's, p's
+           and s's bytes (equal digests: bit-identical outputs across
+           checkouts);
+           forward_prepared at B=1000 on the chain route, modes 2 and 3,
+           each layout: event time, the profiler's device busy time,
+           kernel records a call, the idle share and the sha256 of the
+           logits', p's and s's bytes;
   qmatvec  qmatvec on the A embedding at 320 rows (B=32, M=10), 1600 rows
            (the wide layout, B=32, M=50) and 10240 rows (an evaluation
            chunk, B=1024); the question embedding (32 rows of I=19) and a
@@ -90,7 +99,10 @@ BATCH = 1000
 GROUPS = ("chain", "qmatvec", "read", "hamming", "hamming_bwd", "wsum_bwd",
           "steps", "state")
 STATES = ("idle", "busy", "idle", "busy")
-CHAIN_SHAPES = {"flagship": (19, 10, 6), "wide": (64, 50, 7)}
+# (V, M, W): the flagship, the wide layout (the serve cell's), and the wide
+# layout with rows of 10 to 12 nonzero entries (11 words and the time bit)
+CHAIN_SHAPES = {"flagship": (19, 10, 6), "wide": (64, 50, 7),
+                "wide W11": (64, 50, 11)}
 QMV_SHAPES = {"320": (32, 19, 10, 6), "1600": (32, 64, 50, 7),
               "10240": (1024, 19, 10, 6),
               # past the whole-row limit: the joint block's memory
@@ -288,9 +300,12 @@ def main():
            "hamming": {}, "hamming_bwd": {}, "wsum_bwd": {}, "steps": {},
            "state": {}}
 
-    def digest(t):
+    def digest(*tensors):
         import hashlib
-        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
 
     def times(fn):
         with torch.inference_mode():
@@ -324,6 +339,23 @@ def main():
     def report(group, key):
         print(f"[kernel_times] {group} {key}: {out[group][key]}", flush=True)
 
+    def chain_times(fn):
+        """Event ms of one call of fn, the profiler's device busy ms a
+        call, its kernel records a call and the chain kernel's device ms
+        a launch."""
+        with torch.inference_mode():
+            kernels = cs.device_ms(fn)
+            chain = [ms / n for k, (ms, n) in kernels.items()
+                     if "hop_chain_kernel" in k and n > 0]
+            return {"ms": cs.cuda_ms(fn),
+                    "busy_ms": sum(ms for ms, _ in kernels.values()),
+                    "launches": sum(n for _, n in kernels.values()),
+                    "chain_device_ms": chain[0] if chain else None}
+
+    # the serving launch: from the memory where the checkout has the
+    # entry, else the exact GEMM then the chain from flat
+    from_memory = getattr(hop_chain, "fused_hop_chain_from_memory", None)
+    from_flat = getattr(hop_chain, "fused_hop_chain", None)
     for attention_mode in (2, 3) if "chain" in groups else ():
         cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode)
         kw = dict(attention_mode=attention_mode,
@@ -333,34 +365,44 @@ def main():
             _, _, prep = cs.scaled_prepared(cfg, dims, mem, dev)
             mem_t, que_t, mask_t = (torch.from_numpy(a).to(dev)
                                     for a in (mem, que, mask))
-            chain_args = (exact_matmul(mem_t, prep.embed_wt),
-                          float_quant(exact_matmul(que_t, prep.query_wt),
-                                      cfg.fmt_w[0]),
-                          prep.hmats, mask_t, cfg.fmt_w, cfg.fmt_att,
-                          cfg.fmt_bin, cfg.fmt_act)
+            u = float_quant(exact_matmul(que_t, prep.query_wt), cfg.fmt_w[0])
+            fmts = (mask_t, cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin, cfg.fmt_act)
             key = f"mode{attention_mode} {name}"
-            got = hop_chain.fused_hop_chain(*chain_args, **kw)
-            want = hop_chain.fused_hop_chain_reference(*chain_args, **kw)
-            _, flips, good = cs.compare_chain(cfg, got, want)
-            if not good:
-                cs.fail(f"chain disagrees with its plain version ({key})")
-            out["chain"][key] = {**times(
-                lambda: hop_chain.fused_hop_chain(*chain_args, **kw)),
-                "flipped": flips}
-            report("chain", key)
+            lin_maps = {key: (prep.hmats, False)}
             if getattr(prep, "hmats_q", None) is not None:
-                cached = (*chain_args[:2], prep.hmats_q, *chain_args[3:])
-                ck = f"{key} cached"
-                out["chain"][ck] = times(lambda: hop_chain.fused_hop_chain(
-                    *cached, hmats_quantized=True, **kw))
-                report("chain", ck)
-            if name == "flagship":
-                batch = (mem_t, que_t, mask_t)
+                lin_maps[f"{key} cached"] = (prep.hmats_q, True)
+            for ck, (hm, q) in lin_maps.items():
+                if from_memory is not None:
+                    def launch(hm=hm, q=q):
+                        return from_memory(mem_t, prep.embed_wt, u, hm,
+                                           *fmts, hmats_quantized=q, **kw)
+                else:
+                    def launch(hm=hm, q=q):
+                        return from_flat(exact_matmul(mem_t, prep.embed_wt),
+                                         u, hm, *fmts, hmats_quantized=q,
+                                         **kw)
                 with torch.inference_mode():
-                    fp = busy(lambda: memn2n.forward_prepared(
-                        prep, *batch, cfg), {})
-                out["forward_prepared"][f"mode{attention_mode}"] = fp
-                report("forward_prepared", f"mode{attention_mode}")
+                    got = launch()
+                want = hop_chain.fused_hop_chain_reference(
+                    exact_matmul(mem_t, prep.embed_wt), u, prep.hmats,
+                    *fmts, **kw)
+                _, flips, good = cs.compare_chain(cfg, got, want)
+                if not good:
+                    cs.fail(f"chain disagrees with its plain version ({ck})")
+                out["chain"][ck] = {
+                    "route": ("from the memory" if from_memory is not None
+                              else "exact GEMM, then from flat"),
+                    **chain_times(launch), "flipped": flips,
+                    "sha256": digest(*got)}
+                report("chain", ck)
+            batch = (mem_t, que_t, mask_t)
+            with torch.inference_mode():
+                fp = busy(lambda: memn2n.forward_prepared(prep, *batch, cfg),
+                          {})
+                res = memn2n.forward_prepared(prep, *batch, cfg)
+            fp["sha256"] = digest(res.logits, res.attention, res.scores)
+            out["forward_prepared"][key] = fp
+            report("forward_prepared", key)
 
     cfg = QmannConfig(use_pallas=True)
     for key, (B, V, M, W) in QMV_SHAPES.items() if "qmatvec" in groups else ():

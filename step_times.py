@@ -50,7 +50,8 @@ CONFIGS = (("mode 2 iwl 5, use_pallas", dict(use_pallas=True)),
             dict(attention_mode=3, iwl=1, use_pallas_hamming=True)))
 STEPS, TOP = 10, 12
 # each kernel module of the port and the wrapper that counts its launches
-WRAPPERS = (("hop_chain", "fused_hop_chain"), ("qmatvec", "quantized_matvec"),
+WRAPPERS = (("hop_chain", "fused_hop_chain_from_memory"),
+            ("qmatvec", "quantized_matvec"),
             ("attention_read", "fused_read"),
             ("hamming", "hamming_score_kernel"),
             ("hamming_bwd", "hamming_backward_kernel"),

@@ -20,7 +20,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from qmann_tpu_torch.config import QmannConfig  # noqa: E402
 from qmann_tpu_torch.numerics import float_quant  # noqa: E402
+from qmann_tpu_torch.ops import exact_matmul  # noqa: E402
 from qmann_tpu_torch.ops.cuda import hop_chain  # noqa: E402
+
+CHAIN = hop_chain.fused_hop_chain_from_memory
 
 
 def _chain_inputs(rng, tying, B=7, M=5, D=8, K=3, I=17, scale=0.6):
@@ -147,11 +150,11 @@ def _forward_prepared_vs_jax(rng, tying, linmap, relu, mode):
         want = jmodel.forward_prepared(jprep, jnp.asarray(mem),
                                        jnp.asarray(que), jnp.asarray(mask),
                                        jcfg)
-    before = hop_chain.fused_hop_chain.launches
+    before = CHAIN.launches
     got = memn2n.forward_prepared(prep, torch.from_numpy(mem),
                                   torch.from_numpy(que),
                                   torch.from_numpy(mask), cfg)
-    assert hop_chain.fused_hop_chain.launches == before   # CPU: plain chain
+    assert CHAIN.launches == before   # CPU: plain chain
     p_w, p_g = np.array(want.attention), got.attention.numpy()
     s_w, s_g = np.array(want.scores), got.scores.numpy()
     np.testing.assert_array_equal(s_g[0], s_w[0])
@@ -202,57 +205,61 @@ def test_float_quant_is_idempotent_up_to_30_bits(mode):
                                twice.view(torch.int32)), fmt
 
 
+def _memory_args(rng, fmts_act=None):
+    """fused_hop_chain_from_memory's arguments on _embedded_inputs."""
+    cfg, mem, wt, u, hm, mask = _embedded_inputs(rng, 2)
+    return cfg, (*(torch.from_numpy(a) for a in (mem, wt, u, hm, mask)),
+                 cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin, fmts_act or cfg.fmt_act)
+
+
 def test_wrapper_on_cpu_never_builds(rng, monkeypatch):
     def no_build():
         raise AssertionError("the CPU path must not touch the CUDA build")
     monkeypatch.setattr(hop_chain, "build", no_build)
     monkeypatch.setattr(hop_chain, "load_library", no_build)
-    cfg, flat, u, hm, mask = _chain_inputs(rng, 2)
-    args = (torch.from_numpy(flat), torch.from_numpy(u), torch.from_numpy(hm),
-            torch.from_numpy(mask), cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
-            cfg.fmt_act)
-    before = hop_chain.fused_hop_chain.launches
-    got = hop_chain.fused_hop_chain(*args)
-    want = hop_chain.fused_hop_chain_reference(*args)
+    _, args = _memory_args(rng)
+    before = CHAIN.launches
+    got = CHAIN(*args)
+    want = hop_chain.fused_hop_chain_from_memory_reference(*args)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert hop_chain.fused_hop_chain.launches == before
+    assert CHAIN.launches == before
 
 
 def test_wrapper_raises_on_mode_3(rng):
     """Mode 3 raises on Hamming knobs outside the kernel's ranges, on
     every device; a mode the chain does not cover raises too."""
-    cfg, flat, u, hm, mask = _chain_inputs(rng, 2)
-    args = (torch.from_numpy(flat), torch.from_numpy(u), torch.from_numpy(hm),
-            torch.from_numpy(mask), cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
-            cfg.fmt_act)
-    for fn in (hop_chain.fused_hop_chain,
-               hop_chain.fused_hop_chain_reference):
+    _, args = _memory_args(rng)
+    flat_args = (exact_matmul(args[0], args[1]), *args[2:])
+    for fn, a in ((CHAIN, args),
+                  (hop_chain.fused_hop_chain_reference, flat_args)):
         for knobs in (dict(ham_num_bit=0), dict(ham_const_scale=-65)):
             with pytest.raises(ValueError, match="num_bit in"):
-                fn(*args, attention_mode=3, **knobs)
+                fn(*a, attention_mode=3, **knobs)
         with pytest.raises(ValueError, match="modes 2 and 3"):
-            fn(*args, attention_mode=1)
+            fn(*a, attention_mode=1)
 
 
 @pytest.mark.parametrize("M,D", [(1, 1), (10, 60), (50, 60), (64, 1),
                                  (1, 128), (64, 128)])
 def test_chain_geometry_covers_every_query_once(M, D):
-    """For every B from 1 to 2100 (and B=100000) at the kernel's limits:
-    block b takes queries [b*qpb, min((b+1)*qpb, B)), so the blocks cover
-    each query exactly once; shared memory fits the 227 KB a block may
-    take, the opt-in flag is set exactly above 48 KB, and the threads are
-    whole warps within the kernel's 512."""
+    """For every B from 1 to 2100 (and B=100000) at the kernel's limits,
+    from a memory of the flagship's 29 entries a row: block b takes
+    queries [b*qpb, min((b+1)*qpb, B)), so the blocks cover each query
+    exactly once; shared memory fits the 227 KB a block may take, the
+    opt-in flag is set exactly above 48 KB, and the threads are whole
+    warps within the kernel's 512."""
     for B in [*range(1, 2101), 100000]:
         for K in (1, hop_chain.MAX_HOPS):
-            geo = hop_chain.chain_geometry(B, M, D, K)
+            geo = hop_chain.chain_geometry(B, M, D, K, 29)
             qpb = geo.queries_per_block
             assert qpb >= 1 and (geo.blocks - 1) * qpb < B <= geo.blocks * qpb
             covered = np.zeros(B, np.int64)
             for b in range(geo.blocks):
                 covered[b * qpb:min((b + 1) * qpb, B)] += 1
             assert (covered == 1).all()
-            assert geo.smem_bytes == hop_chain.chain_smem_bytes(qpb, M, D)
+            assert geo.smem_bytes == hop_chain.chain_smem_bytes(
+                qpb, M, D, 29, geo.weights_staged)
             assert geo.smem_bytes <= hop_chain.SMEM_LIMIT <= 227 * 1024
             assert geo.opt_in == (geo.smem_bytes > 48 * 1024)
             assert geo.threads % 32 == 0
@@ -260,12 +267,17 @@ def test_chain_geometry_covers_every_query_once(M, D):
 
 
 def test_chain_geometry_keeps_the_largest_shape_in_one_block():
-    """At K=8, M=64, D=128 one query per block still fits (two stages of
-    64 x 256 floats, Q(H)^T 128 x 129, the per-query vectors)."""
-    geo = hop_chain.chain_geometry(1, 64, 128, 8)
-    assert geo.queries_per_block == 1 and geo.opt_in
-    assert geo.smem_bytes == 4 * (4 * 64 * 128 + 128 * 129 + 3 * 128
-                                  + 3 * 64)
+    """At K=8, M=64, D=128 one query per block still fits, from a memory
+    of 1 entry a row (its weight slices staged in the buffer of Q(H)) and
+    of 1050 (read through the cache): Q(H) 128 x 129, the rows' lists of
+    8 pairs and counts, one stage of 64 x 256 floats, the per-query
+    vectors."""
+    for I, staged in ((1, True), (1050, False)):
+        geo = hop_chain.chain_geometry(1, 64, 128, 8, I)
+        assert geo.queries_per_block == 1 and geo.opt_in
+        assert geo.weights_staged == staged
+        assert geo.smem_bytes == 4 * (128 * 129 + 64 * (2 * 128 + 2 * 8 + 1)
+                                      + 3 * 128 + 3 * 64)
 
 
 def test_wrapper_on_cpu_takes_mixed_rounding_modes(rng):
@@ -273,12 +285,124 @@ def test_wrapper_on_cpu_takes_mixed_rounding_modes(rng):
     refuses formats that mix modes on the card (tests/test_torch_cuda.py);
     the plain version, which CPU tensors take, keeps accepting them."""
     from qmann_tpu_torch.numerics import QFormat
-    cfg, flat, u, hm, mask = _chain_inputs(rng, 2)
-    fmts_act = (QFormat(5, 2, 0),) + cfg.fmt_act[1:]
-    args = (torch.from_numpy(flat), torch.from_numpy(u), torch.from_numpy(hm),
-            torch.from_numpy(mask), cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
-            fmts_act)
-    got = hop_chain.fused_hop_chain(*args)
-    want = hop_chain.fused_hop_chain_reference(*args)
+    cfg = QmannConfig(dim_emb=8, num_hops=3)
+    _, args = _memory_args(rng, (QFormat(5, 2, 0),) + cfg.fmt_act[1:])
+    got = CHAIN(*args)
+    want = hop_chain.fused_hop_chain_from_memory_reference(*args)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _embedded_inputs(rng, tying, B=7, M=5, D=8, K=3, I=17, scale=0.6):
+    """The embedded chain's inputs: bag-of-words counts (0..2, padded rows
+    left nonzero, the last query all padding), embed_wt = Q(A|C) [I, 2K*D]
+    quantized per hop at fmt_w, u quantized at fmt_w[0], lin maps of sd
+    `scale`."""
+    cfg = QmannConfig(dim_emb=D, num_hops=K)
+    mem = rng.integers(0, 3, (B, M, I)).astype(np.float32)
+    mask = np.arange(M)[None, :] < rng.integers(1, M + 1, B)[:, None]
+    mask[-1] = False
+    emb = torch.from_numpy(rng.normal(0.0, scale, (I, 2 * K * D))
+                           .astype(np.float32))
+    wt = torch.cat([float_quant(emb[:, j * D:(j + 1) * D], cfg.fmt_w[j % K])
+                    for j in range(2 * K)], dim=1).numpy()
+    que = rng.integers(0, 3, (B, I)).astype(np.float32)
+    u_raw = que @ rng.normal(0.0, scale, (I, D)).astype(np.float32)
+    u = float_quant(torch.from_numpy(u_raw), cfg.fmt_w[0]).numpy()
+    hm = rng.normal(0.0, scale, (K if tying == 1 else 1, D, D))
+    hm = np.broadcast_to(hm, (K, D, D)).astype(np.float32).copy()
+    return cfg, mem, wt, u, hm, mask
+
+
+@pytest.mark.parametrize("mode", [2, 3])
+@pytest.mark.parametrize("tying,linmap,relu", [(1, True, False),
+                                               (2, False, True)])
+def test_embedded_chain_reference_matches_jax(rng, tying, linmap, relu,
+                                              mode):
+    """fused_hop_chain_from_memory's plain version (the exact stacked GEMM,
+    then the plain chain) against JAX's _mxu_matmul then
+    fused_hop_chain_pallas (interpret mode), on padded rows with nonzero
+    counts and an all-padding query: the module docstring's tolerances,
+    and the product itself bit-identical."""
+    from qmann_tpu.ops.qlinear import _mxu_matmul
+    B = 7
+    cfg, mem, wt, u, hm, mask = _embedded_inputs(rng, tying, B=B)
+    flat = np.array(_mxu_matmul(jnp.asarray(mem), jnp.asarray(wt), True))
+    np.testing.assert_array_equal(
+        flat, exact_matmul(torch.from_numpy(mem), torch.from_numpy(wt)))
+    want, _ = _run_both(cfg, flat, u, hm, mask, linmap, relu, mode=mode)
+    got = hop_chain.fused_hop_chain_from_memory_reference(
+        torch.from_numpy(mem), torch.from_numpy(wt), torch.from_numpy(u),
+        torch.from_numpy(hm), torch.from_numpy(mask), cfg.fmt_w,
+        cfg.fmt_att, cfg.fmt_bin, cfg.fmt_act, linear_mapping=linmap,
+        non_linearity=relu, attention_mode=mode,
+        ham_num_bit=cfg.num_bits_attention)
+    assert _check_chain(cfg, want, [t.numpy() for t in got], B) <= 1
+
+
+def test_embedded_wrapper_on_cpu_never_builds(rng, monkeypatch):
+    """On CPU tensors fused_hop_chain_from_memory is its plain version, which
+    is the plain chain on exact_matmul(memory, embed_wt) bit for bit, and
+    counts no launch."""
+    def no_build():
+        raise AssertionError("the CPU path must not touch the CUDA build")
+    monkeypatch.setattr(hop_chain, "build", no_build)
+    monkeypatch.setattr(hop_chain, "load_library", no_build)
+    cfg, mem, wt, u, hm, mask = _embedded_inputs(rng, 2)
+    mem_t, wt_t = torch.from_numpy(mem), torch.from_numpy(wt)
+    rest = (torch.from_numpy(u), torch.from_numpy(hm), torch.from_numpy(mask),
+            cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin, cfg.fmt_act)
+    counts = (CHAIN.launches, CHAIN.embedded_launches)
+    for mode in (2, 3):
+        got = CHAIN(mem_t, wt_t, *rest, attention_mode=mode)
+        want = hop_chain.fused_hop_chain_reference(
+            exact_matmul(mem_t, wt_t), *rest, attention_mode=mode)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert (CHAIN.launches, CHAIN.embedded_launches) == counts
+
+
+@pytest.mark.parametrize("I", [1, 29, 114, 1050])
+@pytest.mark.parametrize("M,D", [(1, 1), (10, 60), (50, 60), (64, 1),
+                                 (1, 128), (64, 128)])
+def test_embedded_chain_geometry_fits(M, D, I):
+    """The launch's geometry, for every B from 1 to 2100 (and B=100000)
+    over the kernel's limits and memories of 1 to 1050 entries a row: the
+    blocks cover each query once, one stage of slices, the rows' lists of
+    x and the weight slices where they are staged fit the 227 KB a block
+    may take, the slices are staged wherever they fit beside one query,
+    the opt-in flag is set exactly above 48 KB, and the threads are whole
+    warps within 512.  A block with a longer row than LIST_ENTRIES, full
+    or the last: its lists get an even number of at least LIST_ENTRIES
+    slots a row, within the room from the end of Q(H) to the counts."""
+    for B in [*range(1, 2101), 100000]:
+        for K in (1, hop_chain.MAX_HOPS):
+            geo = hop_chain.chain_geometry(B, M, D, K, I)
+            qpb = geo.queries_per_block
+            assert qpb >= 1 and (geo.blocks - 1) * qpb < B <= geo.blocks * qpb
+            assert geo.smem_bytes == hop_chain.chain_smem_bytes(
+                qpb, M, D, I, geo.weights_staged)
+            assert geo.smem_bytes <= hop_chain.SMEM_LIMIT <= 227 * 1024
+            assert geo.weights_staged == (hop_chain.chain_smem_bytes(
+                1, M, D, I, True) <= hop_chain.SMEM_LIMIT)
+            assert geo.opt_in == (geo.smem_bytes > 48 * 1024)
+            assert geo.threads % 32 == 0
+            assert 32 <= geo.threads <= hop_chain.MAX_THREADS
+            h0 = -(-D * (D + 1) // 4) * 4
+            hbuf = geo.smem_bytes // 4 - qpb * M * (
+                2 * D + 2 * hop_chain.LIST_ENTRIES + 1) - 3 * qpb * (D + M)
+            last = B - (geo.blocks - 1) * qpb
+            for rows in {qpb * M, last * M}:
+                L = hop_chain.list_slots(qpb, rows, M, D, I,
+                                         geo.weights_staged)
+                assert L % 2 == 0 and L >= hop_chain.LIST_ENTRIES
+                room = ((hbuf - h0) // 2 if L > hop_chain.LIST_ENTRIES
+                        else 0) + qpb * M * hop_chain.LIST_ENTRIES
+                assert rows * L <= room
+    assert hop_chain.chain_geometry(1000, 50, 60, 3, 114).weights_staged
+    assert not hop_chain.chain_geometry(1000, 50, 60, 3, 1050).weights_staged
+    # the serve cell's shape: 2 queries a block, 58 slots a row when a row
+    # is longer than 8
+    geo = hop_chain.chain_geometry(1000, 50, 60, 3, 114)
+    assert geo.queries_per_block == 2
+    assert hop_chain.list_slots(2, 100, 50, 60, 114, True) == 58

@@ -6,10 +6,14 @@ jax; tests/conftest.py imports jax, so skip it there:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances.  Chain (as tests/test_torch_chain.py): hop 0's scores
-bit-identical, p within atol 1e-6, at most one query with a flipped
-Q(p, act) requant, and every other query bit-identical in all scores and in
-u_final.  qmatvec: bit-identical (exact lattice sums).  Mode-2 attention
+Tolerances.  Chain (fused_hop_chain_from_memory against its plain
+version, as tests/test_torch_chain.py): hop 0's scores bit-identical, p
+within atol 1e-6, at most one query with a flipped Q(p, act) requant, and
+every other query bit-identical in all scores and in u_final.  Its own
+embedding: bit-identical to the kernel on the exact GEMM's output with the
+identity as weights (the embedding sums are exact in any order under
+prepare_inference's bounds, and x * 1 plus +-0 terms is x).  qmatvec:
+bit-identical (exact lattice sums).  Mode-2 attention
 read: scores bit-identical, p within atol 1e-6, o bit-identical but for at
 most one flipped query.  Mode-1 read: rtol 1e-5, atol 1e-6 (float sums in
 another order).  Hamming score kernel: bit-identical (integer work and
@@ -59,7 +63,7 @@ def cuda():
 
 def _chain_args(cfg, V, M, W, B, dev, seed=0):
     """The chain's inputs as forward_prepared makes them: synthetic
-    qa1-shaped stories, seeded weights x4, the exact GEMMs."""
+    qa1-shaped stories, seeded weights x4, the exact question GEMM."""
     dims, mem, que, mask = synthetic_batch(np.random.default_rng(seed), B,
                                            V, M, W)
     params = {k: 4.0 * v for k, v in memn2n.init_params(
@@ -69,20 +73,23 @@ def _chain_args(cfg, V, M, W, B, dev, seed=0):
     assert prep.fast
     mem_t, que_t, mask_t = (torch.from_numpy(a).to(dev)
                             for a in (mem, que, mask))
-    flat = exact_matmul(mem_t, prep.embed_wt)
     u = float_quant(exact_matmul(que_t, prep.query_wt), cfg.fmt_w[0])
-    return (flat, u, prep.hmats, mask_t, cfg.fmt_w, cfg.fmt_att,
-            cfg.fmt_bin, cfg.fmt_act)
+    return (mem_t, prep.embed_wt, u, prep.hmats, mask_t, cfg.fmt_w,
+            cfg.fmt_att, cfg.fmt_bin, cfg.fmt_act)
+
+
+CHAIN = hop_chain.fused_hop_chain_from_memory
 
 
 def _assert_chain_kernel_matches(cfg, args, flags):
-    """One launch of the chain kernel against the plain chain, under the
-    module docstring's tolerances."""
-    before = hop_chain.fused_hop_chain.launches
-    u_g, p_g, s_g = hop_chain.fused_hop_chain(*args, **flags)
-    u_w, p_w, s_w = hop_chain.fused_hop_chain_reference(*args, **flags)
+    """One launch of the chain kernel against its plain version, under
+    the module docstring's tolerances."""
+    before = CHAIN.launches
+    u_g, p_g, s_g = CHAIN(*args, **flags)
+    u_w, p_w, s_w = hop_chain.fused_hop_chain_from_memory_reference(
+        *args, **{k: v for k, v in flags.items() if k != "hmats_quantized"})
     torch.cuda.synchronize()
-    assert hop_chain.fused_hop_chain.launches == before + 1
+    assert CHAIN.launches == before + 1
     assert torch.equal(s_g[0], s_w[0])
     torch.testing.assert_close(p_g, p_w, rtol=0, atol=1e-6)
     flipped = torch.zeros(u_g.shape[0], dtype=torch.bool, device=u_g.device)
@@ -110,14 +117,15 @@ def test_chain_kernel_matches_plain(cuda, V, M, W, kw):
 def test_chain_kernel_rejects_what_it_cannot_take(cuda):
     cfg = QmannConfig(use_fused_chain=True)
     args = list(_chain_args(cfg, 19, 10, 6, 8, cuda))
+    before = CHAIN.launches
     with pytest.raises(ValueError, match="bounds"):
-        hop_chain.fused_hop_chain(
-            torch.zeros((8, 65, 360), device=cuda), args[1], args[2],
-            torch.ones((8, 65), device=cuda), *args[4:])
+        CHAIN(torch.zeros((8, 65, 29), device=cuda), *args[1:4],
+              torch.ones((8, 65), device=cuda), *args[5:])
     with pytest.raises(ValueError, match="shapes"):
-        hop_chain.fused_hop_chain(args[0][:, :, :300], *args[1:])
+        CHAIN(args[0][:, :, :20], *args[1:])
     with pytest.raises(TypeError, match="float32"):
-        hop_chain.fused_hop_chain(args[0].double(), *args[1:])
+        CHAIN(args[0], args[1], args[2].double(), *args[3:])
+    assert CHAIN.launches == before
 
 
 def _training_inputs(V, M, W, B, dev, seed=0):
@@ -630,8 +638,11 @@ def test_mode3_train_step_kernel_route_matches_plain_route(cuda, extra,
 
 def _synthetic_chain(B, M, D, K, quant_mode, dev, scale=0.6, seed=0):
     """flat = bag-of-words counts @ Gaussian weights of sd `scale` (the raw
-    stacked GEMM), u quantized at fmt_w[0], lin maps of the same sd,
-    partial masks and, from B=7 on, a last query with no live row."""
+    stacked GEMM) as the memory, with the identity as the weights: the
+    kernel's slices are flat's values, so its requant of them is
+    exercised on arbitrary floats; u quantized at fmt_w[0], lin maps of
+    the same sd, partial masks and, from B=7 on, a last query with no
+    live row."""
     cfg = QmannConfig(dim_emb=D, num_hops=K, quant_mode=quant_mode)
     rng = np.random.default_rng(seed)
     I = 17
@@ -649,8 +660,8 @@ def _synthetic_chain(B, M, D, K, quant_mode, dev, scale=0.6, seed=0):
                          for a in (flat, u_raw, hm))
     u_t = float_quant(u_t, cfg.fmt_w[0])
     mask_t = torch.from_numpy(mask).to(dev)
-    return cfg, (flat_t, u_t, hm_t, mask_t, cfg.fmt_w, cfg.fmt_att,
-                 cfg.fmt_bin, cfg.fmt_act)
+    return cfg, (flat_t, torch.eye(2 * K * D, device=dev), u_t, hm_t,
+                 mask_t, cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin, cfg.fmt_act)
 
 
 # (B, K, D, M, linear map, ReLU, weight sd): the flagship at B=1000, ragged
@@ -690,14 +701,14 @@ def test_kernels_refuse_mixed_rounding_modes(cuda):
     modes raise before a launch (binary formats carry no mode)."""
     cfg, args = _synthetic_chain(8, 10, 60, 3, 3, cuda)
     fmts_act = (QFormat(5, 2, 0),) + cfg.fmt_act[1:]
-    before = hop_chain.fused_hop_chain.launches
+    before = CHAIN.launches
     with pytest.raises(ValueError, match="rounding mode"):
-        hop_chain.fused_hop_chain(*args[:7], fmts_act)
+        CHAIN(*args[:8], fmts_act)
     w = torch.ones((6, 5), device=cuda)
     x = torch.ones((4, 5), device=cuda)
     with pytest.raises(ValueError, match="rounding mode"):
         qmv.quantized_matvec(w, x, QFormat(5, 2, 3), QFormat(5, 2, 1))
-    assert hop_chain.fused_hop_chain.launches == before
+    assert CHAIN.launches == before
     got = qmv.quantized_matvec(w, x, QFormat(0, 0, 3), QFormat(5, 2, 1))
     want = qmv.quantized_matvec_reference(w, x, QFormat(0, 0, 3),
                                           QFormat(5, 2, 1))
@@ -754,15 +765,14 @@ def test_chain_kernel_takes_cached_quantized_lin_maps(cuda, attention_mode):
     assert prep.fast and prep.hmats_q is not None
     mem_t, que_t, mask_t = (torch.from_numpy(a).to(cuda)
                             for a in (mem, que, mask))
-    flat = exact_matmul(mem_t, prep.embed_wt)
     u = float_quant(exact_matmul(que_t, prep.query_wt), cfg.fmt_w[0])
     fmts = (cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin, cfg.fmt_act)
     flags = dict(attention_mode=attention_mode,
                  ham_num_bit=cfg.num_bits_attention)
-    got = hop_chain.fused_hop_chain(flat, u, prep.hmats_q, mask_t, *fmts,
-                                    hmats_quantized=True, **flags)
-    want = hop_chain.fused_hop_chain_reference(flat, u, prep.hmats, mask_t,
-                                               *fmts, **flags)
+    got = CHAIN(mem_t, prep.embed_wt, u, prep.hmats_q, mask_t, *fmts,
+                hmats_quantized=True, **flags)
+    want = hop_chain.fused_hop_chain_from_memory_reference(
+        mem_t, prep.embed_wt, u, prep.hmats, mask_t, *fmts, **flags)
     torch.cuda.synchronize()
     (u_g, p_g, s_g), (u_w, p_w, s_w) = got, want
     assert torch.equal(s_g[0], s_w[0])
@@ -773,6 +783,160 @@ def test_chain_kernel_takes_cached_quantized_lin_maps(cuda, attention_mode):
     assert int(flipped.sum()) <= 1
     assert torch.equal(s_g[:, ~flipped], s_w[:, ~flipped])
     assert torch.equal(u_g[~flipped], u_w[~flipped])
+
+
+# ---------------------------------------------------------------------------
+# the kernel's embedding: each hop's slices from the memory and Q(A|C),
+# bit-identical to the kernel on the exact GEMM's output
+# ---------------------------------------------------------------------------
+
+# (V, M, W): the flagship (I=29), the wide layout (I=114), rows of 10 to 13
+# nonzero entries at the wide layout (longer than the kList = 8 slots), a
+# large I (1050)
+EMBED_LAYOUTS = {"flagship": (19, 10, 6), "wide": (64, 50, 6),
+                 "long rows": (64, 50, 11), "large I": (1000, 50, 6)}
+
+
+def _chain_on_flat(memory, embed_wt, *rest, **flags):
+    """The chain kernel on the exact GEMM's output: flat as the memory and
+    the identity as the weights, so that each hop's slices are flat's
+    values (x * 1 plus +-0 terms is x): the oracle for the kernel's own
+    embedding of the memory."""
+    flat = exact_matmul(memory, embed_wt)
+    eye = torch.eye(flat.shape[-1], device=flat.device)
+    return CHAIN(flat, eye, *rest, **flags)
+
+
+def _embedded_case(cfg, V, M, W, B, dev, seed=0):
+    """Bag-of-words stories whose every row, live or padded, holds W
+    random words and its time bit; counts at max_count (W+1) in every
+    third query; one dense row (every entry 1); random live lengths and,
+    from B=2 on, a last query that is all padding.  Seeded weights x4, or
+    x3 where x4 leaves the exact route (rows of more than 8 words),
+    prepare_inference on those bounds (max_rowsum covers the dense row).
+    Returns (prep, memory, question, mask) on dev."""
+    rng = np.random.default_rng(seed)
+    I = V + M
+    dims, _, que, _ = synthetic_batch(rng, B, V, M, W)
+    mem = np.zeros((B, M, I), np.float32)
+    np.add.at(mem, (np.arange(B)[:, None, None], np.arange(M)[None, :, None],
+                    rng.integers(1, V, (B, M, W))), 1.0)
+    mem[:, np.arange(M), V + np.arange(M)] = 1.0
+    mem[::3, 0, 0] = W + 1
+    mem[0, M // 2] = 1.0
+    mask = np.arange(M)[None, :] < rng.integers(1, M + 1, B)[:, None]
+    if B >= 2:
+        mask[-1] = False
+    base = memn2n.init_params(cfg, dims, torch.Generator().manual_seed(seed),
+                              device=dev)
+    for scale in (4.0, 3.0):
+        prep = memn2n.prepare_inference(
+            {k: scale * v for k, v in base.items()}, cfg,
+            max_count=float(W + 1), max_rowsum=float(max(I, W + 1)))
+        if prep.fast:
+            break
+    assert prep.fast and prep.hmats_q is not None
+    return prep, *(torch.from_numpy(a).to(dev) for a in (mem, que, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", EMBED_LAYOUTS)
+@pytest.mark.parametrize("B", [1, 64, 1000])
+@pytest.mark.parametrize("cached", [False, True])
+@pytest.mark.parametrize("attention_mode", [2, 3])
+def test_embedded_chain_kernel_matches_gemm_and_flat_kernel(
+        cuda, attention_mode, cached, B, layout):
+    """fused_hop_chain_from_memory's (u, p, s) equal, bit for bit, the
+    kernel on the exact GEMM's output (_chain_on_flat), on raw H and on
+    the cached Q(H), and hold to the plain version under the module
+    docstring's tolerances; one launch, counted in both counts."""
+    cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode)
+    prep, mem, que, mask = _embedded_case(cfg, *EMBED_LAYOUTS[layout], B,
+                                          cuda)
+    u = float_quant(exact_matmul(que, prep.query_wt), cfg.fmt_w[0])
+    hm = prep.hmats_q if cached else prep.hmats
+    rest = (mask, cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin, cfg.fmt_act)
+    flags = dict(attention_mode=attention_mode,
+                 ham_num_bit=cfg.num_bits_attention, hmats_quantized=cached)
+    want = _chain_on_flat(mem, prep.embed_wt, u, hm, *rest, **flags)
+    before = (CHAIN.launches, CHAIN.embedded_launches)
+    got = CHAIN(mem, prep.embed_wt, u, hm, *rest, **flags)
+    torch.cuda.synchronize()
+    assert (CHAIN.launches, CHAIN.embedded_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _assert_chain_kernel_matches(cfg, (mem, prep.embed_wt, u, hm, *rest),
+                                 flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attention_mode", [2, 3])
+def test_embedded_chain_kernel_takes_an_all_padding_query(cuda,
+                                                          attention_mode):
+    """B=1 with no live row and nonzero counts in every row: every row is
+    embedded and scored, p is 0, as on the exact GEMM's output."""
+    cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode)
+    prep, mem, que, mask = _embedded_case(cfg, 19, 10, 6, 1, cuda)
+    mask = torch.zeros_like(mask)
+    u = float_quant(exact_matmul(que, prep.query_wt), cfg.fmt_w[0])
+    rest = (prep.hmats_q, mask, cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
+            cfg.fmt_act)
+    flags = dict(attention_mode=attention_mode,
+                 ham_num_bit=cfg.num_bits_attention, hmats_quantized=True)
+    want = _chain_on_flat(mem, prep.embed_wt, u, *rest, **flags)
+    got = CHAIN(mem, prep.embed_wt, u, *rest, **flags)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[1].any()) and bool(got[2].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["flagship", "wide"])
+@pytest.mark.parametrize("attention_mode", [2, 3])
+def test_forward_prepared_embeds_in_the_chain(cuda, attention_mode, layout):
+    """forward_prepared's chain route launches the chain once a call (both
+    counts rise by one) and gives the logits, p and scores of the exact
+    GEMM then the chain kernel on its output, bit for bit."""
+    cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode)
+    prep, mem, que, mask = _embedded_case(cfg, *EMBED_LAYOUTS[layout], 1000,
+                                          cuda)
+    u = memn2n._prepared_question(prep, que, cfg)
+    u_w, p_w, s_w = _chain_on_flat(
+        mem, prep.embed_wt, u, prep.hmats_q, mask, cfg.fmt_w, cfg.fmt_att,
+        cfg.fmt_bin, cfg.fmt_act, attention_mode=attention_mode,
+        ham_num_bit=cfg.num_bits_attention, hmats_quantized=True)
+    logits_w = qmatvec_forward(memn2n._output_weight(prep.raw, cfg), u_w,
+                               cfg.fmt_ds_ans, cfg.fmt_ds_ans,
+                               quantized=False)
+    before = (CHAIN.launches, CHAIN.embedded_launches)
+    with torch.inference_mode():
+        out = memn2n.forward_prepared(prep, mem, que, mask, cfg)
+    torch.cuda.synchronize()
+    assert (CHAIN.launches, CHAIN.embedded_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert torch.equal(out.logits, logits_w)
+    assert torch.equal(out.attention, p_w)
+    assert torch.equal(out.scores, s_w)
+
+
+@pytest.mark.cuda
+def test_embedded_chain_kernel_rejects_what_it_cannot_take(cuda):
+    cfg = QmannConfig(use_fused_chain=True)
+    prep, mem, que, mask = _embedded_case(cfg, 19, 10, 6, 8, cuda)
+    u = float_quant(exact_matmul(que, prep.query_wt), cfg.fmt_w[0])
+    rest = (prep.hmats, mask, cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
+            cfg.fmt_act)
+    before = CHAIN.embedded_launches
+    with pytest.raises(ValueError, match="shapes"):
+        CHAIN(mem, prep.embed_wt[:-1], u, *rest)
+    with pytest.raises(ValueError, match="bounds"):
+        CHAIN(torch.zeros((8, 65, 29), device=cuda), prep.embed_wt, u,
+              prep.hmats, torch.ones((8, 65), device=cuda), *rest[2:])
+    with pytest.raises(TypeError, match="float32"):
+        CHAIN(mem, prep.embed_wt.double(), u, *rest)
+    assert CHAIN.embedded_launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -1220,10 +1384,10 @@ def test_packet_server_on_the_card_through_the_chain(cuda):
     server = serve(engines[0], port=0)
     host, port = server.server_address[:2]
     try:
-        before = hop_chain.fused_hop_chain.launches
+        before = CHAIN.launches
         with PacketClient(host, port, timeout=120) as client:
             got = client.query_samples(samples)
-        launched = hop_chain.fused_hop_chain.launches - before
+        launched = CHAIN.launches - before
         want = [f.result(timeout=120)
                 for f in [engines[1].submit_indexed(s) for s in samples]]
     finally:

@@ -291,8 +291,12 @@ def test_launch_accounting_on_a_stub_capture():
         qmv.quantized_matvec.launches += 10
         qmv.quantized_matvec.sparse_launches += 10
         graphs._counters()[1][0].launches += 3    # the read's count
+        chain = graphs._counters()[3][0]
+        chain.launches += 2
+        chain.embedded_launches += 2
     # graphs.COUNTED: seven wrappers' launches, then the lattice's sparse
-    assert delta == [10, 3, 0, 0, 0, 0, 0, 10]
+    # launches and the chain's embedded ones
+    assert delta == [10, 3, 0, 2, 0, 0, 0, 10, 2]
     assert graphs.launch_counts() == start
     stub = _StubGraph()
     g = graphs.Graph(("family_step",), stub, (), None, delta)
@@ -300,7 +304,8 @@ def test_launch_accounting_on_a_stub_capture():
         g.replay()
     assert stub.replays == g.replays == 4
     assert graphs.launch_counts() == (start[0] + 40, start[1] + 12,
-                                      *start[2:7], start[7] + 40)
+                                      start[2], start[3] + 8, *start[4:7],
+                                      start[7] + 40, start[8] + 8)
     real = qmv.quantized_matvec
 
     def spy(*args):
