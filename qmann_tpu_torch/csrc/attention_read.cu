@@ -18,7 +18,7 @@
 // What bounds it on an H100: at the flagship training shape one call reads
 // m, c, u and the mask once and writes o, p and s once (173 KB, 0.052 us
 // at 3.35 TB/s) and does 0.40 M float operations in mode 2 (0.006 us at
-// 67 TFLOP/s): 0.052 us, bytes (chip_smoke.attention_read_bound; 1.65 us
+// 67 TFLOP/s): 0.052 us, bytes (card_kit.attention_read_bound; 1.65 us
 // at the B=1024 eval chunk, 0.24 us at the wide layout, M=50).  At
 // these sizes the time is latency: the launch, one round trip to memory
 // and the dependent steps of a block (score, softmax, weighted sum).  The

@@ -12,11 +12,11 @@
 //
 // What bounds it on an H100: at B=32 one call moves 86 KB (m and u read
 // once, s written once), 0.026 us at 3.35 TB/s, and does 0.49 M integer
-// operations, the least the score needs as chip_smoke.py counts them (an
+// operations, the least the score needs as card_kit.py counts them (an
 // encode of 6 per element of m and of u; per element pair 19 at num_bit
 // <= 25: the preprocess of 8, the match word of 3, 4 for the sign, scale
 // and sum, 4 for the term's requant; 4 per row sum), 0.015 us at the
-// int32 rate of 33.5 TOP/s: 0.026 us, bytes (chip_smoke.hamming_bound).
+// int32 rate of 33.5 TOP/s: 0.026 us, bytes (card_kit.hamming_bound).
 // At these sizes the time is latency: the launch, one round trip to
 // memory and the dependent steps of a block.  The first design (one
 // 128-thread block per query, a warp per memory row, M/4 rows walked in

@@ -55,13 +55,13 @@
 //      the eager launch bit for bit).  The plain version sums in torch's
 //      order: du agrees within float32 rounding of an M-term sum.
 //
-// What bounds it on an H100 (chip_smoke.hamming_backward_bound): one call
+// What bounds it on an H100 (card_kit.hamming_backward_bound): one call
 // moves 4 * (2BMD + 2BD + BM) bytes (m, u and g read once, dm and du
 // written once), 9.43 us at the mode-3 family's folded 1280 x 50 x 60 at
 // 3.35 TB/s.  Per element pair the closed form needs about 23 integer
-// operations after the encode (chip_smoke.ham_backward_ops) at 64 results
-// per clock per SM, and a popcount and a leading-zero count at 16 (the
-// CUDA C++ Programming Guide's throughput table for compute capability
+// operations after the encode (card_kit.hamming_backward_bound) at 64
+// results per clock per SM, and a popcount and a leading-zero count at 16
+// (the CUDA C++ Programming Guide's throughput table for compute capability
 // 9.0): 6.7 and 1.8 us at 1280 queries, below the bytes.  The compiled
 // loop issues about 52 instructions per element, 35 of them integer
 // (scripts/sass_loops.py), some 6 us at 1280 queries at one instruction

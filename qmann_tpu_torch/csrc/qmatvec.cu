@@ -68,7 +68,7 @@
 // outputs, ~75 M requants (the dense lattice forms 2.19 G), beside ~37 M
 // requants of Q(x) and ~14 M of the blocks' Q(w); no operation pipe comes
 // near the bytes.  Measured on one H100 80GB HBM3 at 700 W (device time,
-// scripts/kernel_times.py and chip_smoke.py phase 16; PERF.md, section 6):
+// scripts/kernel_times.py; PERF.md, section 6):
 // 114-132 us at 200 x 1600 rows (52-60% of the bytes' bound; 944-954 us
 // for the dense design), 415 us at 200 x 6400 (3,744-3,785 us); 2.9 us at
 // 320 rows and 2.8 us at 32 (launch bound, as before), 4.7 us at 1600 and

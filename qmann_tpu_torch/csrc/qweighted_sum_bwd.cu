@@ -66,7 +66,7 @@
 // four requants of 4 float operations, the mask multiply and the add; one
 // rounding per requant on the conversion pipe, 16 per clock per SM) take
 // 3.7 us on the conversion pipe and less on the float32 pipe
-// (chip_smoke.wsum_backward_ops).  At B=32, M=10 the call moves 165 KB,
+// (card_kit.wsum_backward_bound).  At B=32, M=10 the call moves 165 KB,
 // 0.049 us: the launch and one round trip to memory set its time.  The
 // design keeps memory busy from the first cycle:
 //  - no staging before the first load of c: each lane holds its columns of

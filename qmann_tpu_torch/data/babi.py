@@ -523,8 +523,8 @@ def synthetic_task(rng: np.random.Generator, n_train: int, n_valid: int,
                     vectorize(test, dictionary, dims), dims, dictionary)
 
 
-# qa1-shaped stories in the dataset's two file formats, for tests and for
-# chip_smoke.py: the bAbI files are not in the repository
+# qa1-shaped stories in the dataset's two file formats, for the tests: the
+# bAbI files are not in the repository
 _QA1_NAMES = ("Mary", "John", "Sandra", "Daniel")
 _QA1_PLACES = ("bathroom", "hallway", "kitchen", "office", "garden",
                "bedroom")

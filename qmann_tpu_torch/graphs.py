@@ -39,12 +39,10 @@ a run's persistent buffers.
 Launch accounting.  Each kernel wrapper (``ops/cuda/*.py``) adds one to its
 ``.launches`` where it launches its kernel, on the name in its own module.
 The lattice's wrapper also counts, in ``.sparse_launches``, the launches
-that skip the zero entries of Q(x), and the chain's, in
-``.embedded_launches``, the launches that embed the bag-of-words memory in
-the kernel.  A
-capture runs the wrappers but executes no kernel, so ``Graphs`` takes back
-what the counts gained during the capture and a ``Graph`` adds that again
-at every replay: the counts stay those of the kernels the card ran.
+that skip the zero entries of Q(x).  A capture runs the wrappers but
+executes no kernel, so ``Graphs`` takes back what the counts gained during
+the capture and a ``Graph`` adds that again at every replay: the counts
+stay those of the kernels the card ran.
 
 The sync debug mode is process-wide: while a warm-up runs, a host sync on
 another thread raises too.
@@ -69,8 +67,7 @@ from qmann_tpu_torch.utils.profiling import annotate
 
 # where each kernel wrapper keeps its launch counts: (module, name, count);
 # after the seven wrappers' launches, so that their indices hold, come the
-# lattice's launches that skip the zero entries of Q(x), then the chain's
-# launches that embed the memory themselves
+# lattice's launches that skip the zero entries of Q(x)
 COUNTED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
             "launches"),
            ("qmann_tpu_torch.ops.cuda.attention_read", "fused_read",
@@ -86,9 +83,7 @@ COUNTED = (("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
            ("qmann_tpu_torch.ops.cuda.qweighted_sum_bwd",
             "weighted_sum_softmax_backward_kernel", "launches"),
            ("qmann_tpu_torch.ops.cuda.qmatvec", "quantized_matvec",
-            "sparse_launches"),
-           ("qmann_tpu_torch.ops.cuda.hop_chain",
-            "fused_hop_chain_from_memory", "embedded_launches"))
+            "sparse_launches"))
 
 
 def without_fast_path(cfg: QmannConfig) -> QmannConfig:

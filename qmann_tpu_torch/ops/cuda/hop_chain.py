@@ -26,9 +26,7 @@ kernel or raises (also when the formats mix rounding modes: the kernel
 fixes the mode at compile time).  ``chain_geometry`` gives the launch's
 queries per block, threads, shared memory and whether each hop's weight
 slices are staged in shared memory.  ``fused_hop_chain_from_memory.launches``
-counts its launches, and ``.embedded_launches`` those that embedded the
-memory in the kernel, which since the chain has no other route is each of
-them.
+counts its launches.
 """
 from __future__ import annotations
 
@@ -289,9 +287,7 @@ def fused_hop_chain_from_memory(memory: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"hop_chain kernel launch failed: CUDA error {rc}")
     fused_hop_chain_from_memory.launches += 1
-    fused_hop_chain_from_memory.embedded_launches += 1
     return u_out, p, s
 
 
 fused_hop_chain_from_memory.launches = 0
-fused_hop_chain_from_memory.embedded_launches = 0

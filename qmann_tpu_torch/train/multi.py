@@ -120,39 +120,25 @@ def _masked_eval_metrics(logits: torch.Tensor, answer: torch.Tensor,
 
 
 def family_update(params: Params, grads: Mapping[str, torch.Tensor], lr,
-                  size_b: torch.Tensor, cfg: QmannConfig, scale_dim: int,
-                  padding_runs: Optional[np.ndarray] = None) -> Params:
+                  size_b: torch.Tensor, cfg: QmannConfig,
+                  scale_dim: int) -> Params:
     """The family's SGD step in place: ``sgd_update`` with the per-run
     divisor max(size_b, 1), ``zero_null_columns``, then the runs whose
-    batch is all padding put back as they were.  Without padding_runs
-    that is JAX's where(size_b > 0, new, old) per parameter, on the device
-    (what a graph holds); padding_runs (host indices of those runs)
-    restores just their rows instead.  Both select the old values
-    exactly."""
-    if padding_runs is None:
-        saved, live = {k: v.clone() for k, v in params.items()}, size_b > 0
-    elif len(padding_runs):
-        rows = torch.from_numpy(np.asarray(padding_runs)).to(size_b.device)
-        saved = {k: v[rows].clone() for k, v in params.items()}
-    else:
-        saved = None
+    batch is all padding put back as they were: JAX's where(size_b > 0,
+    new, old) per parameter, on the device (what a graph holds)."""
+    saved, live = {k: v.clone() for k, v in params.items()}, size_b > 0
     sgd_update(params, grads, lr, torch.clamp_min(size_b, 1.0), cfg,
                scale_dim=scale_dim)
     zero_null_columns(params, cfg)
-    if saved is not None:
-        with torch.no_grad():
-            for k, v in saved.items():
-                if padding_runs is None:
-                    keep = live.reshape((-1,) + (1,) * (v.dim() - 1))
-                    torch.where(keep, params[k], v, out=params[k])
-                else:
-                    params[k][rows] = v
+    with torch.no_grad():
+        for k, v in saved.items():
+            keep = live.reshape((-1,) + (1,) * (v.dim() - 1))
+            torch.where(keep, params[k], v, out=params[k])
     return params
 
 
 def family_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
-                cfg: QmannConfig, remove_softmax: bool = False,
-                padding_runs: Optional[np.ndarray] = None):
+                cfg: QmannConfig, remove_softmax: bool = False):
     """One SGD step for every run: the stacked forward, one autograd
     backward of the summed loss and ``family_update``.  Returns the per-run
     cost and matches [R] on the device."""
@@ -169,7 +155,7 @@ def family_step(params: Params, batch: Mapping[str, torch.Tensor], lr,
         for t in leaves:
             t.requires_grad_(False)
     family_update(params, dict(zip(names, grads)), lr, batch["size_b"], cfg,
-                  batch["mask"].shape[-1], padding_runs)
+                  batch["mask"].shape[-1])
     return met.cost.detach(), met.matches
 
 
@@ -180,10 +166,10 @@ def _family_epoch_step(params: Params, data: Data, task_id: torch.Tensor,
                        cfg: QmannConfig, remove_softmax: bool) -> None:
     """Family step ``counter`` of an epoch, all on the device: batch
     ``counter`` of every run's grid (perm [R, NB * B], smask [NB, R, B],
-    size_b [NB, R]) gathered from the stacked split, ``family_step`` with
-    the where-form restore, the per-run cost and matches written into row
-    ``counter`` of [NB, R] ``costs`` and ``matches``, then the counter
-    ([1], int64) advanced.  The body ``multi_epoch`` replays."""
+    size_b [NB, R]) gathered from the stacked split, ``family_step``, the
+    per-run cost and matches written into row ``counter`` of [NB, R]
+    ``costs`` and ``matches``, then the counter ([1], int64) advanced.
+    The body ``multi_epoch`` replays."""
     R, nb = task_id.shape[0], smask.shape[0]
     idx = perm.view(R, nb, -1).index_select(1, counter)[:, 0]
     mem, qst, ans, msk = _gather(data, task_id, idx)

@@ -5,28 +5,32 @@
                                     [--only GROUPS]
 
 Imports qmann_tpu_torch from DIR (default: this repository) and takes the
-inputs, the checks and the timers from this repository's chip_smoke.py, so
-that an unpacked older commit (`git archive` into a gitignored directory)
-is timed by the same code as this one; run the versions in turns in one
-call (parent, change, change, parent) to compare them on one card.  Checks
-each kernel against its plain version first (the chain under
-chip_smoke.compare_chain, the read under chip_smoke.check_read, qmatvec
-and the Hamming kernel bit for bit) and fails if one disagrees.  Prints
-the card's name and power limit, then one JSON line with, per case, the
-kernel's device time (torch.profiler, ms per recorded launch) and event
-time (CUDA events around the wrapper, median of 7 samples of 20 calls);
-for the read
-and the Hamming kernel also the wrapper's host time (host_us: the host
-clock per call over 100 calls issued without a wait, median of 7 samples).
+inputs, the checks, the timers and the bounds from this repository's
+scripts/card_kit.py, so that an unpacked older commit (`git archive` into
+a gitignored directory) is timed by the same code as this one; run the
+versions in turns in one call (parent, change, change, parent) to compare
+them on one card.  Checks each kernel against its plain version first
+(the chain under card_kit.compare_chain, the read under
+card_kit.check_read, qmatvec and the Hamming kernel bit for bit) and fails
+if one disagrees.  Prints the card's name and power limit, then one JSON
+line with, per case, the kernel's device time (torch.profiler, ms per
+recorded launch) and event time (CUDA events around the wrapper, median
+of 7 samples of 20 calls), and for the kernels the bound of
+card_kit.py's docstring (bound_ms, and bound_by: what binds it), for
+qmatvec also the dense lattice's (dense_bound_ms); for the chain, qmatvec,
+the read, the Hamming kernel and the surrogate backward the plain
+version's event time (plain_ms, card_kit.plain_ms); for the read and the
+Hamming kernel also the wrapper's host time (host_us: the host clock per
+call over 100 calls issued without a wait, median of 7 samples).
 Groups (--only takes a comma-separated subset; default all):
   chain    the chain's serving launch at B=1000, attention modes 2 and 3,
            on the flagship (M=10, I=29, D=60, K=3), wide (M=50, I=114;
            the serve cell's shape) and wide W11 (rows of 10 to 12 nonzero
-           entries) inputs chip_smoke.py makes, on raw H and, where
+           entries) inputs of card_kit.scaled_prepared, on raw H and, where
            prepare_inference caches it, on Q(H) with the kernel's requant
            skipped ("cached"): fused_hop_chain_from_memory where the
            checkout has it, else the exact GEMM then the chain from flat;
-           held against the plain chain (chip_smoke.compare_chain); event
+           held against the plain chain (card_kit.compare_chain); event
            ms, the profiler's busy ms and kernel records a call, the
            chain kernel's device ms a launch, and the sha256 of u's, p's
            and s's bytes (equal digests: bit-identical outputs across
@@ -46,30 +50,34 @@ Groups (--only takes a comma-separated subset; default all):
            the checkout's kernel does not take them); each with the
            sha256 of its output's bytes (equal digests: bit-identical
            outputs across checkouts);
-  read     the attention read in modes 1, 2 and 3 (iwl 1) at B=32, B=1024
-           and the wide layout (B=32, M=50), on the training forward's
-           inputs with 3 padded samples;
+  read     the attention read in modes 1, 2 and 3 (iwl 1) at B=32, B=1024,
+           the wide layout (B=32, M=50) and the family's folded batches
+           (M=50: the mode-3 family's 1280 and 5120 queries, the R = 200
+           family's 6400 and its evaluation chunk's 25,600), on the
+           training forward's inputs with 3 padded samples (bound_ms null
+           in mode 1, whose work the bound does not count);
   hamming  the Hamming score at iwl 1 and 5 (num_bit 8, weighted), at
-           B=32 and B=1024 (M=10) and the wide layout (B=32, M=50), D=60,
-           on chip_smoke.ham_inputs (the encode's edge list in sample 0);
+           B=32 and B=1024 (M=10), the wide layout (B=32, M=50) and the
+           mode-3 family's folded 1280 and 5120 queries (M=50), D=60, on
+           card_kit.ham_inputs (the encode's edge list in sample 0);
   hamming_bwd the surrogate backward at iwl 1, num_bit 8, truncation, at
            B=32 (M=10), the wide layout (B=32, M=50) and the mode-3
            family's folded 1280 and 5120 queries (M=50), D=60, on
-           chip_smoke.ham_inputs and a Gaussian g from one seed per case;
-           held against its plain version (chip_smoke.check_backward);
+           card_kit.ham_inputs and a Gaussian g from one seed per case;
+           held against its plain version (card_kit.check_backward);
            device ms per recorded launch, event ms, the bound and the
            sha256 of dm's then du's bytes (equal digests: bit-identical
            outputs across checkouts);
   wsum_bwd the weighted-sum backward at B=32 (M=10), the wide layout
            (B=32, M=50), the mode-3 family's folded 1280 and 5120 queries
            and the R = 200 family's folded 6400 (M=50), D=60, on
-           chip_smoke.wsum_inputs from one seed per case: the dp entry
+           card_kit.wsum_inputs from one seed per case: the dp entry
            (quantized, iwl 1 wl 8, truncation), and the fused read's
            backward hop in the quantized and float instances: the ds
            entry where the checkout has it (one launch), else the hop as
            the checkout runs it (the dp entry or the plain float backward,
            then softmax_backward); each held against its plain version
-           (chip_smoke.check_wsum_backward, check_wsum_softmax); device ms
+           (card_kit.check_wsum_backward, check_wsum_softmax); device ms
            per recorded launch (the hop's busy ms per call where it is
            more than one kernel), event ms, the bound, and the sha256 of
            dc's then dp's (or ds's) bytes (equal digests: bit-identical
@@ -112,39 +120,45 @@ QMV_SHAPES = {"320": (32, 19, 10, 6), "1600": (32, 64, 50, 7),
 # the run.sh family's memory embedding: (runs, stories a run, V, M, W)
 QMV_FAMILY = {"family 200x1600": (200, 32, 64, 50, 7),
               "family 200x6400": (200, 128, 64, 50, 7)}
-# (B, V, M, W): the read's inputs, as chip_smoke.py phase 6 makes them
+# (B, V, M, W): the read's inputs (card_kit.read_inputs)
 READ_SHAPES = {"B32": (32, 19, 10, 6), "B1024": (1024, 19, 10, 6),
-               "wide": (32, 64, 50, 7)}
+               "wide": (32, 64, 50, 7), "family 1280": (1280, 64, 50, 6),
+               "family 5120": (5120, 64, 50, 6),
+               "family 6400": (6400, 64, 50, 6),
+               "family 25600": (25600, 64, 50, 6)}
 HAM_SHAPES = {"B32": (32, 10, 60), "B1024": (1024, 10, 60),
-              "wide": (32, 50, 60)}
+              "wide": (32, 50, 60), "family 1280": (1280, 50, 60),
+              "family 5120": (5120, 50, 60)}
 BWD_SHAPES = {"B32": (32, 10, 60), "wide": (32, 50, 60),
               "family 1280": (1280, 50, 60), "family 5120": (5120, 50, 60)}
 
 
-def time_hamming_bwd(cs, hbwd, dev, times):
+def time_hamming_bwd(kit, hbwd, dev, times):
     """The hamming_bwd group (module docstring): {case: entry}."""
     import hashlib
     import numpy as np
     import torch
     out = {}
     for i, (name, (B, M, D)) in enumerate(BWD_SHAPES.items()):
-        rng = np.random.default_rng(cs.SEED + 140 + i)
+        rng = np.random.default_rng(kit.SEED + 140 + i)
         m, u = (torch.from_numpy(a).to(dev)
-                for a in cs.ham_inputs(rng, 1, B, M, D))
+                for a in kit.ham_inputs(rng, 1, B, M, D))
         g = torch.from_numpy(rng.normal(0.0, 1.0, (B, M)).astype(
             np.float32)).to(dev)
         args = (m, u, g, 1, 8, -3, 3)
         got = hbwd.hamming_backward_kernel(*args)
-        err, _, good = cs.check_backward(got, hbwd.hamming_backward(*args),
-                                         *args)
+        err, _, good = kit.check_backward(got, hbwd.hamming_backward(*args),
+                                          *args)
         if not good:
-            cs.fail(f"the surrogate backward differs from its plain version "
-                    f"({name})")
+            kit.fail(f"the surrogate backward differs from its plain version "
+                     f"({name})")
         digest = hashlib.sha256()
         for t in got:
             digest.update(t.cpu().numpy().tobytes())
-        bound_ms, bound_by = cs.hamming_backward_bound(m, u, g, 8)
-        out[name] = {**times(lambda: hbwd.hamming_backward_kernel(*args)),
+        bound_ms, bound_by = kit.hamming_backward_bound(m, u, g, 8)
+        out[name] = {**times(lambda: hbwd.hamming_backward_kernel(*args),
+                           lambda: hbwd.hamming_backward(*args),
+                           m.numel() > 1e6),
                      "shape": [B, M, D], "bound_ms": bound_ms,
                      "bound_by": bound_by, "max_abs_err_du": err,
                      "sha256": digest.hexdigest()}
@@ -156,7 +170,7 @@ WSUM_SHAPES = {"B32": (32, 10, 60), "wide": (32, 50, 60),
                "family 6400": (6400, 50, 60)}
 
 
-def time_wsum_bwd(cs, dev, times):
+def time_wsum_bwd(kit, dev, times):
     """The wsum_bwd group (module docstring): {case: entry}."""
     import hashlib
     import numpy as np
@@ -191,44 +205,44 @@ def time_wsum_bwd(cs, dev, times):
 
     def busy_ms(fn):
         with torch.inference_mode():
-            return sum(ms for ms, _ in cs.device_ms(fn).values())
+            return sum(ms for ms, _ in kit.device_ms(fn).values())
 
     bounds = load_bounds()
 
     out = {}
     for i, (name, (B, M, D)) in enumerate(WSUM_SHAPES.items()):
-        rng = np.random.default_rng(cs.SEED + 150 + i)
+        rng = np.random.default_rng(kit.SEED + 150 + i)
         for inst in ("quantized", "float"):
             c, p, mask, g = (torch.from_numpy(a).to(dev) for a in
-                             cs.wsum_inputs(rng, fmt if inst == "quantized"
-                                            else None, B, M, D))
+                             kit.wsum_inputs(rng, fmt if inst == "quantized"
+                                             else None, B, M, D))
             q = inst == "quantized"
             if q:
                 args = (c, p, mask, g, fmt)
                 got = wsb.qweighted_sum_backward_kernel(*args)
-                _, _, good = cs.check_wsum_backward(got, cs.wsum_plain(*args),
-                                                    *args)
+                _, _, good = kit.check_wsum_backward(
+                    got, kit.wsum_plain(*args), *args)
                 if not good:
-                    cs.fail(f"the dp entry differs from its plain version "
-                            f"({name})")
-                b = cs.wsum_backward_bound(c, p, mask, g)
+                    kit.fail(f"the dp entry differs from its plain version "
+                             f"({name})")
+                b = kit.wsum_backward_bound(c, p, mask, g)
                 out[f"dp {name}"] = {
                     **times(lambda: wsb.qweighted_sum_backward_kernel(*args)),
                     "shape": [B, M, D], "bound_ms": b[0], "bound_by": b[1],
                     "sha256": digest(got)}
             got = hop(c, p, mask, g, q)
             s_args = (c, p, mask, g, None, None, fmt, q)
-            err, _, good = cs.check_wsum_softmax(
+            err, _, good = kit.check_wsum_softmax(
                 got, plain_hop(*s_args), *s_args, wsb=bounds)
             if not good:
-                cs.fail(f"the fused read's backward hop differs from its "
-                        f"plain version ({inst} {name})")
-            b = cs.wsum_backward_bound(c, p, mask, g, quantized=q,
-                                       softmax=True)
+                kit.fail(f"the fused read's backward hop differs from its "
+                         f"plain version ({inst} {name})")
+            b = kit.wsum_backward_bound(c, p, mask, g, quantized=q,
+                                        softmax=True)
             entry = {**times(lambda: hop(c, p, mask, g, q)),
                      "launches_per_hop": 1 if fused is not None else None,
                      "busy_ms": busy_ms(lambda: hop(c, p, mask, g, q)),
-                     "composition_ms": cs.cuda_ms(
+                     "composition_ms": kit.cuda_ms(
                          lambda: plain_hop(*s_args)),
                      "composition_busy_ms": busy_ms(
                          lambda: plain_hop(*s_args)),
@@ -252,10 +266,10 @@ def load_bounds():
     return module
 
 
-def load_chip_smoke():
-    """This repository's chip_smoke.py, whatever DIR holds."""
+def load_card_kit():
+    """This repository's scripts/card_kit.py, whatever DIR holds."""
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", REPO / "chip_smoke.py")
+        "card_kit", REPO / "scripts" / "card_kit.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -273,11 +287,11 @@ def main():
         ap.error(f"--only takes a subset of {','.join(GROUPS)}")
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
-    cs = load_chip_smoke()
+    kit = load_card_kit()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
-        cs.fail("kernel_times.py needs a GPU")
+        kit.fail("kernel_times.py needs a GPU")
     from qmann_tpu_torch.config import QmannConfig
     from qmann_tpu_torch.data import synthetic_batch, synthetic_task
     from qmann_tpu_torch.models import memn2n
@@ -288,13 +302,13 @@ def main():
     from qmann_tpu_torch.ops.cuda import hop_chain
     from qmann_tpu_torch.ops.cuda import qmatvec as qmv
     if not Path(hop_chain.__file__).resolve().is_relative_to(root):
-        cs.fail(f"imported {hop_chain.__file__}, not the checkout at {root}")
+        kit.fail(f"imported {hop_chain.__file__}, not the checkout at {root}")
     for mod in (hop_chain, qmv, ar, ham):
         mod.build()
-    dev = torch.device(cs.DEVICE)
-    card = cs.card_line()
+    dev = torch.device(kit.DEVICE)
+    card = kit.card_line()
     print(f"[kernel_times] {args.tag or root.name} | {card}", flush=True)
-    rng = np.random.default_rng(cs.SEED)
+    rng = np.random.default_rng(kit.SEED)
     out = {"tag": args.tag, "root": str(root), "card": card,
            "chain": {}, "qmatvec": {}, "forward_prepared": {}, "read": {},
            "hamming": {}, "hamming_bwd": {}, "wsum_bwd": {}, "steps": {},
@@ -307,10 +321,18 @@ def main():
             h.update(t.cpu().numpy().tobytes())
         return h.hexdigest()
 
-    def times(fn):
+    def bound(b):
+        return {"bound_ms": b[0], "bound_by": b[1]}
+
+    def times(fn, plain=None, big=False):
+        """The kernel's device and event ms; with plain, its plain
+        version's event ms (card_kit.plain_ms)."""
         with torch.inference_mode():
-            dev_ms = cs.per_launch_ms(cs.device_ms(fn))
-            return {"device_ms": dev_ms, "ms": cs.cuda_ms(fn)}
+            dev_ms = kit.per_launch_ms(kit.device_ms(fn))
+            entry = {"device_ms": dev_ms, "ms": kit.cuda_ms(fn)}
+            if plain is not None:
+                entry["plain_ms"] = kit.plain_ms(plain, big)
+            return entry
 
     def host_us(fn, n_iter=100, samples=7):
         """The host's time per call of fn, issued n_iter times without a
@@ -329,8 +351,8 @@ def main():
     def busy(fn, entry):
         """Event time, the profiler's device busy time, launches and idle
         share of one call of fn, into entry."""
-        entry["ms"] = cs.cuda_ms(fn)
-        kernels = cs.device_ms(fn)
+        entry["ms"] = kit.cuda_ms(fn)
+        kernels = kit.device_ms(fn)
         entry["busy_ms"] = sum(ms for ms, _ in kernels.values())
         entry["launches"] = sum(n for _, n in kernels.values())
         entry["idle_share"] = 1.0 - entry["busy_ms"] / entry["ms"]
@@ -344,10 +366,10 @@ def main():
         call, its kernel records a call and the chain kernel's device ms
         a launch."""
         with torch.inference_mode():
-            kernels = cs.device_ms(fn)
+            kernels = kit.device_ms(fn)
             chain = [ms / n for k, (ms, n) in kernels.items()
                      if "hop_chain_kernel" in k and n > 0]
-            return {"ms": cs.cuda_ms(fn),
+            return {"ms": kit.cuda_ms(fn),
                     "busy_ms": sum(ms for ms, _ in kernels.values()),
                     "launches": sum(n for _, n in kernels.values()),
                     "chain_device_ms": chain[0] if chain else None}
@@ -362,7 +384,7 @@ def main():
                   ham_num_bit=cfg.num_bits_attention)
         for name, (V, M, W) in CHAIN_SHAPES.items():
             dims, mem, que, mask = synthetic_batch(rng, BATCH, V, M, W)
-            _, _, prep = cs.scaled_prepared(cfg, dims, mem, dev)
+            _, _, prep = kit.scaled_prepared(cfg, dims, mem, dev)
             mem_t, que_t, mask_t = (torch.from_numpy(a).to(dev)
                                     for a in (mem, que, mask))
             u = float_quant(exact_matmul(que_t, prep.query_wt), cfg.fmt_w[0])
@@ -383,16 +405,22 @@ def main():
                                          **kw)
                 with torch.inference_mode():
                     got = launch()
-                want = hop_chain.fused_hop_chain_reference(
-                    exact_matmul(mem_t, prep.embed_wt), u, prep.hmats,
-                    *fmts, **kw)
-                _, flips, good = cs.compare_chain(cfg, got, want)
+                def plain():
+                    return hop_chain.fused_hop_chain_reference(
+                        exact_matmul(mem_t, prep.embed_wt), u, prep.hmats,
+                        *fmts, **kw)
+                want = plain()
+                _, flips, good = kit.compare_chain(cfg, got, want)
                 if not good:
-                    cs.fail(f"chain disagrees with its plain version ({ck})")
+                    kit.fail(f"chain disagrees with its plain version ({ck})")
                 out["chain"][ck] = {
                     "route": ("from the memory" if from_memory is not None
                               else "exact GEMM, then from flat"),
                     **chain_times(launch), "flipped": flips,
+                    "plain_ms": kit.plain_ms(plain, mem_t.numel() > 1e6),
+                    **bound(kit.chain_bound(
+                        mem_t, prep.embed_wt, u, hm, mask_t,
+                        kw["ham_num_bit"] if attention_mode == 3 else None)),
                     "sha256": digest(*got)}
                 report("chain", ck)
             batch = (mem_t, que_t, mask_t)
@@ -408,7 +436,7 @@ def main():
     for key, (B, V, M, W) in QMV_SHAPES.items() if "qmatvec" in groups else ():
         dims, mem, que_np, _ = synthetic_batch(rng, B, V, M, W)
         params = {k: 4.0 * v for k, v in memn2n.init_params(
-            cfg, dims, torch.Generator().manual_seed(cs.SEED),
+            cfg, dims, torch.Generator().manual_seed(kit.SEED),
             device=dev).items()}
         rows = torch.from_numpy(mem).to(dev).reshape(-1, dims.dim_input)
         qargs = (params["A"], rows, cfg.fmt_w[0], cfg.fmt_w[0])
@@ -419,9 +447,13 @@ def main():
             report("qmatvec", key)
             continue
         if not torch.equal(got, qmv.quantized_matvec_reference(*qargs)):
-            cs.fail(f"qmatvec differs from its plain version ({key} rows)")
-        out["qmatvec"][key] = times(lambda: qmv.quantized_matvec(*qargs))
-        out["qmatvec"][key]["sha256"] = digest(got)
+            kit.fail(f"qmatvec differs from its plain version ({key} rows)")
+        out["qmatvec"][key] = {**times(
+            lambda: qmv.quantized_matvec(*qargs),
+            lambda: qmv.quantized_matvec_reference(*qargs),
+            rows.numel() > 1e6), **bound(kit.qmatvec_bound(*qargs[:2])),
+            "dense_bound_ms": kit.qmatvec_dense_bound(*qargs[:2])[0],
+            "sha256": digest(got)}
         report("qmatvec", key)
         if key == "320":
             que = torch.from_numpy(que_np).to(dev)
@@ -434,81 +466,101 @@ def main():
                 got = qmv.quantized_matvec(*sargs)
                 if not torch.equal(got,
                                    qmv.quantized_matvec_reference(*sargs)):
-                    cs.fail(f"qmatvec differs from its plain version "
-                            f"({name})")
+                    kit.fail(f"qmatvec differs from its plain version "
+                             f"({name})")
                 out["qmatvec"][name] = {
-                    **times(lambda: qmv.quantized_matvec(*sargs)),
+                    **times(lambda: qmv.quantized_matvec(*sargs),
+                            lambda: qmv.quantized_matvec_reference(*sargs)),
+                    **bound(kit.qmatvec_bound(*sargs[:2])),
+                    "dense_bound_ms": kit.qmatvec_dense_bound(
+                        *sargs[:2])[0],
                     "sha256": digest(got)}
                 report("qmatvec", name)
     for key, (R, B, V, M, W) in (QMV_FAMILY.items() if "qmatvec" in groups
                                  else ()):
         dims, mem, _, _ = synthetic_batch(rng, R * B, V, M, W)
         w = torch.stack([4.0 * memn2n.init_params(
-            cfg, dims, torch.Generator().manual_seed(cs.SEED + r),
+            cfg, dims, torch.Generator().manual_seed(kit.SEED + r),
             device=dev)["A"] for r in range(R)])
         rows = torch.from_numpy(mem).to(dev).reshape(R, B * M, dims.dim_input)
         qargs = (w, rows, cfg.fmt_w[0], cfg.fmt_w[0])
         got = qmv.quantized_matvec(*qargs)
         if not torch.equal(got, qmv.quantized_matvec_reference(*qargs)):
-            cs.fail(f"qmatvec differs from its plain version ({key})")
-        out["qmatvec"][key] = {**times(lambda: qmv.quantized_matvec(*qargs)),
-                               "sha256": digest(got)}
+            kit.fail(f"qmatvec differs from its plain version ({key})")
+        out["qmatvec"][key] = {**times(
+            lambda: qmv.quantized_matvec(*qargs),
+            lambda: qmv.quantized_matvec_reference(*qargs),
+            rows.numel() > 1e6), **bound(kit.qmatvec_bound(*qargs[:2])),
+            "dense_bound_ms": kit.qmatvec_dense_bound(*qargs[:2])[0],
+            "sha256": digest(got)}
         report("qmatvec", key)
 
+    # the family cases draw from a generator of their own, so that the
+    # other cases keep the inputs of checkouts without them
+    fam_rng = np.random.default_rng(kit.SEED + 160)
     read_cfgs = {1: cfg, 2: cfg,
                  3: QmannConfig(iwl=1, attention_mode=3, use_pallas=True)}
     for mode, cfg_r in read_cfgs.items() if "read" in groups else ():
         for name, (B, V, M, W) in READ_SHAPES.items():
-            *_, mask_t, (m, c, u) = cs.read_inputs(rng, cfg_r, B, V, M, W,
-                                                   dev)
+            *_, mask_t, (m, c, u) = kit.read_inputs(
+                fam_rng if name.startswith("family") else rng, cfg_r, B, V,
+                M, W, dev)
             q = mode != 1
             rargs = (m, c, u, mask_t.to(torch.float32), cfg_r.fmt_att[0],
                      cfg_r.fmt_bin, cfg_r.fmt_act[0], mode == 2, q, mode,
                      cfg_r.num_bits_attention)
-            _, flips, good, sound = cs.check_read(
+            _, flips, good, sound = kit.check_read(
                 ar.fused_read(*rargs), ar.fused_read_reference(*rargs),
                 cfg_r.fmt_act[0], q)
             key = f"mode{mode} {name}"
             if not (good and sound):
-                cs.fail(f"the read disagrees with its plain version ({key})")
-            out["read"][key] = {**times(lambda: ar.fused_read(*rargs)),
+                kit.fail(f"the read disagrees with its plain version ({key})")
+            b = ((None, None) if mode == 1 else kit.attention_read_bound(
+                *rargs[:4], cfg_r.num_bits_attention if mode == 3 else None))
+            out["read"][key] = {**times(
+                lambda: ar.fused_read(*rargs),
+                lambda: ar.fused_read_reference(*rargs), m.numel() > 1e6),
                                 "host_us": host_us(
                                     lambda: ar.fused_read(*rargs)),
-                                "flipped": flips}
+                                **bound(b), "flipped": flips}
             report("read", key)
 
     for iwl in (1, 5) if "hamming" in groups else ():
         for name, (B, M, D) in HAM_SHAPES.items():
-            m, u = (torch.from_numpy(a).to(dev)
-                    for a in cs.ham_inputs(rng, iwl, B, M, D))
+            m, u = (torch.from_numpy(a).to(dev) for a in kit.ham_inputs(
+                fam_rng if name.startswith("family") else rng, iwl, B, M,
+                D))
             hargs = (m, u, iwl, 8, -3, 3)
             key = f"iwl{iwl} {name}"
             if not torch.equal(ham.hamming_score_kernel(*hargs),
                                ham.hamming_score_reference(*hargs)):
-                cs.fail(f"the Hamming kernel differs from its plain version "
-                        f"({key})")
+                kit.fail(f"the Hamming kernel differs from its plain version "
+                         f"({key})")
             out["hamming"][key] = {
-                **times(lambda: ham.hamming_score_kernel(*hargs)),
-                "host_us": host_us(lambda: ham.hamming_score_kernel(*hargs))}
+                **times(lambda: ham.hamming_score_kernel(*hargs),
+                        lambda: ham.hamming_score_reference(*hargs),
+                        m.numel() > 1e6),
+                "host_us": host_us(lambda: ham.hamming_score_kernel(*hargs)),
+                **bound(kit.hamming_bound(m, u, 8))}
             report("hamming", key)
 
     if "hamming_bwd" in groups:
         from qmann_tpu_torch.ops.cuda import hamming_bwd
-        out["hamming_bwd"] = time_hamming_bwd(cs, hamming_bwd, dev, times)
+        out["hamming_bwd"] = time_hamming_bwd(kit, hamming_bwd, dev, times)
         for key in out["hamming_bwd"]:
             report("hamming_bwd", key)
 
     if "wsum_bwd" in groups:
         from qmann_tpu_torch.ops.cuda import qweighted_sum_bwd
         qweighted_sum_bwd.build()
-        out["wsum_bwd"] = time_wsum_bwd(cs, dev, times)
+        out["wsum_bwd"] = time_wsum_bwd(kit, dev, times)
         for key in out["wsum_bwd"]:
             report("wsum_bwd", key)
 
     if "steps" in groups:
         from qmann_tpu_torch.train import train_step
         from qmann_tpu_torch.train.trainer import _batched_arrays
-        data = synthetic_task(np.random.default_rng(cs.SEED), 1000, 100, 100,
+        data = synthetic_task(np.random.default_rng(kit.SEED), 1000, 100, 100,
                               19, 10, 6)
         batch0 = {k: torch.as_tensor(v[0]).to(dev) for k, v in
                   _batched_arrays(data.train, 32).items()}
@@ -520,7 +572,7 @@ def main():
                 ("mode3 iwl1 use_pallas_hamming",
                  mode3.replace(use_pallas_hamming=True))):
             params = {k: 4.0 * v for k, v in memn2n.init_params(
-                cfg_s, data.dims, torch.Generator().manual_seed(cs.SEED),
+                cfg_s, data.dims, torch.Generator().manual_seed(kit.SEED),
                 device=dev).items()}
             lr_t = torch.tensor(cfg_s.learning_rate, dtype=torch.float32,
                                 device=dev)
@@ -533,15 +585,15 @@ def main():
         cfg3 = QmannConfig(iwl=1, attention_mode=3, use_pallas=True)
         probes = {}
         for mode, cfg_r in ((2, cfg2), (3, cfg3)):
-            *_, mask_t, (m, c, u) = cs.read_inputs(rng, cfg_r, 32, 19, 10, 6,
-                                                   dev)
+            *_, mask_t, (m, c, u) = kit.read_inputs(rng, cfg_r, 32, 19, 10,
+                                                    6, dev)
             rargs = (m, c, u, mask_t.to(torch.float32), cfg_r.fmt_att[0],
                      cfg_r.fmt_bin, cfg_r.fmt_act[0], mode == 2, True, mode,
                      cfg_r.num_bits_attention)
             probes[f"read mode{mode} B32"] = (
                 lambda a=rargs: ar.fused_read(*a))
         m, u = (torch.from_numpy(a).to(dev)
-                for a in cs.ham_inputs(rng, 1, 32, 10, 60))
+                for a in kit.ham_inputs(rng, 1, 32, 10, 60))
         probes["hamming iwl1 B32"] = (
             lambda: ham.hamming_score_kernel(m, u, 1, 8, -3, 3))
         a = torch.randn(8192, 8192, device=dev)
@@ -564,7 +616,7 @@ def main():
             entry = {"card_before": clocks()}
             with torch.inference_mode():
                 for key, fn in probes.items():
-                    entry[key] = cs.per_launch_ms(cs.device_ms(fn))
+                    entry[key] = kit.per_launch_ms(kit.device_ms(fn))
             entry["card_after"] = clocks()
             out["state"][f"{i} after {state}"] = entry
             report("state", f"{i} after {state}")

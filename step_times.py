@@ -17,15 +17,15 @@ the launches per eager step that each kernel wrapper of the port counts
 
 A fourth, the sweep_fixed.sh family's step: mode 3 iwl 1 on `use_pallas`,
 20 tasks x 2 seeds (R = 40 runs, 1280 folded queries a step) on
-chip_smoke.py's family layout (V=64, M=50, its seeded tasks of 905..1000
+scripts/card_kit.py's family layout (V=64, M=50, seeded tasks of 905..1000
 stories) from the runs' own initial weights: the eager family step
 (`multi._family_epoch_step`) against the replays of the graph that
 `multi_epoch` captured of it, 10 steps a sample, with the same readings.
 
 `--root DIR` takes `qmann_tpu_torch` from DIR, such as an older commit
 unpacked into the gitignored `chip_parent/`; the inputs and timers come
-from this checkout (`chip_smoke.py`), so two commits are timed by the same
-code.  Compare two commits in one call, in turns:
+from this checkout (`scripts/card_kit.py`), so two commits are timed by
+the same code.  Compare two commits in one call, in turns:
 
     for r in chip_parent . . chip_parent; do
       python3 step_times.py --root $r --tag $r --out steps.jsonl
@@ -62,7 +62,7 @@ WRAPPERS = (("hop_chain", "fused_hop_chain_from_memory"),
 FAMILY = "sweep_fixed family: mode 3 iwl 1, use_pallas, R = 40"
 
 
-def timed_row(cs, tag, config, eager, graphed, launches, mods):
+def timed_row(kit, tag, config, eager, graphed, launches, mods):
     """One configuration's row: launches per eager step, event ms of the
     eager and graphed sides in alternating pairs, busy ms and kernel
     records per step, the eager step's records by kernel name.  graphed
@@ -73,9 +73,9 @@ def timed_row(cs, tag, config, eager, graphed, launches, mods):
     row = {"tag": tag, "config": config, "launches_per_step": {
         w: (after[w] - before[w]) / STEPS if w in mods else None
         for _, w in WRAPPERS}}
-    t = cs.paired_ms(eager, graphed, STEPS)
+    t = kit.paired_ms(eager, graphed, STEPS)
     for side, fn in (("eager", eager), ("graphed", graphed)):
-        kernels = cs.device_ms(fn, n_iter=2)
+        kernels = kit.device_ms(fn, n_iter=2)
         row[side] = {"event_ms": statistics.median(t[side]),
                      "samples_ms": t[side],
                      "busy_ms": sum(ms for ms, _ in kernels.values())
@@ -89,7 +89,7 @@ def timed_row(cs, tag, config, eager, graphed, launches, mods):
     return row
 
 
-def family_row(cs, dev, launches, mods, tag):
+def family_row(kit, dev, launches, mods, tag):
     """The sweep_fixed family's step (module docstring): STEPS batches of
     TRAIN_BATCH per run, every run's first samples in order."""
     import numpy as np
@@ -101,16 +101,16 @@ def family_row(cs, dev, launches, mods, tag):
 
     cfg = QmannConfig(verbose=False, attention_mode=3, iwl=1,
                       use_pallas=True, en_integer_fast_path=True)
-    rng = np.random.default_rng(cs.SEED + 16)
-    pool = synthetic_task(rng, 2000, 4 * cs.FAMILY_VALID,
-                          4 * cs.FAMILY_TEST, *cs.FAMILY_LAYOUT)
-    sizes = [1000 - 5 * ((7 * t) % cs.FAMILY_TASKS)
-             for t in range(cs.FAMILY_TASKS)]
-    tasks = cs.family_tasks(rng, pool, sizes)
+    rng = np.random.default_rng(kit.SEED + 16)
+    pool = synthetic_task(rng, 2000, 4 * kit.FAMILY_VALID,
+                          4 * kit.FAMILY_TEST, *kit.FAMILY_LAYOUT)
+    sizes = [1000 - 5 * ((7 * t) % kit.FAMILY_TASKS)
+             for t in range(kit.FAMILY_TASKS)]
+    tasks = kit.family_tasks(rng, pool, sizes)
     datas = [tasks[t] for t in sorted(tasks)]
     seeds = (0, 1)
     run_task = [t for t in range(len(datas)) for _ in seeds]
-    R, B = len(run_task), cs.TRAIN_BATCH
+    R, B = len(run_task), kit.TRAIN_BATCH
     train, valid = ({k: torch.from_numpy(v).to(dev) for k, v in
                      multi._stack_split([getattr(d, split)
                                          for d in datas]).items()}
@@ -151,7 +151,7 @@ def family_row(cs, dev, launches, mods, tag):
         for _ in range(STEPS):
             step.replay()
 
-    return timed_row(cs, tag, FAMILY, eager, graphed, launches, mods)
+    return timed_row(kit, tag, FAMILY, eager, graphed, launches, mods)
 
 
 def main(argv=None):
@@ -161,19 +161,19 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  HERE / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    spec = importlib.util.spec_from_file_location(
+        "card_kit", HERE / "scripts" / "card_kit.py")
+    kit = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kit)
     import numpy as np
     import torch
     if not torch.cuda.is_available():
-        cs.fail("step_times.py needs a GPU")
+        kit.fail("step_times.py needs a GPU")
     sys.path.insert(0, str(root))
     import qmann_tpu_torch
     if not Path(qmann_tpu_torch.__file__).resolve().is_relative_to(root):
-        cs.fail(f"imported {qmann_tpu_torch.__file__}, not the package at "
-                f"{root}")
+        kit.fail(f"imported {qmann_tpu_torch.__file__}, not the package at "
+                 f"{root}")
     # every kernel module the package has, built in parallel
     mods = {}
     for name, wrapper in WRAPPERS:
@@ -197,18 +197,18 @@ def main(argv=None):
     from qmann_tpu_torch.train import train_epoch, train_step
     from qmann_tpu_torch.train.trainer import _batched_arrays
 
-    dev = torch.device(cs.DEVICE)
-    data = synthetic_task(np.random.default_rng(cs.SEED), 1000, 100, 100,
+    dev = torch.device(kit.DEVICE)
+    data = synthetic_task(np.random.default_rng(kit.SEED), 1000, 100, 100,
                           19, 10, 6)
     batches = {k: torch.from_numpy(v[:STEPS]).contiguous().to(dev)
                for k, v in _batched_arrays(data.train,
-                                           cs.TRAIN_BATCH).items()}
-    run = {"tag": args.tag, "root": str(root), "card": cs.card_line(),
+                                           kit.TRAIN_BATCH).items()}
+    run = {"tag": args.tag, "root": str(root), "card": kit.card_line(),
            "kernel_modules": len(sources), "wrappers": len(mods)}
     for name, kw in CONFIGS:
         cfg = QmannConfig(verbose=False, **kw)
         base = {k: 4.0 * v for k, v in memn2n.init_params(
-            cfg, data.dims, torch.Generator().manual_seed(cs.SEED),
+            cfg, data.dims, torch.Generator().manual_seed(kit.SEED),
             device=dev).items()}
         lr = torch.tensor(cfg.learning_rate, device=dev)
         p_e = {k: v.clone() for k, v in base.items()}
@@ -224,10 +224,10 @@ def main(argv=None):
             train_epoch(p_g, batches, lr, cfg, graphs=g)
 
         graphed()   # warm-up and capture
-        row = timed_row(cs, args.tag, name, eager, graphed, launches, mods)
+        row = timed_row(kit, args.tag, name, eager, graphed, launches, mods)
         run[name] = row
         print(json.dumps(row), flush=True)
-    row = family_row(cs, dev, launches, mods, args.tag)
+    row = family_row(kit, dev, launches, mods, args.tag)
     run[FAMILY] = row
     print(json.dumps(row), flush=True)
     print(json.dumps(run), flush=True)

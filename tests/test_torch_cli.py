@@ -133,8 +133,8 @@ def test_main_joint_mode_on_the_cpu(corpus, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--mesh", "2,1"], ["--linear-start"],
                                   ["--sc-att"], ["--shift-based-sm"],
                                   ["--att-shift"], ["--att-clip"]])
-def test_unported_flags_raise_before_reading_data(tmp_path, request, flag,
-                                                  capsys):
+def test_mesh_and_feature_flags_on_the_command_line(tmp_path, request, flag,
+                                                    capsys):
     """--mesh 2,1 outside torchrun exits 2 before any data is read (no data
     exists at the paths given), naming torchrun; --mesh 1,1 runs on a group
     of this one process, prints the mesh banner with its backend, writes

@@ -128,10 +128,10 @@ def test_chain_kernel_rejects_what_it_cannot_take(cuda):
     assert CHAIN.launches == before
 
 
-def _training_inputs(V, M, W, B, dev, seed=0):
+def _training_inputs(V, M, W, B, dev, seed=0, quant_mode=3):
     """The flagship training layout with weights x4; the last three samples
     have no live row, as the padded samples of a partial batch."""
-    cfg = QmannConfig(use_pallas=True)
+    cfg = QmannConfig(use_pallas=True, quant_mode=quant_mode)
     dims, mem, que, mask = synthetic_batch(np.random.default_rng(seed), B,
                                            V, M, W)
     for a in (mem, que, mask):
@@ -144,19 +144,28 @@ def _training_inputs(V, M, W, B, dev, seed=0):
     return cfg, params, mem_t, que_t, mask_t, u
 
 
+# a family's reads folded to one launch, at megasweep's layout: the R = 40
+# mode-3 family's step (1280 queries) and evaluation chunk (5120), the
+# R = 200 family's step (6400) and evaluation chunk (25,600)
+FAMILY_READS = [(64, 50, 6, 1280), (64, 50, 6, 5120), (64, 50, 6, 6400),
+                (64, 50, 6, 25600)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [3, 0, 1, 2])
 @pytest.mark.parametrize("V,M,W,B", [(19, 10, 6, 32), (19, 10, 6, 1024),
                                      (64, 50, 7, 32)])
-def test_qmatvec_kernel_matches_plain(cuda, V, M, W, B):
-    cfg, params, mem, que, _, u = _training_inputs(V, M, W, B, cuda)
+def test_qmatvec_kernel_matches_plain(cuda, V, M, W, B, quant_mode):
+    cfg, params, mem, que, _, u = _training_inputs(V, M, W, B, cuda,
+                                                   quant_mode=quant_mode)
     rows = mem.reshape(-1, mem.shape[-1])
     fw = cfg.fmt_w
     cases = [(params["B"], que, fw[0], fw[0]),
              (params["A"], rows, fw[0], fw[0]),
              (params["C"], rows, fw[2], fw[2]),
              (params["H"], u, fw[1], cfg.fmt_bin),
-             (params["B"], que, QFormat(0, 0), fw[0]),
-             (params["H"], u, fw[1], QFormat(0, 0))]
+             (params["B"], que, QFormat(0, 0, quant_mode), fw[0]),
+             (params["H"], u, fw[1], QFormat(0, 0, quant_mode))]
     for w, x, f_w, f_x in cases:
         before = qmv.quantized_matvec.launches
         got = qmv.quantized_matvec(w, x, f_w, f_x)
@@ -167,11 +176,14 @@ def test_qmatvec_kernel_matches_plain(cuda, V, M, W, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [3, 0, 1, 2])
 @pytest.mark.parametrize("mode", [2, 1])
 @pytest.mark.parametrize("V,M,W,B", [(19, 10, 6, 32), (19, 10, 6, 1024),
-                                     (64, 50, 7, 32)])
-def test_attention_read_kernel_matches_plain(cuda, V, M, W, B, mode):
-    cfg, params, mem, _, mask, u = _training_inputs(V, M, W, B, cuda)
+                                     (64, 50, 7, 32)] + FAMILY_READS[2:])
+def test_attention_read_kernel_matches_plain(cuda, V, M, W, B, mode,
+                                             quant_mode):
+    cfg, params, mem, _, mask, u = _training_inputs(V, M, W, B, cuda,
+                                                    quant_mode=quant_mode)
     m = qembed_mat_forward(mem, params["A"], cfg.fmt_w[0])
     c = qembed_mat_forward(mem, params["C"], cfg.fmt_w[0])
     q = mode == 2
@@ -289,7 +301,8 @@ def ham_inputs(iwl, B, M, D, seed=0):
                                                   (0, False)])
 @pytest.mark.parametrize("iwl", [0, 1, 5])
 @pytest.mark.parametrize("B,M,D", [(32, 10, 60), (1024, 10, 60),
-                                   (32, 50, 60)])
+                                   (32, 50, 60), (1280, 50, 60),
+                                   (5120, 50, 60)])
 def test_hamming_kernel_matches_plain(cuda, B, M, D, iwl, weight_para,
                                       weighted):
     m, u = (torch.from_numpy(a).to(cuda) for a in ham_inputs(iwl, B, M, D))
@@ -341,30 +354,34 @@ def _assert_backward_matches(m, u, g, iwl, num_bit, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", [3, 0, 1, 2])
 @pytest.mark.parametrize("iwl", [0, 1, 5, 31])
-@pytest.mark.parametrize("B,M,D", [(32, 10, 60), (1024, 10, 60),
-                                   (32, 50, 60)])
-def test_hamming_backward_kernel_matches_plain(cuda, B, M, D, iwl, mode):
+@pytest.mark.parametrize("B,M,D,num_bits", [
+    (32, 10, 60, range(1, 33)), (1024, 10, 60, (1, 8, 25, 32)),
+    (32, 50, 60, (1, 8, 25, 32))])
+def test_hamming_backward_kernel_matches_plain(cuda, B, M, D, num_bits, iwl,
+                                               mode):
     """At the training, eval-chunk and wide shapes, on ham_inputs (the
-    encode's edge list in sample 0), num_bit 1, 8, 25 and 32."""
+    encode's edge list in sample 0), every num_bit from 1 to 32 at the
+    training shape, num_bit 1, 8, 25 and 32 at the others."""
     m, u = (torch.from_numpy(a).to(cuda) for a in ham_inputs(iwl, B, M, D))
     g = torch.from_numpy(np.random.default_rng(iwl).normal(
         0.0, 1.0, (B, M)).astype(np.float32)).to(cuda)
     g[0, :2] = torch.tensor([0.0, -0.0])
-    for num_bit in (1, 8, 25, 32):
+    for num_bit in num_bits:
         _assert_backward_matches(m, u, g, iwl, num_bit, mode)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", [3, 0, 1, 2])
 @pytest.mark.parametrize("B", [32, 128])
-def test_hamming_backward_kernel_folds_a_family(cuda, B):
+def test_hamming_backward_kernel_folds_a_family(cuda, B, mode):
     """The mode-3 family's [R, B, M, D] = [40, B, 50, 60], folded into the
-    kernel's batch by the wrapper."""
+    kernel's batch by the wrapper, at every rounding mode."""
     m, u = (torch.from_numpy(a).to(cuda) for a in ham_inputs(1, 40 * B, 50,
                                                              60))
     m, u = m.reshape(40, B, 50, 60), u.reshape(40, B, 60)
     g = torch.from_numpy(np.random.default_rng(B).normal(
         0.0, 1.0, (40, B, 50)).astype(np.float32)).to(cuda)
-    _assert_backward_matches(m, u, g, 1, 8, 3)
+    _assert_backward_matches(m, u, g, 1, 8, mode)
 
 
 @pytest.mark.cuda
@@ -432,7 +449,7 @@ def _assert_wsum_backward_matches(c, p, mask, g, fmt):
 WSUM_FORMATS = ([QFormat(iwl, 7 - iwl, mode) for iwl in (0, 1, 5)
                  for mode in (3, 0, 1, 2)] + [QFormat(0, 0, 3)]
                 + [QFormat(1, wl - 2, mode) for wl in (16, 24, 32)
-                   for mode in (3, 2)])
+                   for mode in (3, 0, 1, 2)])
 
 
 @pytest.mark.cuda
@@ -551,11 +568,14 @@ def test_qweighted_sum_backward_kernel_rejects_what_it_cannot_take(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant_mode", [3, 0, 1, 2])
 @pytest.mark.parametrize("iwl", [1, 5])
 @pytest.mark.parametrize("V,M,W,B", [(19, 10, 6, 32), (19, 10, 6, 1024),
-                                     (64, 50, 7, 32)])
-def test_attention_read_mode3_matches_plain(cuda, V, M, W, B, iwl):
-    cfg, params, mem, que, mask, _ = _training_inputs(V, M, W, B, cuda)
+                                     (64, 50, 7, 32)] + FAMILY_READS)
+def test_attention_read_mode3_matches_plain(cuda, V, M, W, B, iwl,
+                                            quant_mode):
+    cfg, params, mem, que, mask, _ = _training_inputs(V, M, W, B, cuda,
+                                                      quant_mode=quant_mode)
     cfg = cfg.replace(iwl=iwl, attention_mode=3)
     m = qembed_mat_forward(mem, params["A"], cfg.fmt_w[0])
     c = qembed_mat_forward(mem, params["C"], cfg.fmt_w[0])
@@ -841,16 +861,19 @@ def _embedded_case(cfg, V, M, W, B, dev, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", EMBED_LAYOUTS)
-@pytest.mark.parametrize("B", [1, 64, 1000])
+@pytest.mark.parametrize("B,quant_mode", [(1, 3), (64, 3), (1000, 3),
+                                          (1000, 0), (1000, 1), (1000, 2)])
 @pytest.mark.parametrize("cached", [False, True])
 @pytest.mark.parametrize("attention_mode", [2, 3])
 def test_embedded_chain_kernel_matches_gemm_and_flat_kernel(
-        cuda, attention_mode, cached, B, layout):
+        cuda, attention_mode, cached, B, quant_mode, layout):
     """fused_hop_chain_from_memory's (u, p, s) equal, bit for bit, the
     kernel on the exact GEMM's output (_chain_on_flat), on raw H and on
     the cached Q(H), and hold to the plain version under the module
-    docstring's tolerances; one launch, counted in both counts."""
-    cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode)
+    docstring's tolerances; one launch counted.  At B=1000 in every
+    rounding mode (the kernel fixes the mode at compile time)."""
+    cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode,
+                      quant_mode=quant_mode)
     prep, mem, que, mask = _embedded_case(cfg, *EMBED_LAYOUTS[layout], B,
                                           cuda)
     u = float_quant(exact_matmul(que, prep.query_wt), cfg.fmt_w[0])
@@ -859,11 +882,10 @@ def test_embedded_chain_kernel_matches_gemm_and_flat_kernel(
     flags = dict(attention_mode=attention_mode,
                  ham_num_bit=cfg.num_bits_attention, hmats_quantized=cached)
     want = _chain_on_flat(mem, prep.embed_wt, u, hm, *rest, **flags)
-    before = (CHAIN.launches, CHAIN.embedded_launches)
+    before = CHAIN.launches
     got = CHAIN(mem, prep.embed_wt, u, hm, *rest, **flags)
     torch.cuda.synchronize()
-    assert (CHAIN.launches, CHAIN.embedded_launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert CHAIN.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     _assert_chain_kernel_matches(cfg, (mem, prep.embed_wt, u, hm, *rest),
@@ -896,9 +918,9 @@ def test_embedded_chain_kernel_takes_an_all_padding_query(cuda,
 @pytest.mark.parametrize("layout", ["flagship", "wide"])
 @pytest.mark.parametrize("attention_mode", [2, 3])
 def test_forward_prepared_embeds_in_the_chain(cuda, attention_mode, layout):
-    """forward_prepared's chain route launches the chain once a call (both
-    counts rise by one) and gives the logits, p and scores of the exact
-    GEMM then the chain kernel on its output, bit for bit."""
+    """forward_prepared's chain route launches the chain once a call and
+    gives the logits, p and scores of the exact GEMM then the chain kernel
+    on its output, bit for bit."""
     cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode)
     prep, mem, que, mask = _embedded_case(cfg, *EMBED_LAYOUTS[layout], 1000,
                                           cuda)
@@ -910,12 +932,11 @@ def test_forward_prepared_embeds_in_the_chain(cuda, attention_mode, layout):
     logits_w = qmatvec_forward(memn2n._output_weight(prep.raw, cfg), u_w,
                                cfg.fmt_ds_ans, cfg.fmt_ds_ans,
                                quantized=False)
-    before = (CHAIN.launches, CHAIN.embedded_launches)
+    before = CHAIN.launches
     with torch.inference_mode():
         out = memn2n.forward_prepared(prep, mem, que, mask, cfg)
     torch.cuda.synchronize()
-    assert (CHAIN.launches, CHAIN.embedded_launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert CHAIN.launches == before + 1
     assert torch.equal(out.logits, logits_w)
     assert torch.equal(out.attention, p_w)
     assert torch.equal(out.scores, s_w)
@@ -928,7 +949,7 @@ def test_embedded_chain_kernel_rejects_what_it_cannot_take(cuda):
     u = float_quant(exact_matmul(que, prep.query_wt), cfg.fmt_w[0])
     rest = (prep.hmats, mask, cfg.fmt_w, cfg.fmt_att, cfg.fmt_bin,
             cfg.fmt_act)
-    before = CHAIN.embedded_launches
+    before = CHAIN.launches
     with pytest.raises(ValueError, match="shapes"):
         CHAIN(mem, prep.embed_wt[:-1], u, *rest)
     with pytest.raises(ValueError, match="bounds"):
@@ -936,7 +957,7 @@ def test_embedded_chain_kernel_rejects_what_it_cannot_take(cuda):
               prep.hmats, torch.ones((8, 65), device=cuda), *rest[2:])
     with pytest.raises(TypeError, match="float32"):
         CHAIN(mem, prep.embed_wt.double(), u, *rest)
-    assert CHAIN.embedded_launches == before
+    assert CHAIN.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -1203,40 +1224,6 @@ def test_qmatvec_family_axis_every_rounding_mode(cuda, R, B, O, I,
                                                             f_w, f_x))
 
 
-@pytest.mark.cuda
-def test_family_step_launches_as_one_run(cuda):
-    """One family step on the kernel route (R = 6 runs, use_pallas) launches
-    the lattice 10 times and the read 3 times, as one run's step, and its
-    runs equal their single-run steps (rtol 1e-5, atol 1e-6)."""
-    from qmann_tpu_torch.train import multi, train_step
-    cfg = QmannConfig(use_pallas=True, verbose=False)
-    dims, mem, que, mask = synthetic_batch(np.random.default_rng(0), 32,
-                                           19, 10, 6)
-    R = 6
-    runs = [{k: 4.0 * v for k, v in memn2n.init_params(
-        cfg, dims, torch.Generator().manual_seed(s), device=cuda).items()}
-        for s in range(R)]
-    params = {k: torch.stack([p[k] for p in runs]) for k in runs[0]}
-    ans = np.zeros_like(que)
-    ans[np.arange(32), np.arange(32) % 19] = 1.0
-    one = {"memory": mem, "question": que, "answer": ans, "mask": mask,
-           "sample_mask": np.ones(32, np.float32),
-           "size_b": np.float32(32.0)}
-    one = {k: torch.as_tensor(v).to(cuda) for k, v in one.items()}
-    batch = {k: torch.stack([v] * R) for k, v in one.items()}
-    lr = torch.tensor(cfg.learning_rate, device=cuda)
-    before = (qmv.quantized_matvec.launches, ar.fused_read.launches)
-    multi.family_step(params, batch, lr, cfg)
-    torch.cuda.synchronize()
-    assert (qmv.quantized_matvec.launches - before[0],
-            ar.fused_read.launches - before[1]) == (10, 3)
-    for r, p in enumerate(runs):
-        train_step(p, one, lr, cfg)
-        for k in p:
-            torch.testing.assert_close(params[k][r], p[k], rtol=1e-5,
-                                       atol=1e-6)
-
-
 # the zero-skipping lattice's cases: (R, B) of x, the run.sh family's
 # memory rows (R = 200, fewer rows) and one run's 32 / 320 / 1600 / 10240
 SKIP_SHAPES = [(200, 64), (1, 32), (1, 320), (1, 1600), (1, 10240)]
@@ -1354,22 +1341,51 @@ def test_graphed_family_step_counts_sparse_launches(cuda):
     assert graph.launches[0] == graph.launches[7] == 10
 
 
+def _edge_samples(dims, n_dict):
+    """Packet-stream samples at the edges of the engine's index path: NULL
+    (index 0) counted, indices past the dictionary and in the temporal
+    columns dropped before the truncation to the row's words, stories past
+    max_line, transmitted temporal indices out of range, in a word column
+    or missing, empty sentences and an empty question."""
+    from qmann_tpu_torch.serve.packet import IndexedSample
+    d = dims
+    drop = [n_dict, d.dim_dict - 1, d.dim_dict, d.dim_input - 1, 4095]
+    words = [i % (n_dict - 1) + 1 for i in range(3 * d.max_word)]
+    return [
+        IndexedSample([[0, 0, 1], drop + words], [d.dim_dict, d.dim_dict + 1],
+                      [0] + drop + [2, 3], [1]),
+        IndexedSample([words[i:i + 3] for i in range(d.max_line + 3)],
+                      [d.dim_dict + (i % d.max_line)
+                       for i in range(d.max_line + 3)], words[:3], [1]),
+        IndexedSample([[1, 2], [3], words, [4]], [d.dim_input, 2], [5, 6],
+                      [2]),
+        IndexedSample([[], [1], []], [d.dim_dict + 2, 4095, d.dim_dict], [],
+                      [3]),
+        IndexedSample([drop], [d.dim_dict], drop + words[:2], [1]),
+    ]
+
+
 @pytest.mark.cuda
-def test_packet_server_on_the_card_through_the_chain(cuda):
+@pytest.mark.parametrize("attention_mode", [2, 3])
+def test_packet_server_on_the_card_through_the_chain(cuda, attention_mode):
     """The packet server in front of an engine on the card with
-    use_fused_chain: every answer over TCP equals the plain route's for the
-    same sample, one chain launch per wave, and no failed wave."""
+    use_fused_chain, in modes 2 and 3 at iwl 5: every answer over TCP, the
+    edge samples' included, equals the plain route's for the sample as the
+    server decodes it (the wire drops a sentence without a temporal
+    index), one chain launch per wave, and no failed wave."""
     from qmann_tpu_torch.data import Dictionary, synthetic_samples
     from qmann_tpu_torch.serve import InferenceEngine
     from qmann_tpu_torch.serve.client import PacketClient
-    from qmann_tpu_torch.serve.packet import IndexedSample
+    from qmann_tpu_torch.serve.packet import (
+        IndexedSample, PacketDecoder, encode_sample)
     from qmann_tpu_torch.serve.server import serve
     rng = np.random.default_rng(9)
     dims, _, _, _ = synthetic_batch(rng, 4, 19, 10, 6)
     dictionary = Dictionary()
     for i in range(1, 19):
         dictionary.add(f"w{i}")
-    cfg = QmannConfig(use_fused_chain=True, verbose=False)
+    cfg = QmannConfig(use_fused_chain=True, attention_mode=attention_mode,
+                      verbose=False)
     params = {k: 4.0 * v for k, v in memn2n.init_params(
         cfg, dims, torch.Generator().manual_seed(0), device=cuda).items()}
     samples = [IndexedSample(
@@ -1378,6 +1394,7 @@ def test_packet_server_on_the_card_through_the_chain(cuda):
          for j in range(len(s.sentences))],
         [dictionary.lookup(w) for w in s.question], [1])
         for s in synthetic_samples(rng, 200, 19, 10, 6)]
+    samples += _edge_samples(dims, len(dictionary))
     engines = [InferenceEngine(params, c, dims, dictionary, batch_size=32,
                                max_wait_ms=5.0, device=cuda).start()
                for c in (cfg, cfg.replace(use_fused_chain=False))]
@@ -1388,8 +1405,9 @@ def test_packet_server_on_the_card_through_the_chain(cuda):
         with PacketClient(host, port, timeout=120) as client:
             got = client.query_samples(samples)
         launched = CHAIN.launches - before
-        want = [f.result(timeout=120)
-                for f in [engines[1].submit_indexed(s) for s in samples]]
+        want = [f.result(timeout=120) for f in [
+            engines[1].submit_indexed(PacketDecoder().feed(
+                encode_sample(s))[0]) for s in samples]]
     finally:
         server.shutdown()
         server.server_close()

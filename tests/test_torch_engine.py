@@ -1,6 +1,6 @@
 """The port's InferenceEngine and data shapes on the CPU against the JAX
-package, and the guard that neither the port nor chip_smoke.py imports jax
-or the JAX package."""
+package, and the guard that neither the port nor the scripts that run on
+the card's machine import jax or the JAX package."""
 import ast
 import dataclasses
 import subprocess
@@ -143,8 +143,8 @@ def _imported_roots(path: Path):
 
 def test_port_never_imports_jax():
     """The machine with the GPU has no jax: importing every module of the
-    port loads neither jax nor the JAX package, and chip_smoke.py imports
-    neither."""
+    port loads neither jax nor the JAX package, and scripts/card_kit.py
+    imports neither."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import qmann_tpu_torch\n"
@@ -187,23 +187,17 @@ def test_port_never_imports_jax():
             "qmann_tpu_torch.bench.backend_ab",
             "qmann_tpu_torch.bench.probe_dispatch",
             "qmann_tpu_torch.bench.trace_forward"} <= names
-    roots = _imported_roots(REPO / "chip_smoke.py")
+    roots = _imported_roots(REPO / "scripts/card_kit.py")
     assert "qmann_tpu_torch" in roots
     assert not roots & {"jax", "jaxlib", "qmann_tpu"}
 
 
-def test_kernel_times_never_imports_jax():
-    """The script that runs on the card's machine imports neither jax nor
-    the JAX package."""
-    roots = _imported_roots(REPO / "scripts/kernel_times.py")
-    assert not roots & {"jax", "jaxlib", "qmann_tpu"}
-    assert "qmann_tpu_torch" in roots
-
-
-@pytest.mark.parametrize("script", ["step_times.py", "scripts/sass_loops.py"])
+@pytest.mark.parametrize("script", ["scripts/card_kit.py",
+                                    "scripts/kernel_times.py",
+                                    "step_times.py", "scripts/sass_loops.py"])
 def test_timing_scripts_never_import_jax(script):
-    """The other scripts that run on the card's machine import neither jax
-    nor the JAX package, only the port."""
+    """The scripts that run on the card's machine import neither jax nor
+    the JAX package, only the port."""
     roots = _imported_roots(REPO / script)
     assert not roots & {"jax", "jaxlib", "qmann_tpu"}
     assert "qmann_tpu_torch" in roots

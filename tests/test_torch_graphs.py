@@ -293,10 +293,9 @@ def test_launch_accounting_on_a_stub_capture():
         graphs._counters()[1][0].launches += 3    # the read's count
         chain = graphs._counters()[3][0]
         chain.launches += 2
-        chain.embedded_launches += 2
     # graphs.COUNTED: seven wrappers' launches, then the lattice's sparse
-    # launches and the chain's embedded ones
-    assert delta == [10, 3, 0, 2, 0, 0, 0, 10, 2]
+    # launches
+    assert delta == [10, 3, 0, 2, 0, 0, 0, 10]
     assert graphs.launch_counts() == start
     stub = _StubGraph()
     g = graphs.Graph(("family_step",), stub, (), None, delta)
@@ -305,7 +304,7 @@ def test_launch_accounting_on_a_stub_capture():
     assert stub.replays == g.replays == 4
     assert graphs.launch_counts() == (start[0] + 40, start[1] + 12,
                                       start[2], start[3] + 8, *start[4:7],
-                                      start[7] + 40, start[8] + 8)
+                                      start[7] + 40)
     real = qmv.quantized_matvec
 
     def spy(*args):
@@ -439,12 +438,27 @@ def cuda():
     return torch.device("cuda")
 
 
+# route: (config, graphs.COUNTED's launches per step)
+REPLAY_ROUTES = {
+    "mode2": (dict(use_pallas=True), [10, 3, 0, 0, 0, 0, 3, 10]),
+    "mode3": (dict(iwl=1, attention_mode=3, use_pallas=True),
+              [10, 3, 0, 0, 3, 0, 3, 10]),
+    "mode3 hamming": (dict(iwl=1, attention_mode=3, use_pallas_hamming=True),
+                      [0, 0, 3, 0, 3, 3, 0, 0])}
+
+
 @pytest.mark.cuda
-def test_replayed_epoch_equals_the_eager_loop(cuda):
+@pytest.mark.parametrize("route", REPLAY_ROUTES)
+def test_replayed_epoch_equals_the_eager_loop(cuda, route):
     """Two graphed epochs (warm-up, capture, replays) against train_step
-    over the same batches, bit for bit, and the launch counts those of
-    the kernels that ran: 10 lattice and 3 read launches per step."""
-    cfg = QmannConfig(use_pallas=True, size_batch=32, verbose=False)
+    over the same batches, bit for bit, in mode 2 iwl 5 and mode 3 iwl 1
+    on use_pallas and mode 3 iwl 1 on use_pallas_hamming; the launch
+    counts those of the kernels that ran, per replay as per eager step:
+    the lattice (each launch skipping the zero entries of Q(x)) and the
+    read, or the Hamming kernel, once per hop of the forward, and the
+    backward kernels once per hop."""
+    kw, per_step = REPLAY_ROUTES[route]
+    cfg = QmannConfig(size_batch=32, verbose=False, **kw)
     data, batches_np = _epoch_batches(1, n_batches=4, batch=32,
                                       live_last=9)
     base = {k: 4.0 * v for k, v in memn2n.init_params(
@@ -465,9 +479,10 @@ def test_replayed_epoch_equals_the_eager_loop(cuda):
                                          graphs=g)
         torch.cuda.synchronize()
         ran = [a - b for a, b in zip(graphs.launch_counts(), before)]
-        assert ran[:2] == [40, 12]
+        assert ran == [4 * n for n in per_step]
         assert torch.equal(cost, torch.stack(costs).sum())
-    assert len(g.graphs) == 1
+    (graph,) = g.graphs.values()
+    assert list(graph.launches) == per_step
     for k in base:
         assert torch.equal(graphed[k], loop[k]), k
 

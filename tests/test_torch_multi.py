@@ -328,8 +328,7 @@ def test_family_update_matches_vmapped_jax(rng, tying, grad_sd):
     multi.family_update(got, {k: torch.from_numpy(v)
                               for k, v in grads.items()},
                         torch.tensor(lr), torch.from_numpy(size_b),
-                        QmannConfig(**kw), scale_dim,
-                        np.flatnonzero(size_b == 0))
+                        QmannConfig(**kw), scale_dim)
     for k in params:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-6, atol=1e-7, err_msg=k)

@@ -161,12 +161,12 @@ def test_init_params_layout():
                                 dict(en_cosine_sim=True),
                                 dict(test_maxout=True),
                                 dict(en_att_shift=True)])
-def test_unported_features_raise(kw):
-    """Every feature head is ported (none raises): the forward, and
-    prepare_inference + forward_prepared with use_fused_chain, against
-    JAX.  A feature head is outside the chain's envelope on both sides, so
-    the prepared forward takes the unfused hops after the exact GEMMs (the
-    scale and maxout weights ride along in the prepared raw params)."""
+def test_feature_head_forward_matches_jax(kw):
+    """Each feature head's forward, and prepare_inference +
+    forward_prepared with use_fused_chain, against JAX.  A feature head is
+    outside the chain's envelope on both sides, so the prepared forward
+    takes the unfused hops after the exact GEMMs (the scale and maxout
+    weights ride along in the prepared raw params)."""
     cfg_kw = dict(dim_emb=8, verbose=False, use_fused_chain=True, **kw)
     _compare(cfg_kw, 12, seed=5, prepared=False)
     got = _compare(cfg_kw, 12, seed=5)

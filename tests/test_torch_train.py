@@ -446,17 +446,17 @@ def test_eval_split_matches_jax_over_three_chunks(kw):
                                      (dict(en_similarity_analysis=True),
                                       "similarity"),
                                      (dict(), "mesh")])
-def test_train_task_refuses_what_is_not_ported(kw, what, tmp_path):
-    """Every case is ported.  The mesh case trains on a mesh of one rank (a
-    group of this process) and gives the single-device run's history and
-    test error exactly (no collective crosses an axis of size 1).  The
-    linear case runs a 3-epoch train_task (2 linear-start
-    epochs, softmax removed at half the lr, then 1) on the kernel route
-    against JAX's history from the same weights (errors and lr exact,
-    costs rtol 1e-4, as test_train_task_history_matches_jax; the plain
-    route's steps are held to JAX in tests/test_torch_features.py); the
-    similarity case checks that
-    the run writes the first 25-epoch bucket's two CSVs."""
+def test_train_task_linear_start_similarity_and_mesh(kw, what, tmp_path):
+    """train_task with linear start, the similarity analysis and a mesh.
+    The mesh case trains on a mesh of one rank (a group of this process)
+    and gives the single-device run's history and test error exactly (no
+    collective crosses an axis of size 1).  The linear case runs a 3-epoch
+    train_task (2 linear-start epochs, softmax removed at half the lr,
+    then 1) on the kernel route against JAX's history from the same
+    weights (errors and lr exact, costs rtol 1e-4, as
+    test_train_task_history_matches_jax; the plain route's steps are held
+    to JAX in tests/test_torch_features.py); the similarity case checks
+    that the run writes the first 25-epoch bucket's two CSVs."""
     data = babi.synthetic_task(np.random.default_rng(0), 4, 1, 1, V, M, W)
     if what == "similarity":
         cfg = QmannConfig(dim_emb=8, num_itr=1, verbose=False,
